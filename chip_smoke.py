@@ -32,7 +32,29 @@ Phases, one line each; any failure exits nonzero before the final line:
    ``run_training``, whose losses must be finite and fall, with exactly
    24 ``mha_fwd``, 24 ``mha_bwd`` and one launch of each InfoNCE kernel
    per step.  Step ms, pairs/s and peak device memory are printed beside
-   the card's name and power limit.
+   the card's name and power limit;
+8. hold the fused uniformity forward and backward kernels against their
+   plain versions at (256, 512) fp32 unit rows and at N = 200, and time
+   both;
+9. train full-width ViT-B-32 at batch 256 under the exp-6 configuration
+   (``only_lunif_n_then_anchor+lalign+lunif(centroids)``, one warm epoch,
+   fixed temperature 0.1, bf16 compute) through ``create_train_setup``,
+   ``train_step`` and ``run_training``, two epochs of a few steps on a
+   fixed device-resident batch: epoch 0 is the warm phase (uniformity
+   alone), epoch 1 the main phase.  One warm and one main step are first
+   held against the same step with every kernel swapped for its plain
+   version (which launches none); the epochs must launch exactly 24
+   ``mha_fwd``, 24 ``mha_bwd`` and 2 of each uniformity kernel a warm
+   step, and 24, 24, one of each InfoNCE kernel and one of each uniformity
+   kernel a main step; losses must be finite.  Step ms and pairs/s of each
+   phase and the peak device memory are printed beside the card;
+10. the per-epoch eval inside that ``run_training``: ``evaluate_model``
+   over ``make_eval_model(model)``, the fp32 twin on the training
+   parameters, over 512 synthetic pairs in two batches of 256, before
+   training and after each epoch.  The 13 metrics must be present and
+   finite, each eval must launch 24 ``mha_fwd`` a batch and nothing else,
+   and the final eval must agree with the same eval on the plain
+   attention.
 
 The last lines are a JSON object of per-kernel results (time, plain time,
 the card's least time for the work, launches on the main paths), the
@@ -81,6 +103,28 @@ TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 TRAIN_LOSS_RTOL = 2e-3
 TRAIN_DT_RTOL = 2e-2
 TRAIN_MIN_GRAD_COSINE = 0.99
+# uniformity kernels vs plain versions, all fp32: S sums N(N-1) weights in
+# another order, and each Gram entry is an FMA chain in another order than
+# cuBLAS's; dx against its largest entry (r∘x − Wx cancels)
+LUNIF_S_RTOL, LUNIF_LOSS_ATOL = 1e-5, 1e-5
+LUNIF_DX_TOL = (1e-4, 1e-5)  # rtol, atol relative to the largest entry
+# exp 6 as scripts/_bench.py:81-87 defines it (copied: that module imports
+# the JAX package)
+EXP6 = {
+    "model": "ViT-B-32", "batch_size": 256, "epochs": 100,
+    "learning_rate": 1e-4,
+    "loss_type": "only_lunif_n_then_anchor+lalign+lunif(centroids)",
+    "only_lunif_epochs": 1, "anchor_temperature": 0.1,
+    "fp16": True, "seed": 42,
+}
+EXP6_EPOCHS, EXP6_STEPS_PER_EPOCH = 2, 8  # depth cut: one warm and one main epoch
+EVAL_PAIRS = 512  # the reference's eval set (sparsify_clip_tpu/eval.py:241-242)
+# kernel eval vs plain-attention eval on the same fp32 twin: fp32 towers whose
+# attention sums run in other orders (embeddings ~1e-6 apart); a rank can
+# flip only on a near-tie, so each recall may move by two pairs
+EVAL_GEOMETRY_ATOL = 1e-4
+EVAL_RECALL_ATOL = 2 * 100 / EVAL_PAIRS
+EVAL_MIN_COSINE = 0.99999
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -377,15 +421,17 @@ def phase_train_kernels():
     return results
 
 
-KERNELS = ("mha_fwd", "mha_bwd", "infonce_fwd", "infonce_bwd_dimg", "infonce_bwd_dtxt")
+KERNELS = ("mha_fwd", "mha_bwd", "infonce_fwd", "infonce_bwd_dimg", "infonce_bwd_dtxt",
+           "lunif_fwd", "lunif_bwd")
 
 
 def counters():
-    from sparsify_clip_tpu_torch.ops import attention, infonce
+    from sparsify_clip_tpu_torch.ops import attention, infonce, lunif
 
     return {"mha_fwd": attention.mha_fwd, "mha_bwd": attention.mha_bwd,
             "infonce_fwd": infonce.infonce_fwd, "infonce_bwd_dimg": infonce.infonce_bwd_dimg,
-            "infonce_bwd_dtxt": infonce.infonce_bwd_dtxt}
+            "infonce_bwd_dtxt": infonce.infonce_bwd_dtxt, "lunif_fwd": lunif.lunif_fwd,
+            "lunif_bwd": lunif.lunif_bwd}
 
 
 def reset_counts():
@@ -397,13 +443,29 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
+def _plain_paths():
+    """Swap the towers' attention core and the loss's fused InfoNCE and
+    uniformity for their plain versions (autograd differentiates them);
+    returns the function that puts the kernels back."""
+    from sparsify_clip_tpu_torch.losses import contrastive_loss, dispatch
+    from sparsify_clip_tpu_torch.losses.unif import lunif_loss
+    from sparsify_clip_tpu_torch.models import layers
+    from sparsify_clip_tpu_torch.ops.attention import mha_fwd_reference
+
+    kept = layers.attention_core, dispatch.infonce_loss, dispatch.lunif_loss
+    layers.attention_core = lambda qkv, heads, causal=False: mha_fwd_reference(qkv, heads, causal)[0]
+    dispatch.infonce_loss, dispatch.lunif_loss = contrastive_loss, lunif_loss
+
+    def restore():
+        layers.attention_core, dispatch.infonce_loss, dispatch.lunif_loss = kept
+
+    return restore
+
+
 def phase_train():
     """Phase 7: the anchor train step of full-width ViT-B-32 at batch 256."""
     from sparsify_clip_tpu_torch.config import ExperimentConfig
     from sparsify_clip_tpu_torch.data import synthetic_batch
-    from sparsify_clip_tpu_torch.losses import contrastive_loss, dispatch
-    from sparsify_clip_tpu_torch.models import layers
-    from sparsify_clip_tpu_torch.ops.attention import mha_fwd_reference
     from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup, run_training
 
     config = ExperimentConfig.from_dict(dict(
@@ -421,7 +483,7 @@ def phase_train():
     params = [p for p in state.model.parameters()]
     depth = cfg.vision_layers[0] + cfg.text_layers
     per_step = {"mha_fwd": depth, "mha_bwd": depth, "infonce_fwd": 1, "infonce_bwd_dimg": 1,
-                "infonce_bwd_dtxt": 1}
+                "infonce_bwd_dtxt": 1, "lunif_fwd": 0, "lunif_bwd": 0}
     log("phase 7 setup", name=cfg.name, params=sum(p.numel() for p in params),
         param_dtype=str(params[0].dtype), compute_dtype=str(setup.model.dtype),
         batch=TRAIN_BATCH, seconds=f"{time.perf_counter() - t:.3f}")
@@ -435,17 +497,14 @@ def phase_train():
         raise AssertionError(f"kernel step launched {counts}, expected {per_step}")
     grads_k = [p.grad.detach().clone() for p in params]
     dt_k = state.temperature.grad.detach().clone()
-    # the same step with the towers' attention core and the loss's fused
-    # InfoNCE swapped for their plain versions (autograd differentiates them)
-    kernel_core, kernel_infonce = layers.attention_core, dispatch.infonce_loss
-    layers.attention_core = lambda qkv, heads, causal=False: mha_fwd_reference(qkv, heads, causal)[0]
-    dispatch.infonce_loss = contrastive_loss
+    # the same step with every kernel swapped for its plain version
+    restore = _plain_paths()
     try:
         reset_counts()
         loss_p = setup.train_step.loss_and_grads(state, batch)[0].detach()
         torch.cuda.synchronize()
     finally:
-        layers.attention_core, dispatch.infonce_loss = kernel_core, kernel_infonce
+        restore()
     if any(read_counts().values()):
         raise AssertionError(f"the plain step launched kernels: {read_counts()}")
     cosines = []
@@ -500,6 +559,218 @@ def phase_train():
     return dict(launches=launches, step_ms=step_ms, peak=peak)
 
 
+def phase_lunif_kernels():
+    """Phase 8: the uniformity kernels against their plain versions at the
+    exp-6 step's shapes, timed."""
+    from sparsify_clip_tpu_torch.ops.lunif import (
+        lunif_bwd, lunif_bwd_reference, lunif_fwd, lunif_fwd_reference,
+    )
+
+    results = {}
+    rng = np.random.default_rng(SEED + 3)
+    for n, d in [(256, 512), (200, 512)]:
+        x = rng.standard_normal((n, d), dtype=np.float32)
+        x = torch.from_numpy(x / np.linalg.norm(x, axis=-1, keepdims=True)).cuda()
+        g = torch.ones((), device="cuda")
+        s, loss = lunif_fwd(x)
+        want_s, want_loss = lunif_fwd_reference(x)
+        dx, want_dx = lunif_bwd(x, want_s, g), lunif_bwd_reference(x, want_s, g)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(s, want_s, rtol=LUNIF_S_RTOL, atol=0)
+        torch.testing.assert_close(loss, want_loss, rtol=0, atol=LUNIF_LOSS_ATOL)
+        scale = want_dx.abs().max().item()
+        torch.testing.assert_close(dx, want_dx, rtol=LUNIF_DX_TOL[0], atol=LUNIF_DX_TOL[1] * scale)
+        errors = {"lunif_fwd": max((s - want_s).abs().item(), (loss - want_loss).abs().item()),
+                  "lunif_bwd": (dx - want_dx).abs().max().item()}
+        # the least work: x·xᵀ is symmetric, so the i<j half of the Gram
+        # (N(N−1)/2 dot products) and the N norms; the backward adds the
+        # full W·x (N²·D FMAs).  An FMA is two operations.
+        half_gram = n * (n - 1) * d + 2 * n * d
+        checks = [
+            # name, kernel, plain, bytes (x read, outputs written), flops
+            ("lunif_fwd", lambda: lunif_fwd(x), lambda: lunif_fwd_reference(x),
+             n * d * 4 + 8, half_gram),
+            ("lunif_bwd", lambda: lunif_bwd(x, want_s, g),
+             lambda: lunif_bwd_reference(x, want_s, g), 2 * n * d * 4 + 8,
+             half_gram + 2 * n * n * d),
+        ]
+        for name, kernel, plain, n_bytes, flops in checks:
+            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            bound_ms, bound_by = bound(n_bytes, flops, "float32")
+            results[f"{name}/{n}"] = dict(max_abs_err=errors[name], ms=ms, plain_ms=plain_ms,
+                                          library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+            log("phase 8 kernel", kernel=name, n=n, d=d, max_abs_err=errors[name],
+                s_rtol=LUNIF_S_RTOL, loss_atol=LUNIF_LOSS_ATOL, dx_tol=json.dumps(LUNIF_DX_TOL),
+                ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.5f}",
+                bound_by=bound_by)
+    return results
+
+
+def _rel_gap(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def phase_exp6(smi: str):
+    """Phases 9 and 10: the exp-6 step of full-width ViT-B-32 at batch 256
+    over one warm and one main epoch, with the per-epoch eval."""
+    from sparsify_clip_tpu_torch.config import ExperimentConfig
+    from sparsify_clip_tpu_torch.data import synthetic_batch
+    from sparsify_clip_tpu_torch.eval import (
+        GEOMETRY_KEYS, compute_all_metrics, encode_eval_set, evaluate_model, make_eval_model,
+        metric_values,
+    )
+    from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup, run_training
+
+    spe = EXP6_STEPS_PER_EPOCH
+    config = ExperimentConfig.from_dict(dict(EXP6, epochs=EXP6_EPOCHS, log_every_n_steps=spe))
+    t = time.perf_counter()
+    setup = create_train_setup(config, steps_per_epoch=spe, device="cuda")
+    cfg, state = setup.model.cfg, setup.state
+    size, context = cfg.image_size, cfg.context_length
+    batch = batch_to_device(synthetic_batch(TRAIN_BATCH, size, context, seed=SEED), setup.device)
+    eval_batches = [batch_to_device(synthetic_batch(TRAIN_BATCH, size, context, seed=SEED + 10 + k),
+                                    setup.device) for k in range(EVAL_PAIRS // TRAIN_BATCH)]
+    torch.cuda.synchronize()
+    params = list(state.model.parameters())
+    names = [n for n, _ in state.model.named_parameters()]
+    depth = cfg.vision_layers[0] + cfg.text_layers
+    zero = dict.fromkeys(KERNELS, 0)
+    warm_step = dict(zero, mha_fwd=depth, mha_bwd=depth, lunif_fwd=2, lunif_bwd=2)
+    main_step = dict(zero, mha_fwd=depth, mha_bwd=depth, infonce_fwd=1, infonce_bwd_dimg=1,
+                     infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
+    log("phase 9 setup", name=cfg.name, loss_type=config.loss_type,
+        only_lunif_epochs=config.only_lunif_epochs, temperature=config.anchor_temperature,
+        learnable=config.anchor_temperature_learnable, batch=TRAIN_BATCH, steps_per_epoch=spe,
+        epochs=config.epochs, seconds=f"{time.perf_counter() - t:.3f}")
+
+    # one warm and one main step's gradients on the kernels, then on the
+    # plain versions (loss_and_grads neither steps the optimizer nor
+    # advances the step count)
+    for phase, step, expected in (("warm", 0, warm_step), ("main", spe, main_step)):
+        state.step = step
+        reset_counts()
+        loss_k, aux_k, _, _ = setup.train_step.loss_and_grads(state, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != expected:
+            raise AssertionError(f"{phase} kernel step launched {counts}, expected {expected}")
+        grads_k = [p.grad.detach().clone() for p in params]
+        restore = _plain_paths()
+        try:
+            reset_counts()
+            loss_p, aux_p, _, _ = setup.train_step.loss_and_grads(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        if any(read_counts().values()):
+            raise AssertionError(f"the plain {phase} step launched kernels: {read_counts()}")
+        cosines = []
+        for p, gk in zip(params, grads_k):
+            gp = p.grad.detach()
+            denom = (gk.norm() * gp.norm()).item()
+            cosines.append(1.0 if denom == 0 else (gk.flatten() @ gp.flatten()).item() / denom)
+        gaps = {k: _rel_gap(aux_k[k].item(), aux_p[k].item()) for k in aux_k}
+        gaps["loss"] = _rel_gap(loss_k.item(), loss_p.item())
+        worst = int(np.argmin(cosines))
+        log("phase 9 plain", loss_phase=phase, step=step, loss_kernel=loss_k.item(),
+            loss_plain=loss_p.item(), components_kernel=json.dumps(
+                {k: v.item() for k, v in aux_k.items()}),
+            rel_gaps=json.dumps(gaps), rtol=TRAIN_LOSS_RTOL, min_grad_cosine=cosines[worst],
+            min_at=names[worst], tensors=len(cosines))
+        if max(gaps.values()) > TRAIN_LOSS_RTOL or cosines[worst] < TRAIN_MIN_GRAD_COSINE:
+            raise AssertionError(f"{phase}: kernel step and plain step disagree")
+        if phase == "warm" and (aux_k["anchor"].item() != 0 or aux_k["lalign"].item() != 0):
+            raise AssertionError(f"the warm step is not uniformity alone: {aux_k}")
+        del grads_k
+    state.step = 0
+    state.optimizer.zero_grad(set_to_none=True)
+
+    # the main path: run_training over the warm and the main epoch, with the
+    # eval before training and after each epoch.  The counts are set to 0
+    # before each segment (training, eval) and read after it.
+    eval_model = make_eval_model(setup.model, config.eval_fp32)
+    segments, evals, records = [], [], []
+
+    def eval_fn(st):
+        segments.append(("train", read_counts()))
+        reset_counts()
+        t_eval = time.perf_counter()
+        metrics = evaluate_model(eval_model, eval_batches)
+        evals.append(dict(step=st.step, metrics=metrics, seconds=time.perf_counter() - t_eval))
+        segments.append(("eval", read_counts()))
+        reset_counts()
+        return metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = run_training(setup, lambda epoch: iter([batch] * spe), eval_fn=eval_fn,
+                         log_fn=records.append)
+    segments.append(("train", read_counts()))
+    peak = torch.cuda.max_memory_allocated()
+    train_segments = [c for kind, c in segments if kind == "train"]
+    eval_segments = [c for kind, c in segments if kind == "eval"]
+    expected_train = [zero, {k: v * spe for k, v in warm_step.items()},
+                      {k: v * spe for k, v in main_step.items()}, zero]
+    if train_segments != expected_train:
+        raise AssertionError(f"training launched {train_segments}, expected {expected_train}")
+    per_eval = dict(zero, mha_fwd=depth * len(eval_batches))
+    if eval_segments != [per_eval] * (EXP6_EPOCHS + 1):
+        raise AssertionError(f"evals launched {eval_segments}, expected {per_eval} each")
+    step_records = [r for r in records if "train_loss" in r]
+    epoch_records = [r for r in records if "step_time_ms" in r]
+    losses = np.array([r["train_loss"] for r in step_records])
+    if len(step_records) != EXP6_EPOCHS * spe or not np.isfinite(losses).all():
+        raise AssertionError(f"losses not finite: {losses}")
+    warm_records, main_records = step_records[:spe], step_records[spe:]
+    if any(r["anchor"] != 0 for r in warm_records) or any(r["anchor"] <= 0 for r in main_records):
+        raise AssertionError("the warm/main switch did not follow the epoch")
+    rates = {phase: dict(step_ms=r["step_time_ms"], pairs_per_s=r["pairs_per_sec"])
+             for phase, r in zip(("warm", "main"), epoch_records)}
+    log("phase 9 train", steps=len(step_records), losses=json.dumps(losses.tolist()),
+        components_last=json.dumps({k: main_records[-1][k] for k in ("anchor", "lalign", "lunif")}),
+        lr_last=step_records[-1]["learning_rate"], launches_warm=json.dumps(train_segments[1]),
+        launches_main=json.dumps(train_segments[2]))
+    for phase in ("warm", "main"):
+        log("phase 9 rate", loss_phase=phase, step_ms=f"{rates[phase]['step_ms']:.3f}",
+            pairs_per_s=f"{rates[phase]['pairs_per_s']:.1f}",
+            max_memory_allocated_gib=f"{peak / 2**30:.3f}", card=json.dumps(smi))
+
+    # phase 10: the 13 metrics of every eval, and the last eval against the
+    # same eval on the plain attention at the final weights
+    keys = set(evals[0]["metrics"])
+    for e in evals:
+        if len(keys) != 13 or set(e["metrics"]) != keys or not np.isfinite(
+                list(e["metrics"].values())).all():
+            raise AssertionError(f"eval at step {e['step']}: {e['metrics']}")
+    img_k, txt_k = encode_eval_set(eval_model, eval_batches)
+    restore = _plain_paths()
+    try:
+        reset_counts()
+        img_p, txt_p = encode_eval_set(eval_model, eval_batches)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    if any(read_counts().values()):
+        raise AssertionError(f"the plain eval launched kernels: {read_counts()}")
+    cos = min(torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+              for a, b in ((img_k, img_p), (txt_k, txt_p)))
+    values_k, values_p = metric_values(img_k, txt_k), metric_values(img_p, txt_p)
+    rounded_k, rounded_p = compute_all_metrics(img_k, txt_k), compute_all_metrics(img_p, txt_p)
+    geometry_gap = max(abs(values_k[k].item() - values_p[k].item()) for k in GEOMETRY_KEYS)
+    recall_gap = max(abs(rounded_k[k] - rounded_p[k]) for k in keys if k not in GEOMETRY_KEYS)
+    ranks_moved = sum(int((values_k[k] != values_p[k]).sum()) for k in ("rank_f", "rank_b"))
+    log("phase 10 eval", evals=len(evals), pairs=EVAL_PAIRS,
+        metrics_first=json.dumps(evals[0]["metrics"]), metrics_last=json.dumps(evals[-1]["metrics"]),
+        eval_seconds=json.dumps([round(e["seconds"], 3) for e in evals]),
+        launches_each=json.dumps(eval_segments[0]), min_cos_kernel_vs_plain=cos,
+        geometry_max_abs_gap=geometry_gap, geometry_atol=EVAL_GEOMETRY_ATOL,
+        recall_max_abs_gap=recall_gap, recall_atol=f"{EVAL_RECALL_ATOL:.4f}",
+        ranks_moved=ranks_moved)
+    if cos < EVAL_MIN_COSINE or geometry_gap > EVAL_GEOMETRY_ATOL or recall_gap > EVAL_RECALL_ATOL:
+        raise AssertionError("kernel eval and plain-attention eval disagree")
+    return dict(train=train_segments[1:3], eval=eval_segments, rates=rates, peak=peak)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -532,6 +803,10 @@ def main() -> int:
     log("phase 7 rate", step_ms=f"{train['step_ms']:.3f}",
         pairs_per_s=f"{TRAIN_BATCH / (train['step_ms'] / 1e3):.1f}",
         max_memory_allocated_gib=f"{train['peak'] / 2**30:.3f}", card=json.dumps(smi))
+    torch.cuda.empty_cache()
+
+    lunif_kernels = phase_lunif_kernels()
+    exp6 = phase_exp6(smi)
 
     sources = {
         "mha_fwd": ("ops/csrc/mha_fwd.cu", "sparsify_clip_tpu/ops/pallas_attention.py:67",
@@ -546,13 +821,20 @@ def main() -> int:
         "infonce_bwd_dtxt": ("ops/csrc/infonce.cu",
                              "sparsify_clip_tpu/ops/pallas_infonce.py:222",
                              train_kernels["infonce_bwd_dtxt/256"]),
+        "lunif_fwd": ("ops/csrc/lunif.cu", "sparsify_clip_tpu/ops/pallas_lunif.py:41",
+                      lunif_kernels["lunif_fwd/256"]),
+        "lunif_bwd": ("ops/csrc/lunif.cu", "sparsify_clip_tpu/ops/pallas_lunif.py:91",
+                      lunif_kernels["lunif_bwd/256"]),
     }
     entries = []
     for name in KERNELS:
         source, replaces, r = sources[name]
-        by_path = {"train": train["launches"][name]}
-        if name == "mha_fwd":
-            by_path["serve"] = serve["launches"]
+        by_path = {
+            "train": train["launches"][name],
+            "train_exp6": sum(c[name] for c in exp6["train"]),
+            "eval": sum(c[name] for c in exp6["eval"]),
+            "serve": serve["launches"] if name == "mha_fwd" else 0,
+        }
         entries.append({
             "name": name,
             "route": "cuda",

@@ -4,10 +4,18 @@
     python3 scripts/profile_torch_train.py [--batch 256] [--steps 3] [--seed 0] \\
         [--out logs/profile_torch_train]
 
-Full-width ViT-B-32, fp32 parameters with bf16 compute, ``loss_type:
-"anchor"`` with a learnable temperature, on a fixed device-resident
-synthetic batch, through ``create_train_setup`` and ``train_step`` (the
-configuration of ``chip_smoke.py`` phase 7):
+Full-width ViT-B-32, fp32 parameters with bf16 compute, on a fixed
+device-resident synthetic batch, through ``create_train_setup`` and
+``train_step``, in three configurations, one after the other:
+
+* ``anchor``: ``loss_type: "anchor"`` with a learnable temperature (the
+  configuration of ``chip_smoke.py`` phase 7);
+* ``exp6_warm`` and ``exp6_main``: the exp-6 step (``loss_type:
+  "only_lunif_n_then_anchor+lalign+lunif(centroids)"``, one warm epoch,
+  fixed temperature 0.1; ``chip_smoke.py`` phase 9), started at a step of
+  the warm phase and of the main phase.
+
+For each:
 
 * step time: host clock around ``--steps * 4`` steps ending in a
   synchronise, after warm-up;
@@ -18,8 +26,8 @@ configuration of ``chip_smoke.py`` phase 7):
   last kernel's end (the profiler slows the host, so the share is also
   given against the unprofiled step time).
 
-Prints one JSON object and writes it, with the Chrome trace, under
-``--out``.  Fails without a CUDA device.
+Prints one JSON object and writes it, with a Chrome trace for each
+configuration, under ``--out``.  Fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ GROUPS = [
     ("mha_bwd", "attention backward (mha_bwd.cu)"),
     ("mha_fwd", "attention forward (mha_fwd.cu)"),
     ("infonce", "InfoNCE (infonce.cu)"),
+    ("lunif", "uniformity (lunif.cu)"),
     ("nvjet", "cuBLAS GEMM"),
     ("gemm", "cuBLAS GEMM"),
     ("xmma", "cuBLAS GEMM"),
@@ -64,33 +73,34 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=256)
-    ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default="logs/profile_torch_train")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_torch_train: no CUDA device", file=sys.stderr)
-        return 1
+ANCHOR = dict(loss_type="anchor", anchor_temperature_learnable=True)
+EXP6 = dict(loss_type="only_lunif_n_then_anchor+lalign+lunif(centroids)", only_lunif_epochs=1,
+            anchor_temperature=0.1)
+# name → (configuration, epoch the profiled steps start in)
+PROFILES = {"anchor": (ANCHOR, 0), "exp6_warm": (EXP6, 0), "exp6_main": (EXP6, 1)}
+
+
+def profile_config(name: str, args) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from sparsify_clip_tpu_torch.config import ExperimentConfig
     from sparsify_clip_tpu_torch.data import synthetic_batch
     from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup
 
-    os.makedirs(args.out, exist_ok=True)
+    fields, start_epoch = PROFILES[name]
     config = ExperimentConfig.from_dict(dict(
-        model="ViT-B-32", batch_size=args.batch, epochs=1, learning_rate=1e-4,
-        loss_type="anchor", anchor_temperature_learnable=True, fp16=True, seed=args.seed,
+        model="ViT-B-32", batch_size=args.batch, epochs=2, learning_rate=1e-4, fp16=True,
+        seed=args.seed, **fields,
     ))
     steps = args.steps
-    setup = create_train_setup(config, steps_per_epoch=10 * steps, device="cuda")
+    steps_per_epoch = 10 * steps  # every step below stays inside one epoch
+    setup = create_train_setup(config, steps_per_epoch=steps_per_epoch, device="cuda")
     cfg = setup.model.cfg
     batch = batch_to_device(synthetic_batch(args.batch, cfg.image_size, cfg.context_length,
                                             seed=args.seed), setup.device)
     state = setup.state
+    state.step = start_epoch * steps_per_epoch
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         state, _ = setup.train_step(state, batch)
     torch.cuda.synchronize()
@@ -105,9 +115,12 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function(marker):
             for _ in range(steps):
-                state, _ = setup.train_step(state, batch)
+                state, metrics = setup.train_step(state, batch)
         torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
+    if (state.step - 1) // steps_per_epoch != start_epoch:
+        raise AssertionError(f"{name}: the profiled steps left epoch {start_epoch}")
+    warm = start_epoch < config.only_lunif_epochs
+    prof.export_chrome_trace(os.path.join(args.out, f"trace_{name}.json"))
     events = prof.events()
     # record_function ranges (this script's and the optimizer's
     # "Optimizer.step#AdamW.step") show on the device timeline too: not kernels
@@ -136,13 +149,10 @@ def main() -> int:
         total, count = by_group.get(g, (0.0, 0))
         by_group[g] = (total + us, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    result = {
-        "device": torch.cuda.get_device_name(0),
-        "card": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True,
-        ).stdout.strip(),
-        "batch": args.batch,
+    return {
+        "loss_type": config.loss_type,
+        "warm_phase": warm,
+        "last_loss_components": {k: float(metrics[k]) for k in ("anchor", "lalign", "lunif")},
         "step_ms_host_clock": step_ms,
         "pairs_per_s": args.batch / step_ms * 1e3,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -159,6 +169,30 @@ def main() -> int:
         },
         "top_kernels_ms_per_step": [[n[:100], t / 1e3 / steps, c / steps] for n, (t, c) in top],
     }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="logs/profile_torch_train")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_train: no CUDA device", file=sys.stderr)
+        return 1
+    os.makedirs(args.out, exist_ok=True)
+    result = {
+        "device": torch.cuda.get_device_name(0),
+        "card": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip(),
+        "batch": args.batch,
+    }
+    for name in PROFILES:
+        result[name] = profile_config(name, args)
+        torch.cuda.empty_cache()
     with open(os.path.join(args.out, "profile.json"), "w") as fh:
         json.dump(result, fh, indent=1)
     print(json.dumps(result, indent=1))

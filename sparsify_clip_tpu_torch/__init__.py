@@ -2,10 +2,13 @@
 
 The JAX package ``sparsify_clip_tpu`` is the reference this package is
 held against; this package imports neither JAX nor it.  Ported so far:
-the serving path (ViT towers, encoder, batching server) and the
-``anchor`` training step (config, schedules, loss dispatch, AdamW step,
-epoch loop), with hand-written CUDA kernels for the attention forward
-and backward and the fused InfoNCE.  See README.md ("PyTorch port").
+the serving path (ViT towers, encoder, batching server), the training
+step for every loss type but ``anchor-roberta`` and ``siglip`` (config,
+schedules, the uniformity/alignment/centroid losses, loss dispatch with
+the warm phase, AdamW step, epoch loop) and the per-epoch eval (13
+metrics over an fp32 twin), with hand-written CUDA kernels for the
+attention forward and backward, the fused InfoNCE and the fused
+uniformity loss.  See README.md ("PyTorch port").
 """
 
 from sparsify_clip_tpu_torch.checkpoints import load_jax_params, load_weights

@@ -156,6 +156,16 @@ class CLIP(nn.Module):
     def device(self) -> torch.device:
         return self.visual.proj.device
 
+    def with_dtype(self, dtype: torch.dtype) -> "CLIP":
+        """A CLIP that computes in ``dtype`` over this model's parameters:
+        the same ``Parameter`` objects, not copies, so it sees every update
+        to them (the JAX side's ``model.clone(dtype=...)`` applied to the
+        shared params)."""
+        with torch.device("meta"):
+            twin = CLIP(self.cfg, dtype=dtype)
+        twin.load_state_dict(self.state_dict(keep_vars=True), strict=True, assign=True)
+        return twin.train(self.training)
+
     def reset_parameters(self, gen: torch.Generator) -> None:
         self.visual.reset_parameters(gen)
         self.text.reset_parameters(gen)

@@ -113,12 +113,12 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
-            p, i = ctypes.c_void_p, ctypes.c_int
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.sparsify_mha_fwd.argtypes = [
                 p, p, p,        # qkv, out, lse (may be null)
                 i, i, i, i,     # batch, seq, heads, head_dim
                 i, i,           # causal, dtype (0 fp32, 1 bf16)
-                ctypes.c_float,  # scale
+                f,              # scale
                 p,              # cudaStream_t
             ]
             lib.sparsify_mha_fwd.restype = i
@@ -126,7 +126,7 @@ def library() -> ctypes.CDLL:
                 p, p, p, p, p,  # qkv, lse, dout, dqkv, drow scratch
                 i, i, i, i,     # batch, seq, heads, head_dim
                 i, i,           # causal, dtype (0 fp32, 1 bf16)
-                ctypes.c_float,  # scale
+                f,              # scale
                 p,              # cudaStream_t
             ]
             lib.sparsify_mha_bwd.restype = i
@@ -153,5 +153,19 @@ def library() -> ctypes.CDLL:
                 p,              # cudaStream_t
             ]
             lib.sparsify_infonce_bwd_dtxt.restype = i
+            lib.sparsify_lunif_fwd.argtypes = [
+                p, i, i, f,     # x, n, d, t
+                p, p,           # norms, partial sums scratch
+                p, p,           # S, loss (device scalars)
+                p,              # cudaStream_t
+            ]
+            lib.sparsify_lunif_fwd.restype = i
+            lib.sparsify_lunif_bwd.argtypes = [
+                p, p, p,        # x, S, g (device scalars)
+                i, i, f,        # n, d, t
+                p, p,           # norms scratch, dx
+                p,              # cudaStream_t
+            ]
+            lib.sparsify_lunif_bwd.restype = i
             _lib = lib
         return _lib

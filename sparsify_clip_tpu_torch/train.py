@@ -132,6 +132,14 @@ class TrainStep:
                           warm=epoch < config.only_lunif_epochs)
         loss, aux = self.loss_fn(l2_normalize(img), l2_normalize(txt), ctx)
         loss.backward()
+        # optax differentiates every trainable: one the loss does not reach
+        # (the temperature in the warm phase) gets a zero gradient, and AdamW
+        # still decays it and advances its moments and count.
+        # torch.optim.AdamW skips a parameter whose .grad is None.
+        for group in state.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         return loss, aux, beta, alpha
 
     def __call__(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
