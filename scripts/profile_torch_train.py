@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's train-step time goes, on one CUDA card.
 
-    python3 scripts/profile_torch_train.py [--batch 256] [--steps 3] [--seed 0] \\
-        [--out logs/profile_torch_train]
+    python3 scripts/profile_torch_train.py [--only anchor,l336_exp6_main] [--steps 3] \\
+        [--seed 0] [--out logs/profile_torch_train]
 
-Full-width ViT-B-32, fp32 parameters with bf16 compute, on a fixed
+Full-width models, fp32 parameters with bf16 compute, on a fixed
 device-resident synthetic batch, through ``create_train_setup`` and
-``train_step``, in three configurations, one after the other:
+``train_step``, in these configurations, one after the other (``--only``
+picks some):
 
-* ``anchor``: ``loss_type: "anchor"`` with a learnable temperature (the
-  configuration of ``chip_smoke.py`` phase 7);
-* ``exp6_warm`` and ``exp6_main``: the exp-6 step (``loss_type:
-  "only_lunif_n_then_anchor+lalign+lunif(centroids)"``, one warm epoch,
-  fixed temperature 0.1; ``chip_smoke.py`` phase 9), started at a step of
-  the warm phase and of the main phase.
+* ``anchor``: ViT-B-32 at batch 256, ``loss_type: "anchor"`` with a
+  learnable temperature (the configuration of ``chip_smoke.py`` phase 7);
+* ``exp6_warm`` and ``exp6_main``: ViT-B-32 at batch 256, the exp-6 step
+  (``loss_type: "only_lunif_n_then_anchor+lalign+lunif(centroids)"``, one
+  warm epoch, fixed temperature 0.1; ``chip_smoke.py`` phase 9), started
+  at a step of the warm phase and of the main phase;
+* ``l336_exp6_warm`` and ``l336_exp6_main``: the same exp-6 step of
+  ViT-L-14-336 at batch 64 (``chip_smoke.py`` phase 13), whose vision
+  tower takes the head-group attention kernels.
 
 For each:
 
@@ -43,8 +47,11 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# kernel name fragment → group, first match wins
+# kernel name fragment → group, first match wins (the head-group backward
+# runs the shared dQ and dK/dV kernels with its `HeadGroupRows` policy)
 GROUPS = [
+    ("headgroup_fwd", "head-group attention forward (mha_head_group.cu)"),
+    ("headgroup", "head-group attention backward (mha_head_group.cu)"),
     ("mha_bwd", "attention backward (mha_bwd.cu)"),
     ("mha_fwd", "attention forward (mha_fwd.cu)"),
     ("infonce", "InfoNCE (infonce.cu)"),
@@ -76,8 +83,14 @@ def group_of(name: str) -> str:
 ANCHOR = dict(loss_type="anchor", anchor_temperature_learnable=True)
 EXP6 = dict(loss_type="only_lunif_n_then_anchor+lalign+lunif(centroids)", only_lunif_epochs=1,
             anchor_temperature=0.1)
-# name → (configuration, epoch the profiled steps start in)
-PROFILES = {"anchor": (ANCHOR, 0), "exp6_warm": (EXP6, 0), "exp6_main": (EXP6, 1)}
+# name → (model, batch, configuration, epoch the profiled steps start in)
+PROFILES = {
+    "anchor": ("ViT-B-32", 256, ANCHOR, 0),
+    "exp6_warm": ("ViT-B-32", 256, EXP6, 0),
+    "exp6_main": ("ViT-B-32", 256, EXP6, 1),
+    "l336_exp6_warm": ("ViT-L-14-336", 64, EXP6, 0),
+    "l336_exp6_main": ("ViT-L-14-336", 64, EXP6, 1),
+}
 
 
 def profile_config(name: str, args) -> dict:
@@ -87,16 +100,16 @@ def profile_config(name: str, args) -> dict:
     from sparsify_clip_tpu_torch.data import synthetic_batch
     from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup
 
-    fields, start_epoch = PROFILES[name]
+    model, batch_size, fields, start_epoch = PROFILES[name]
     config = ExperimentConfig.from_dict(dict(
-        model="ViT-B-32", batch_size=args.batch, epochs=2, learning_rate=1e-4, fp16=True,
+        model=model, batch_size=batch_size, epochs=2, learning_rate=1e-4, fp16=True,
         seed=args.seed, **fields,
     ))
     steps = args.steps
     steps_per_epoch = 10 * steps  # every step below stays inside one epoch
     setup = create_train_setup(config, steps_per_epoch=steps_per_epoch, device="cuda")
     cfg = setup.model.cfg
-    batch = batch_to_device(synthetic_batch(args.batch, cfg.image_size, cfg.context_length,
+    batch = batch_to_device(synthetic_batch(batch_size, cfg.image_size, cfg.context_length,
                                             seed=args.seed), setup.device)
     state = setup.state
     state.step = start_epoch * steps_per_epoch
@@ -150,11 +163,13 @@ def profile_config(name: str, args) -> dict:
         by_group[g] = (total + us, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     return {
+        "model": model,
+        "batch": batch_size,
         "loss_type": config.loss_type,
         "warm_phase": warm,
         "last_loss_components": {k: float(metrics[k]) for k in ("anchor", "lalign", "lunif")},
         "step_ms_host_clock": step_ms,
-        "pairs_per_s": args.batch / step_ms * 1e3,
+        "pairs_per_s": batch_size / step_ms * 1e3,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
         "profiled_steps": steps,
         "kernels_per_step": len(kernels) / steps,
@@ -173,7 +188,8 @@ def profile_config(name: str, args) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--only", default=",".join(PROFILES),
+                    help="comma-separated profile names (default: all)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="logs/profile_torch_train")
@@ -188,9 +204,8 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True,
         ).stdout.strip(),
-        "batch": args.batch,
     }
-    for name in PROFILES:
+    for name in args.only.split(","):
         result[name] = profile_config(name, args)
         torch.cuda.empty_cache()
     with open(os.path.join(args.out, "profile.json"), "w") as fh:

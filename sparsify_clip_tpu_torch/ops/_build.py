@@ -130,6 +130,23 @@ def library() -> ctypes.CDLL:
                 p,              # cudaStream_t
             ]
             lib.sparsify_mha_bwd.restype = i
+            lib.sparsify_mha_fwd_head_group.argtypes = [
+                p, p,           # qkv, out
+                i, i, i, i,     # batch, seq, heads, head_dim
+                i, i,           # causal, dtype (0 fp32, 1 bf16)
+                f,              # scale
+                p,              # cudaStream_t
+            ]
+            lib.sparsify_mha_fwd_head_group.restype = i
+            lib.sparsify_mha_bwd_head_group.argtypes = [
+                p, p, p,        # qkv, dout, dqkv
+                p, p, p,        # row max, row sum, drow scratch
+                i, i, i, i,     # batch, seq, heads, head_dim
+                i, i,           # causal, dtype (0 fp32, 1 bf16)
+                f,              # scale
+                p,              # cudaStream_t
+            ]
+            lib.sparsify_mha_bwd_head_group.restype = i
             lib.sparsify_infonce_fwd.argtypes = [
                 p, p, p,        # img, txt, temperature (device scalar)
                 i, i,           # n, d

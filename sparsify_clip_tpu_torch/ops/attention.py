@@ -21,11 +21,22 @@ the result is the (B, L, W) context.
   plain version; a CUDA tensor launches the kernel or raises.  There is
   no fallback from one to the other.  ``mha_fwd.launches`` and
   ``mha_bwd.launches`` count kernel launches.
+* The head-group route (:func:`use_head_group`, the JAX package's
+  ``_use_per_head``) takes the long sequences: the 577-token
+  ViT-L-14-336 vision tower in bf16 and fp32, ViT-L-14's in fp32.  There
+  the forward writes no LSE and the backward recomputes the softmax from
+  q and k.  :func:`mha_fwd_head_group_reference` and
+  :func:`mha_bwd_head_group_reference` are the plain versions of
+  ``_fwd_kernel_head_group`` and ``_bwd_kernel_head_group``
+  (pallas_attention.py:204-274); :func:`mha_fwd_head_group` and
+  :func:`mha_bwd_head_group` wrap ``csrc/mha_head_group.cu`` and count
+  their launches the same way.
 * :func:`attention_core` is what the towers call, on both devices.  When
   a gradient is wanted it goes through :class:`MhaFunction`, whose
   forward is :func:`mha_fwd` with the LSE and saves qkv and the LSE, and
-  whose backward is :func:`mha_bwd`; otherwise (serving, eval) it calls
-  :func:`mha_fwd` without the LSE.
+  whose backward is :func:`mha_bwd`, or, on the head-group route, through
+  :class:`MhaHeadGroupFunction`, which saves qkv alone; otherwise
+  (serving, eval) it calls the route's forward without the LSE.
 """
 
 from __future__ import annotations
@@ -51,17 +62,68 @@ def _split(qkv: torch.Tensor, heads: int) -> Tuple[int, int, int, int]:
     return b, l, w3 // 3, w3 // (3 * heads)
 
 
+def _check_kernel_qkv(name: str, qkv: torch.Tensor, head_dim: int) -> None:
+    """What every attention kernel takes: a CUDA tensor, bf16 or fp32,
+    contiguous, 1 <= B <= 65535 and L >= 1, head_dim <= 128 in multiples
+    of 8.  (A CPU tensor takes the plain version before this check.)"""
+    b, l = qkv.shape[:2]
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {qkv.device}")
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel takes bf16 or fp32, got {qkv.dtype}")
+    if head_dim % 8 or head_dim > MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name} kernel takes head_dim <= {MAX_HEAD_DIM} in multiples of 8, got {head_dim}"
+        )
+    if not qkv.is_contiguous():
+        raise ValueError(f"{name} kernel needs a contiguous qkv")
+    if not 0 < b <= 65535 or l == 0:
+        raise ValueError(f"{name} kernel takes 1 <= B <= 65535 and L >= 1, got {b}, {l}")
+
+
+def _check_kernel_dout(name: str, qkv: torch.Tensor, dout: torch.Tensor) -> None:
+    """The backward kernels take dout (B, L, W), contiguous, in qkv's type
+    and on qkv's device."""
+    b, l, w3 = qkv.shape
+    if dout.dtype != qkv.dtype:
+        raise TypeError(
+            f"{name} kernel takes dout in qkv's type, got {dout.dtype} for {qkv.dtype} qkv")
+    if tuple(dout.shape) != (b, l, w3 // 3):
+        raise ValueError(
+            f"{name} kernel takes dout (B, L, W), got {tuple(dout.shape)} "
+            f"for qkv {tuple(qkv.shape)}"
+        )
+    if dout.device != qkv.device:
+        raise ValueError(f"{name} kernel needs qkv and dout on one device")
+    if not dout.is_contiguous():
+        raise ValueError(f"{name} kernel needs a contiguous dout")
+
+
+def _count(fn) -> None:
+    with _count_lock:
+        fn.launches += 1
+
+
+def _scores(qkv: torch.Tensor, heads: int, causal: bool):
+    """q, k, v (B, H, L, D) fp32, the scaled and masked scores S (B, H, L,
+    L) fp32, and the scale."""
+    b, l, _, head_dim = _split(qkv, heads)
+    scale = head_dim ** -0.5
+    q, k, v = qkv.float().view(b, l, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if causal:
+        col_gt_row = torch.ones(l, l, dtype=torch.bool, device=qkv.device).triu(1)
+        s = s.masked_fill(col_gt_row, float("-inf"))
+    return q, k, v, s, scale
+
+
 def mha_fwd_reference(
     qkv: torch.Tensor, heads: int, causal: bool = False, with_lse: bool = False
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch attention forward → (context (B, L, W) in qkv's
     type, LSE (B, L, H) fp32 or None)."""
-    b, l, width, head_dim = _split(qkv, heads)
-    q, k, v = qkv.float().view(b, l, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
-    s = torch.matmul(q, k.transpose(-1, -2)) * (head_dim ** -0.5)  # (B, H, L, L)
-    if causal:
-        col_gt_row = torch.ones(l, l, dtype=torch.bool, device=qkv.device).triu(1)
-        s = s.masked_fill(col_gt_row, float("-inf"))
+    b, l, width, _ = _split(qkv, heads)
+    _, _, v, s, _ = _scores(qkv, heads, causal)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     denom = e.sum(dim=-1, keepdim=True)
@@ -84,23 +146,11 @@ def mha_fwd(
     b, l, width, head_dim = _split(qkv, heads)
     if qkv.device.type == "cpu":
         return mha_fwd_reference(qkv, heads, causal, with_lse)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"mha_fwd runs on cpu or cuda tensors, got {qkv.device}")
-    if qkv.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"mha_fwd kernel takes bf16 or fp32, got {qkv.dtype}")
-    if head_dim % 8 or head_dim > MAX_HEAD_DIM:
-        raise ValueError(
-            f"mha_fwd kernel takes head_dim <= {MAX_HEAD_DIM} in multiples of 8, "
-            f"got {head_dim}"
-        )
-    if not qkv.is_contiguous():
-        raise ValueError("mha_fwd kernel needs a contiguous qkv")
+    _check_kernel_qkv("mha_fwd", qkv, head_dim)
     if qkv.data_ptr() % 16:
         # the kernel loads 16-byte vectors; a misaligned load faults and
         # poisons the CUDA context, so refuse it here
         raise ValueError("mha_fwd kernel needs a qkv whose data starts on a 16-byte boundary")
-    if not 0 < b <= 65535 or l == 0:
-        raise ValueError(f"mha_fwd kernel takes 1 <= B <= 65535 and L >= 1, got {b}, {l}")
     out = torch.empty((b, l, width), dtype=qkv.dtype, device=qkv.device)
     lse = (
         torch.empty((b, l, heads), dtype=torch.float32, device=qkv.device)
@@ -116,8 +166,7 @@ def mha_fwd(
         )
     if err:
         raise RuntimeError(f"mha_fwd kernel launch failed with CUDA error {err}")
-    with _count_lock:
-        mha_fwd.launches += 1
+    _count(mha_fwd)
     return out, lse
 
 
@@ -129,15 +178,17 @@ def mha_bwd_reference(
 ) -> torch.Tensor:
     """Plain PyTorch attention backward → dqkv (B, L, 3W) in qkv's type,
     from qkv, the forward's LSE (B, L, H) and dout (B, L, W)."""
-    b, l, width, head_dim = _split(qkv, heads)
-    scale = head_dim ** -0.5
-    q, k, v = qkv.float().view(b, l, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
-    do = dout.float().reshape(b, l, heads, head_dim).transpose(1, 2)  # (B, H, L, D)
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    if causal:
-        col_gt_row = torch.ones(l, l, dtype=torch.bool, device=qkv.device).triu(1)
-        s = s.masked_fill(col_gt_row, float("-inf"))
+    q, k, v, s, scale = _scores(qkv, heads, causal)
     p = torch.exp(s - lse.float().transpose(1, 2).unsqueeze(-1))
+    return _softmax_bwd(qkv, dout, q, k, v, p, scale)
+
+
+def _softmax_bwd(qkv, dout, q, k, v, p, scale) -> torch.Tensor:
+    """Packed dqkv in qkv's type from P (B, H, L, L) fp32: dV = P^T.dO,
+    dS = P∘(dP − rowsum(dP∘P)), dQ = dS.K·s, dK = dS^T.Q·s."""
+    b, heads, l, head_dim = q.shape
+    width = heads * head_dim
+    do = dout.float().reshape(b, l, heads, head_dim).transpose(1, 2)  # (B, H, L, D)
     dv = torch.matmul(p.transpose(-1, -2), do)
     dp = torch.matmul(do, v.transpose(-1, -2))
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
@@ -159,31 +210,13 @@ def mha_bwd(
     b, l, width, head_dim = _split(qkv, heads)
     if qkv.device.type == "cpu":
         return mha_bwd_reference(qkv, lse, dout, heads, causal)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"mha_bwd runs on cpu or cuda tensors, got {qkv.device}")
-    if qkv.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"mha_bwd kernel takes bf16 or fp32, got {qkv.dtype}")
-    if dout.dtype != qkv.dtype or lse.dtype != torch.float32:
-        raise TypeError(
-            f"mha_bwd kernel takes dout in qkv's type and an fp32 lse, got "
-            f"{dout.dtype} / {lse.dtype} for {qkv.dtype} qkv"
-        )
-    if tuple(dout.shape) != (b, l, width) or tuple(lse.shape) != (b, l, heads):
-        raise ValueError(
-            f"mha_bwd kernel takes dout (B, L, W) and lse (B, L, H), got "
-            f"{tuple(dout.shape)} and {tuple(lse.shape)} for qkv {tuple(qkv.shape)}"
-        )
-    if {t.device for t in (qkv, lse, dout)} != {qkv.device}:
-        raise ValueError("mha_bwd kernel needs qkv, lse and dout on one device")
-    if head_dim % 8 or head_dim > MAX_HEAD_DIM:
-        raise ValueError(
-            f"mha_bwd kernel takes head_dim <= {MAX_HEAD_DIM} in multiples of 8, "
-            f"got {head_dim}"
-        )
-    if not (qkv.is_contiguous() and lse.is_contiguous() and dout.is_contiguous()):
-        raise ValueError("mha_bwd kernel needs contiguous qkv, lse and dout")
-    if not 0 < b <= 65535 or l == 0:
-        raise ValueError(f"mha_bwd kernel takes 1 <= B <= 65535 and L >= 1, got {b}, {l}")
+    _check_kernel_qkv("mha_bwd", qkv, head_dim)
+    _check_kernel_dout("mha_bwd", qkv, dout)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, l, heads):
+        raise TypeError(f"mha_bwd kernel takes an fp32 lse (B, L, H), got {lse.dtype} "
+                        f"{tuple(lse.shape)} for qkv {tuple(qkv.shape)}")
+    if lse.device != qkv.device or not lse.is_contiguous():
+        raise ValueError("mha_bwd kernel needs a contiguous lse on qkv's device")
     dqkv = torch.empty_like(qkv)
     drow = torch.empty((b, heads, l), dtype=torch.float32, device=qkv.device)
     lib = _build.library()
@@ -195,8 +228,7 @@ def mha_bwd(
         )
     if err:
         raise RuntimeError(f"mha_bwd kernel launch failed with CUDA error {err}")
-    with _count_lock:
-        mha_bwd.launches += 1
+    _count(mha_bwd)
     return dqkv
 
 
@@ -223,10 +255,151 @@ class MhaFunction(torch.autograd.Function):
         return mha_bwd(qkv, lse, dout, ctx.heads, ctx.causal), None, None
 
 
+# The JAX package's budget for one sample's packed qkv block on its
+# whole-width route (pallas_attention.py:151)
+_QKV_BUDGET = 3 * 1024 * 1024
+
+
+def use_head_group(l: int, w3: int, itemsize: int, heads: int) -> bool:
+    """Whether attention over a packed (·, l, w3) qkv of ``itemsize``-byte
+    elements takes the head-group route: the JAX package's
+    ``_use_per_head`` (pallas_attention.py:172-190), term for term.
+
+    Over the 3 MB budget (strictly) and with a head_dim that packs into
+    128 lanes (a multiple of 128, or a divisor of 128 with the width a
+    multiple of 128); an over-budget tower whose head_dim does not pack
+    (88) stays on the whole-width route.  On the TPU this is a memory
+    limit of the kernel stack.  On the GPU it is a routing decision that
+    the port mirrors so that each shape has the JAX side's route, saved
+    residuals (no LSE here) and softmax arithmetic (P = e / sum(e))."""
+    width = w3 // 3
+    head_dim = width // heads
+    if l * w3 * itemsize <= _QKV_BUDGET:
+        return False
+    if head_dim % 128 == 0:
+        return True
+    return 128 % head_dim == 0 and width % 128 == 0
+
+
+def mha_fwd_head_group_reference(
+    qkv: torch.Tensor, heads: int, causal: bool = False
+) -> torch.Tensor:
+    """Plain PyTorch forward of the head-group route → context (B, L, W)
+    in qkv's type, no LSE: what ``_fwd_kernel_head_group`` computes
+    (pallas_attention.py:204-225), m = max(s), e = exp(s − m), P = e /
+    sum(e) and P·V in fp32, the same arithmetic as the whole-width
+    forward's context."""
+    return mha_fwd_reference(qkv, heads, causal)[0]
+
+
+def mha_fwd_head_group(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
+    """Head-group attention forward: the CUDA kernel
+    (``csrc/mha_head_group.cu``) for a CUDA tensor, the plain version for
+    a CPU tensor.  Takes what :func:`mha_fwd` takes; writes no LSE."""
+    b, l, width, head_dim = _split(qkv, heads)
+    if qkv.device.type == "cpu":
+        return mha_fwd_head_group_reference(qkv, heads, causal)
+    _check_kernel_qkv("mha_fwd_head_group", qkv, head_dim)
+    if qkv.data_ptr() % 16:
+        # cp.async copies 16-byte vectors
+        raise ValueError(
+            "mha_fwd_head_group kernel needs a qkv whose data starts on a 16-byte boundary")
+    out = torch.empty((b, l, width), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):
+        err = lib.sparsify_mha_fwd_head_group(
+            qkv.data_ptr(), out.data_ptr(), b, l, heads, head_dim, int(causal),
+            int(qkv.dtype == torch.bfloat16), head_dim ** -0.5,
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"mha_fwd_head_group kernel launch failed with CUDA error {err}")
+    _count(mha_fwd_head_group)
+    return out
+
+
+mha_fwd_head_group.launches = 0
+
+
+def mha_bwd_head_group_reference(
+    qkv: torch.Tensor, dout: torch.Tensor, heads: int, causal: bool = False
+) -> torch.Tensor:
+    """Plain PyTorch backward of the head-group route → dqkv (B, L, 3W) in
+    qkv's type, from qkv and dout alone: what ``_bwd_kernel_head_group``
+    computes (pallas_attention.py:228-274).  The softmax is rebuilt from
+    q·k as m = max(s), e = exp(s − m), P = e / sum(e) (no saved LSE, no
+    exp(s − lse)); then dS = P∘(dP − rowsum(dP∘P)), dQ and dK scaled by
+    head_dim**-0.5, and dV, all in fp32."""
+    q, k, v, s, scale = _scores(qkv, heads, causal)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return _softmax_bwd(qkv, dout, q, k, v, e / e.sum(dim=-1, keepdim=True), scale)
+
+
+def mha_bwd_head_group(
+    qkv: torch.Tensor, dout: torch.Tensor, heads: int, causal: bool = False
+) -> torch.Tensor:
+    """Head-group attention backward: the CUDA kernels for CUDA tensors
+    (a stats pass that recomputes each row's max, sum and rowsum(dP∘P),
+    then dQ, then dK/dV; one launch of the entry point, counted once),
+    the plain version for CPU tensors.  Takes what :func:`mha_bwd` takes,
+    without an LSE."""
+    b, l, width, head_dim = _split(qkv, heads)
+    if qkv.device.type == "cpu":
+        return mha_bwd_head_group_reference(qkv, dout, heads, causal)
+    _check_kernel_qkv("mha_bwd_head_group", qkv, head_dim)
+    _check_kernel_dout("mha_bwd_head_group", qkv, dout)
+    dqkv = torch.empty_like(qkv)
+    row_max = torch.empty((b, l, heads), dtype=torch.float32, device=qkv.device)
+    row_sum = torch.empty_like(row_max)
+    drow = torch.empty((b, heads, l), dtype=torch.float32, device=qkv.device)
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):
+        err = lib.sparsify_mha_bwd_head_group(
+            qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), row_max.data_ptr(),
+            row_sum.data_ptr(), drow.data_ptr(), b, l, heads, head_dim, int(causal),
+            int(qkv.dtype == torch.bfloat16), head_dim ** -0.5,
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"mha_bwd_head_group kernel launch failed with CUDA error {err}")
+    _count(mha_bwd_head_group)
+    return dqkv
+
+
+mha_bwd_head_group.launches = 0
+
+
+class MhaHeadGroupFunction(torch.autograd.Function):
+    """Attention on the head-group route with its own backward, as
+    ``mha_pallas``'s custom VJP takes it there: the forward saves qkv
+    alone (no LSE residual), the backward recomputes the softmax
+    (pallas_attention.py:343-369)."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+        out = mha_fwd_head_group(qkv, heads, causal)
+        ctx.save_for_backward(qkv)
+        ctx.heads, ctx.causal = heads, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        dout = dout.to(qkv.dtype).contiguous()
+        return mha_bwd_head_group(qkv, dout, ctx.heads, ctx.causal), None, None
+
+
 def attention_core(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
     """The towers' attention core: packed (B, L, 3W) qkv → (B, L, W)
-    context, differentiable through :class:`MhaFunction`.  Without a
-    gradient to take, no LSE is written."""
-    if torch.is_grad_enabled() and qkv.requires_grad:
+    context.  Long sequences (:func:`use_head_group`) take the head-group
+    pair through :class:`MhaHeadGroupFunction`, the rest the whole-width
+    pair through :class:`MhaFunction`.  Without a gradient to take, the
+    route's forward runs alone and no LSE is written."""
+    grad = torch.is_grad_enabled() and qkv.requires_grad
+    if use_head_group(qkv.shape[1], qkv.shape[2], qkv.element_size(), heads):
+        if grad:
+            return MhaHeadGroupFunction.apply(qkv, heads, causal)
+        return mha_fwd_head_group(qkv, heads, causal)
+    if grad:
         return MhaFunction.apply(qkv, heads, causal)
     return mha_fwd(qkv, heads, causal)[0]
