@@ -77,7 +77,21 @@ Phases, one line each; any failure exits nonzero before the final line:
    run at batch 8: at 64 the plain attention's (64, 16, 577, 577) fp32
    scores, saved for autograd in every layer, would not fit the card;
 14. the eval inside that run, as phase 10: every batch launches 24 fp32
-   ``mha_fwd_head_group`` and 12 fp32 ``mha_fwd`` and no backward.
+   ``mha_fwd_head_group`` and 12 fp32 ``mha_fwd`` and no backward;
+15. hold the fused LayerNorm + qkv kernel (``ops/csrc/ln_qkv.cu``) against
+   its plain version and time it beside the unfused pair
+   ``F.linear(F.layer_norm(x))`` (two library calls) and its bound: the
+   ViT-L-14-336 shapes at batch 64, vision (36928, 1024) → 3072 and text
+   (4928, 768) → 2304 in bf16, vision in fp32 (the eval twin), and 1000
+   rows at W 1664 in bf16 (the widest tower, a ragged last tile);
+16. train ViT-L-14-336 under exp 6 at batch 64 as phase 13, with
+   ``fused_ln_qkv: true``: every train step launches phase 13's kernels
+   and 36 ``ln_qkv_fwd`` (24 vision, 12 text), the backward none.  The
+   warm and the main step at batch 8 are held against the plain versions
+   (which launch nothing) and against the same step on the unfused
+   blocks (kernels and all, no ``ln_qkv_fwd``);
+17. the eval inside that run, as phase 14, plus 36 fp32 ``ln_qkv_fwd`` a
+   batch.
 
 Depth cuts of the ViT-L-14-336 phases: 2 epochs of 4 steps (the
 reference trains 100); the eval set is 256 pairs in 4 batches of 64
@@ -98,6 +112,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -492,17 +507,18 @@ def phase_train_kernels():
 
 
 KERNELS = ("mha_fwd", "mha_bwd", "infonce_fwd", "infonce_bwd_dimg", "infonce_bwd_dtxt",
-           "lunif_fwd", "lunif_bwd", "mha_fwd_head_group", "mha_bwd_head_group")
+           "lunif_fwd", "lunif_bwd", "mha_fwd_head_group", "mha_bwd_head_group", "ln_qkv_fwd")
 
 
 def counters():
-    from sparsify_clip_tpu_torch.ops import attention, infonce, lunif
+    from sparsify_clip_tpu_torch.ops import attention, infonce, ln_qkv, lunif
 
     return {"mha_fwd": attention.mha_fwd, "mha_bwd": attention.mha_bwd,
             "infonce_fwd": infonce.infonce_fwd, "infonce_bwd_dimg": infonce.infonce_bwd_dimg,
             "infonce_bwd_dtxt": infonce.infonce_bwd_dtxt, "lunif_fwd": lunif.lunif_fwd,
             "lunif_bwd": lunif.lunif_bwd, "mha_fwd_head_group": attention.mha_fwd_head_group,
-            "mha_bwd_head_group": attention.mha_bwd_head_group}
+            "mha_bwd_head_group": attention.mha_bwd_head_group,
+            "ln_qkv_fwd": ln_qkv.ln_qkv_fwd}
 
 
 def reset_counts():
@@ -514,23 +530,52 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
+def _plain_ln_qkv(x, *args):
+    from sparsify_clip_tpu_torch.ops.ln_qkv import ln_qkv_reference
+
+    return ln_qkv_reference(x.reshape(-1, x.shape[-1]), *args).reshape(*x.shape[:-1], -1)
+
+
 def _plain_paths():
-    """Swap the towers' attention core and the loss's fused InfoNCE and
-    uniformity for their plain versions (autograd differentiates them);
-    returns the function that puts the kernels back."""
+    """Swap the towers' attention core and fused LN+qkv and the loss's
+    fused InfoNCE and uniformity for their plain versions (autograd
+    differentiates them); returns the function that puts the kernels
+    back."""
     from sparsify_clip_tpu_torch.losses import contrastive_loss, dispatch
     from sparsify_clip_tpu_torch.losses.unif import lunif_loss
     from sparsify_clip_tpu_torch.models import layers
     from sparsify_clip_tpu_torch.ops.attention import mha_fwd_reference
 
-    kept = layers.attention_core, dispatch.infonce_loss, dispatch.lunif_loss
+    kept = layers.attention_core, layers.ln_qkv_core, dispatch.infonce_loss, dispatch.lunif_loss
     layers.attention_core = lambda qkv, heads, causal=False: mha_fwd_reference(qkv, heads, causal)[0]
+    layers.ln_qkv_core = _plain_ln_qkv
     dispatch.infonce_loss, dispatch.lunif_loss = contrastive_loss, lunif_loss
 
     def restore():
-        layers.attention_core, dispatch.infonce_loss, dispatch.lunif_loss = kept
+        (layers.attention_core, layers.ln_qkv_core, dispatch.infonce_loss,
+         dispatch.lunif_loss) = kept
 
     return restore
+
+
+def _set_fused_ln_qkv(model, on: bool) -> None:
+    """Switch every block of ``model`` between the fused LN+qkv and the
+    unfused ln_1 + in_proj, over the same parameters."""
+    from sparsify_clip_tpu_torch.models.layers import ResidualAttentionBlock
+
+    for block in model.modules():
+        if isinstance(block, ResidualAttentionBlock):
+            block.fused_ln_qkv = on
+
+
+def _grad_cosines(params, grads_a) -> list:
+    """Each parameter's cosine between ``grads_a`` and its current .grad."""
+    cosines = []
+    for p, ga in zip(params, grads_a):
+        gb = p.grad.detach()
+        denom = (ga.norm() * gb.norm()).item()
+        cosines.append(1.0 if denom == 0 else (ga.flatten() @ gb.flatten()).item() / denom)
+    return cosines
 
 
 def phase_train():
@@ -578,11 +623,7 @@ def phase_train():
         restore()
     if any(read_counts().values()):
         raise AssertionError(f"the plain step launched kernels: {read_counts()}")
-    cosines = []
-    for p, gk in zip(params, grads_k):
-        gp = p.grad.detach()
-        denom = (gk.norm() * gp.norm()).item()
-        cosines.append(1.0 if denom == 0 else (gk.flatten() @ gp.flatten()).item() / denom)
+    cosines = _grad_cosines(params, grads_k)
     dt_p = state.temperature.grad.detach()
     loss_gap = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     dt_gap = abs(dt_k.item() - dt_p.item()) / abs(dt_p.item())
@@ -683,13 +724,15 @@ def _rel_gap(a: float, b: float) -> float:
 
 def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
                steps_per_epoch: int, eval_pairs: int, warm_step: dict, main_step: dict,
-               per_eval_batch: dict):
-    """Phases 9 and 10 (13 and 14): the exp-6 step of a full-width model at
-    ``batch_size`` over one warm and one main epoch of ``steps_per_epoch``,
-    with the per-epoch eval over ``eval_pairs`` in batches of
-    ``batch_size``.  A warm and a main step at ``check_batch`` are held
-    against the plain versions first.  ``warm_step``, ``main_step`` and
-    ``per_eval_batch`` are the launches of each kernel (the rest 0)."""
+               per_eval_batch: dict, overrides: Optional[dict] = None):
+    """Phases 9 and 10 (13 and 14, 16 and 17): the exp-6 step of a
+    full-width model at ``batch_size`` over one warm and one main epoch of
+    ``steps_per_epoch``, with the per-epoch eval over ``eval_pairs`` in
+    batches of ``batch_size``.  A warm and a main step at ``check_batch``
+    are held against the plain versions first and, with ``fused_ln_qkv``
+    among the config ``overrides``, against the same step on the unfused
+    blocks.  ``warm_step``, ``main_step`` and ``per_eval_batch`` are the
+    launches of each kernel (the rest 0)."""
     from sparsify_clip_tpu_torch.config import ExperimentConfig
     from sparsify_clip_tpu_torch.data import synthetic_batch
     from sparsify_clip_tpu_torch.eval import (
@@ -701,7 +744,8 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
     train_phase, eval_phase = (f"phase {n}" for n in phases)
     spe = steps_per_epoch
     config = ExperimentConfig.from_dict(dict(EXP6, model=model, batch_size=batch_size,
-                                             epochs=EXP6_EPOCHS, log_every_n_steps=spe))
+                                             epochs=EXP6_EPOCHS, log_every_n_steps=spe,
+                                             **(overrides or {})))
     t = time.perf_counter()
     setup = create_train_setup(config, steps_per_epoch=spe, device="cuda")
     torch.cuda.synchronize()
@@ -720,8 +764,8 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
     log(f"{train_phase} setup", name=cfg.name, loss_type=config.loss_type,
         only_lunif_epochs=config.only_lunif_epochs, temperature=config.anchor_temperature,
         learnable=config.anchor_temperature_learnable, batch=batch_size, check_batch=check_batch,
-        steps_per_epoch=spe, epochs=config.epochs, params=sum(p.numel() for p in params),
-        seconds=f"{setup_seconds:.3f}")
+        steps_per_epoch=spe, epochs=config.epochs, fused_ln_qkv=config.fused_ln_qkv,
+        params=sum(p.numel() for p in params), seconds=f"{setup_seconds:.3f}")
 
     # one warm and one main step's gradients on the kernels, then on the
     # plain versions (loss_and_grads neither steps the optimizer nor
@@ -735,6 +779,32 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
         if counts != expected:
             raise AssertionError(f"{phase} kernel step launched {counts}, expected {expected}")
         grads_k = [p.grad.detach().clone() for p in params]
+        if config.fused_ln_qkv:
+            # the same step on the unfused blocks: the card's version of the
+            # JAX test_block_fused_path_matches_unfused.  The fused path
+            # rounds the qkv product and then its bias sum, the unfused one
+            # adds the bias inside the product's fp32 epilogue: bf16 apart
+            _set_fused_ln_qkv(setup.model, False)
+            try:
+                reset_counts()
+                loss_u, aux_u, _, _ = setup.train_step.loss_and_grads(state, check)
+                torch.cuda.synchronize()
+            finally:
+                _set_fused_ln_qkv(setup.model, True)
+            unfused_expected = dict(expected, ln_qkv_fwd=0)
+            if read_counts() != unfused_expected:
+                raise AssertionError(f"the unfused {phase} step launched {read_counts()}, "
+                                     f"expected {unfused_expected}")
+            cosines = _grad_cosines(params, grads_k)
+            gaps = {k: _rel_gap(aux_k[k].item(), aux_u[k].item()) for k in aux_k}
+            gaps["loss"] = _rel_gap(loss_k.item(), loss_u.item())
+            worst = int(np.argmin(cosines))
+            log(f"{train_phase} unfused", loss_phase=phase, step=step, batch=check_batch,
+                loss_fused=loss_k.item(), loss_unfused=loss_u.item(), rel_gaps=json.dumps(gaps),
+                rtol=TRAIN_LOSS_RTOL, min_grad_cosine=cosines[worst], min_at=names[worst],
+                min_cosine=TRAIN_MIN_GRAD_COSINE, tensors=len(cosines))
+            if max(gaps.values()) > TRAIN_LOSS_RTOL or cosines[worst] < TRAIN_MIN_GRAD_COSINE:
+                raise AssertionError(f"{phase}: fused step and unfused step disagree")
         restore = _plain_paths()
         try:
             reset_counts()
@@ -744,11 +814,7 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
             restore()
         if any(read_counts().values()):
             raise AssertionError(f"the plain {phase} step launched kernels: {read_counts()}")
-        cosines = []
-        for p, gk in zip(params, grads_k):
-            gp = p.grad.detach()
-            denom = (gk.norm() * gp.norm()).item()
-            cosines.append(1.0 if denom == 0 else (gk.flatten() @ gp.flatten()).item() / denom)
+        cosines = _grad_cosines(params, grads_k)
         gaps = {k: _rel_gap(aux_k[k].item(), aux_p[k].item()) for k in aux_k}
         gaps["loss"] = _rel_gap(loss_k.item(), loss_p.item())
         worst = int(np.argmin(cosines))
@@ -951,6 +1017,64 @@ def phase_head_group_kernels(smi: str):
     return results
 
 
+def phase_ln_qkv_kernels(smi: str):
+    """Phase 15: the fused LN+qkv kernel against its plain version at the
+    ViT-L-14-336 batch-64 shapes, timed beside the unfused pair of library
+    calls and its bound."""
+    from sparsify_clip_tpu_torch.ops.ln_qkv import ln_qkv_fwd, ln_qkv_reference
+
+    F = torch.nn.functional
+    eps = 1e-5
+    results = {}
+    rng = np.random.default_rng(SEED + 5)
+
+    def normal(shape, std=1.0):
+        return torch.from_numpy((std * rng.standard_normal(shape)).astype(np.float32)).cuda()
+
+    for name, n, w, dtype in [("vision", 64 * 577, 1024, torch.bfloat16),
+                              ("text", 64 * 77, 768, torch.bfloat16),
+                              ("vision-fp32", 64 * 577, 1024, torch.float32),
+                              ("wide-ragged", 1000, 1664, torch.bfloat16)]:
+        dname = str(dtype).split(".")[1]
+        # a training model's operands: x in the compute type, fp32 parameters
+        x = normal((n, w)).to(dtype)
+        scale, bias = 1 + normal((w,), 0.1), normal((w,), 0.1)
+        weight, kbias = normal((3 * w, w), w ** -0.5), normal((3 * w,), 0.1)
+        args = (x, scale, bias, weight, kbias, eps, dtype)
+        got, want = ln_qkv_fwd(*args), ln_qkv_reference(*args)
+        torch.cuda.synchronize()
+        # KERNEL_TOL: bf16 rounds the product and then the bias sum, each
+        # at most one step apart; fp32 sums W terms in another order
+        rtol, atol = KERNEL_TOL[dname]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        slow = dtype == torch.float32
+        ms = cuda_ms(lambda: ln_qkv_fwd(*args), iters=5 if slow else 20, warmup=2)
+        plain_ms = cuda_ms(lambda: ln_qkv_reference(*args), iters=5 if slow else 20, warmup=2)
+        # yardstick: the unfused pair, two library calls, on operands cast
+        # to the compute type beforehand
+        sc, bi, wt, kb = (t.to(dtype) for t in (scale, bias, weight, kbias))
+        library_ms = cuda_ms(lambda: F.linear(F.layer_norm(x, (w,), sc, bi, eps), wt, kb),
+                             iters=5 if slow else 20, warmup=2)
+        item = x.element_size()
+        bound_ms, bound_by = bound(
+            (n * w + 3 * w * w + 3 * w + n * 3 * w) * item + 2 * w * 4,  # x, W, b; out; LN fp32
+            2 * n * w * 3 * w,
+            dname,
+        )
+        results[f"ln_qkv_fwd/{name}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                             library_ms=library_ms, bound_ms=bound_ms,
+                                             bound_by=bound_by)
+        log("phase 15 kernel", kernel="ln_qkv_fwd", case=name, shape=[n, w, 3 * w],
+            dtype=str(dtype), max_abs_err=err, rtol=rtol, atol=atol, ms=f"{ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
+            library="F.linear(F.layer_norm(x)), two calls", bound_ms=f"{bound_ms:.5f}",
+            bound_by=bound_by, card=json.dumps(smi))
+        del x, args, weight, wt
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1021,6 +1145,19 @@ def main() -> int:
         main_step=dict(attention, infonce_fwd=1, infonce_bwd_dimg=1, infonce_bwd_dtxt=1,
                        lunif_fwd=1, lunif_bwd=1),
         per_eval_batch=dict(mha_fwd_head_group=24, mha_fwd=12))
+    torch.cuda.empty_cache()
+
+    ln_qkv = phase_ln_qkv_kernels(smi)
+    torch.cuda.empty_cache()
+    # 24 vision and 12 text blocks each run the fused LN+qkv once a forward
+    fused = dict(attention, ln_qkv_fwd=36)
+    exp6_fused = phase_exp6(
+        smi, L336, (16, 17), L336_BATCH, L336_CHECK_BATCH, L336_STEPS_PER_EPOCH, L336_EVAL_PAIRS,
+        warm_step=dict(fused, lunif_fwd=2, lunif_bwd=2),
+        main_step=dict(fused, infonce_fwd=1, infonce_bwd_dimg=1, infonce_bwd_dtxt=1,
+                       lunif_fwd=1, lunif_bwd=1),
+        per_eval_batch=dict(mha_fwd_head_group=24, mha_fwd=12, ln_qkv_fwd=36),
+        overrides=dict(fused_ln_qkv=True))
 
     sources = {
         "mha_fwd": ("ops/csrc/mha_fwd.cu", "sparsify_clip_tpu/ops/pallas_attention.py:67",
@@ -1045,6 +1182,8 @@ def main() -> int:
         "mha_bwd_head_group": ("ops/csrc/mha_head_group.cu",
                                "sparsify_clip_tpu/ops/pallas_attention.py:228",
                                head_group["mha_bwd_head_group/vision"]),
+        "ln_qkv_fwd": ("ops/csrc/ln_qkv.cu", "sparsify_clip_tpu/ops/pallas_ln_qkv.py:55",
+                       ln_qkv["ln_qkv_fwd/vision"]),
     }
     entries = []
     for name in KERNELS:
@@ -1057,6 +1196,8 @@ def main() -> int:
             "train_exp6_l336": sum(c[name] for c in exp6_l336["train"]),
             "eval_l336": sum(c[name] for c in exp6_l336["eval"]),
             "serve_l336": serve_l336["launches"][name],
+            "train_exp6_l336_fused": sum(c[name] for c in exp6_fused["train"]),
+            "eval_l336_fused": sum(c[name] for c in exp6_fused["eval"]),
         }
         entries.append({
             "name": name,

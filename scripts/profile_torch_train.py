@@ -17,7 +17,10 @@ picks some):
   at a step of the warm phase and of the main phase;
 * ``l336_exp6_warm`` and ``l336_exp6_main``: the same exp-6 step of
   ViT-L-14-336 at batch 64 (``chip_smoke.py`` phase 13), whose vision
-  tower takes the head-group attention kernels.
+  tower takes the head-group attention kernels;
+* ``l336_fused_exp6_main``: that main-phase step with ``fused_ln_qkv:
+  true`` (``chip_smoke.py`` phase 16): every block's ln_1 and in_proj run
+  as the fused LN+qkv kernel.
 
 For each:
 
@@ -55,6 +58,7 @@ GROUPS = [
     ("mha_bwd", "attention backward (mha_bwd.cu)"),
     ("mha_fwd", "attention forward (mha_fwd.cu)"),
     ("infonce", "InfoNCE (infonce.cu)"),
+    ("ln_qkv", "fused LN+qkv forward (ln_qkv.cu)"),
     ("lunif", "uniformity (lunif.cu)"),
     ("nvjet", "cuBLAS GEMM"),
     ("gemm", "cuBLAS GEMM"),
@@ -90,6 +94,7 @@ PROFILES = {
     "exp6_main": ("ViT-B-32", 256, EXP6, 1),
     "l336_exp6_warm": ("ViT-L-14-336", 64, EXP6, 0),
     "l336_exp6_main": ("ViT-L-14-336", 64, EXP6, 1),
+    "l336_fused_exp6_main": ("ViT-L-14-336", 64, dict(EXP6, fused_ln_qkv=True), 1),
 }
 
 

@@ -124,9 +124,12 @@ for _base in ["RN50", "RN101", "ViT-B-32", "ViT-B-16", "ViT-L-14",
 
 class CLIP(nn.Module):
     """Two-tower CLIP returning **unnormalized** embeddings; callers
-    L2-normalize.  ViT vision towers only (ResNet towers: ROADMAP)."""
+    L2-normalize.  ViT vision towers only (ResNet towers: ROADMAP).
+    ``fused_ln_qkv`` runs every block's ln_1 and in_proj as the fused
+    LN+qkv kernel, as the JAX ``CLIP(fused_ln_qkv=True)``."""
 
-    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
+                 fused_ln_qkv: bool = False):
         super().__init__()
         if cfg.vision_kind != "vit":
             raise NotImplementedError(
@@ -134,17 +137,19 @@ class CLIP(nn.Module):
                 "(ROADMAP Queue 1, 'ResNet family')"
             )
         self.cfg = cfg
+        self.fused_ln_qkv = fused_ln_qkv
         act = quick_gelu if cfg.quick_gelu else gelu_exact
         self.visual = VisionTransformer(
             image_size=cfg.image_size, patch_size=cfg.patch_size,
             width=cfg.vision_width, layers=cfg.vision_layers[0],
             heads=cfg.vision_heads, mlp_hidden=cfg.vision_mlp_hidden,
-            embed_dim=cfg.embed_dim, act=act, dtype=dtype,
+            embed_dim=cfg.embed_dim, act=act, dtype=dtype, fused_ln_qkv=fused_ln_qkv,
         )
         self.text = TextTransformer(
             vocab_size=cfg.vocab_size, context_length=cfg.context_length,
             width=cfg.text_width, heads=cfg.text_heads, layers=cfg.text_layers,
             mlp_hidden=cfg.text_mlp_hidden, embed_dim=cfg.embed_dim, act=act, dtype=dtype,
+            fused_ln_qkv=fused_ln_qkv,
         )
 
     @property
@@ -160,9 +165,9 @@ class CLIP(nn.Module):
         """A CLIP that computes in ``dtype`` over this model's parameters:
         the same ``Parameter`` objects, not copies, so it sees every update
         to them (the JAX side's ``model.clone(dtype=...)`` applied to the
-        shared params)."""
+        shared params), with this model's ``fused_ln_qkv``."""
         with torch.device("meta"):
-            twin = CLIP(self.cfg, dtype=dtype)
+            twin = CLIP(self.cfg, dtype=dtype, fused_ln_qkv=self.fused_ln_qkv)
         twin.load_state_dict(self.state_dict(keep_vars=True), strict=True, assign=True)
         return twin.train(self.training)
 
@@ -187,6 +192,7 @@ def create_model(
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
     param_dtype: Optional[torch.dtype] = None,
+    fused_ln_qkv: bool = False,
 ) -> CLIP:
     """Build a registry model with fresh weights, in eval mode, on
     ``device`` (the card unless the caller asks for the CPU).
@@ -198,7 +204,9 @@ def create_model(
     a serving model stores its weights once in the compute type, the same
     rounding as the JAX towers' cast at each use.  A training model passes
     ``param_dtype=torch.float32`` and keeps fp32 parameters, cast to
-    ``dtype`` where they are used, as on the JAX side.
+    ``dtype`` where they are used, as on the JAX side.  ``fused_ln_qkv``
+    fuses every block's ln_1 into its in_proj (the JAX ``create_model``'s
+    knob, clip.py:267); the parameters are the same either way.
     """
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model {name!r}. Known: {sorted(MODEL_REGISTRY)}")
@@ -209,7 +217,7 @@ def create_model(
             "is available; pass device='cpu' to build it on the CPU"
         )
     with torch.device("meta"):
-        model = CLIP(MODEL_REGISTRY[name], dtype=dtype)
+        model = CLIP(MODEL_REGISTRY[name], dtype=dtype, fused_ln_qkv=fused_ln_qkv)
     model.to_empty(device="cpu")
     model.reset_parameters(torch.Generator().manual_seed(seed))
     for module in model.modules():

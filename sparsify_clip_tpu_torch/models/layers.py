@@ -14,11 +14,15 @@ Conventions carried over from the JAX towers:
 * the attention core is the fused kernel of
   :mod:`sparsify_clip_tpu_torch.ops.attention` on CUDA and its plain
   version on the CPU, with its own backward when a gradient is wanted;
+* with ``fused_ln_qkv`` a block runs ``ln_1`` and the packed in_proj as
+  one kernel (:func:`sparsify_clip_tpu_torch.ops.ln_qkv.ln_qkv_core`,
+  the JAX block's ``ln_qkv_core`` route, layers.py:206-215) over the same
+  parameters, so the ``state_dict`` is the unfused block's;
 * module and parameter names follow open_clip's ``state_dict``
   (``resblocks.N.attn.in_proj_weight``, ``mlp.c_fc`` ...).
 
-Only the unrolled layer stack is ported: ``scan_layers``, remat, the
-pipeline and the fused LN+qkv kernel are later work (ROADMAP).
+Only the unrolled layer stack is ported: ``scan_layers``, remat and the
+pipeline are later work (ROADMAP).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sparsify_clip_tpu_torch.ops.attention import attention_core
+from sparsify_clip_tpu_torch.ops.ln_qkv import ln_qkv_core
 
 Activation = Callable[[torch.Tensor], torch.Tensor]
 
@@ -106,7 +111,11 @@ class MultiHeadAttention(nn.Module):
         nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = linear(x, self.in_proj_weight, self.in_proj_bias)
+        return self.attend(linear(x, self.in_proj_weight, self.in_proj_bias))
+
+    def attend(self, qkv: torch.Tensor) -> torch.Tensor:
+        """Attention core and out_proj over a packed (B, L, 3W) qkv, for a
+        block whose fused LN+qkv kernel already produced it."""
         ctx = attention_core(qkv, self.heads, self.causal)
         return linear(ctx, self.out_proj.weight, self.out_proj.bias)
 
@@ -131,11 +140,16 @@ class MLP(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN block: x += attn(ln_1(x)); x += mlp(ln_2(x))."""
+    """Pre-LN block: x += attn(ln_1(x)); x += mlp(ln_2(x)).
+
+    With ``fused_ln_qkv``, ``ln_1`` and the in_proj run as one fused
+    LN+qkv (fast-variance LayerNorm, the JAX kernel's arithmetic) in x's
+    type, over ``ln_1``'s and ``attn``'s own parameters."""
 
     def __init__(self, width: int, heads: int, mlp_hidden: Optional[int],
-                 act: Activation, causal: bool):
+                 act: Activation, causal: bool, fused_ln_qkv: bool = False):
         super().__init__()
+        self.fused_ln_qkv = fused_ln_qkv
         self.ln_1 = LayerNorm(width)
         self.attn = MultiHeadAttention(width, heads, causal)
         self.ln_2 = LayerNorm(width)
@@ -148,17 +162,22 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp.reset_parameters(gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x))
+        if self.fused_ln_qkv:
+            qkv = ln_qkv_core(x, self.ln_1.weight, self.ln_1.bias, self.attn.in_proj_weight,
+                              self.attn.in_proj_bias, self.ln_1.eps)
+            x = x + self.attn.attend(qkv)
+        else:
+            x = x + self.attn(self.ln_1(x))
         return x + self.mlp(self.ln_2(x))
 
 
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int,
                  mlp_hidden: Optional[int] = None, act: Activation = gelu_exact,
-                 causal: bool = False):
+                 causal: bool = False, fused_ln_qkv: bool = False):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, mlp_hidden, act, causal)
+            ResidualAttentionBlock(width, heads, mlp_hidden, act, causal, fused_ln_qkv)
             for _ in range(layers)
         )
 

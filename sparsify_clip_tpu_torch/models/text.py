@@ -20,13 +20,15 @@ class TextTransformer(nn.Module):
     def __init__(self, vocab_size: int = 49408, context_length: int = 77,
                  width: int = 512, heads: int = 8, layers: int = 12,
                  mlp_hidden: Optional[int] = None, embed_dim: int = 512,
-                 act: Activation = gelu_exact, dtype: torch.dtype = torch.float32):
+                 act: Activation = gelu_exact, dtype: torch.dtype = torch.float32,
+                 fused_ln_qkv: bool = False):
         super().__init__()
         self.dtype = dtype  # the compute type; weights are cast to it at use
         self.width = width
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
-        self.transformer = Transformer(width, layers, heads, mlp_hidden, act, causal=True)
+        self.transformer = Transformer(width, layers, heads, mlp_hidden, act, causal=True,
+                                       fused_ln_qkv=fused_ln_qkv)
         self.ln_final = LayerNorm(width)
         self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
 

@@ -23,7 +23,8 @@ class VisionTransformer(nn.Module):
     def __init__(self, image_size: int = 224, patch_size: int = 32,
                  width: int = 768, layers: int = 12, heads: int = 12,
                  mlp_hidden: Optional[int] = None, embed_dim: int = 512,
-                 act: Activation = gelu_exact, dtype: torch.dtype = torch.float32):
+                 act: Activation = gelu_exact, dtype: torch.dtype = torch.float32,
+                 fused_ln_qkv: bool = False):
         super().__init__()
         self.dtype = dtype  # the compute type; weights are cast to it at use
         self.image_size = image_size
@@ -34,7 +35,8 @@ class VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(width))
         self.positional_embedding = nn.Parameter(torch.empty(grid * grid + 1, width))
         self.ln_pre = LayerNorm(width)
-        self.transformer = Transformer(width, layers, heads, mlp_hidden, act)
+        self.transformer = Transformer(width, layers, heads, mlp_hidden, act,
+                                       fused_ln_qkv=fused_ln_qkv)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
 

@@ -184,5 +184,13 @@ def library() -> ctypes.CDLL:
                 p,              # cudaStream_t
             ]
             lib.sparsify_lunif_bwd.restype = i
+            lib.sparsify_ln_qkv_fwd.argtypes = [
+                p, p, p,        # x, LayerNorm scale, LayerNorm bias (fp32)
+                p, p, p,        # weight (3W, W), bias (3W,), out (N, 3W)
+                i, i, f,        # n, width, eps
+                i,              # dtype (0 fp32, 1 bf16)
+                p,              # cudaStream_t
+            ]
+            lib.sparsify_ln_qkv_fwd.restype = i
             _lib = lib
         return _lib

@@ -52,7 +52,6 @@ _NOT_PORTED: List[Tuple[Callable[[ExperimentConfig], bool], str]] = [
     (lambda c: c.remat, "remat (ROADMAP Queue 1 item 13)"),
     (lambda c: c.onehot_embed, "onehot_embed (ROADMAP Queue 1 item 13)"),
     (lambda c: not c.ln_fp32, "ln_fp32: false (ROADMAP Queue 1 item 13)"),
-    (lambda c: c.fused_ln_qkv, "fused_ln_qkv (the LN+qkv kernel, ROADMAP Queue 2 row 10)"),
     (lambda c: c.pipeline, "pipeline (parallel/pipeline.py, ROADMAP Queue 1 item 11)"),
     (lambda c: c.fsdp, "fsdp (ROADMAP Queue 1 item 11)"),
     (lambda c: c.mesh_model > 1, "mesh_model > 1 (tensor parallelism, ROADMAP Queue 1 item 11)"),
@@ -187,6 +186,9 @@ def create_train_setup(
 ) -> TrainSetup:
     """Assemble model, state and step on ``device`` (the card unless the
     caller asks for the CPU; without a card the default raises).
+    ``config.fused_ln_qkv`` builds the blocks with the fused LN+qkv kernel
+    (``ln_fp32: false`` is refused above, so the JAX condition
+    ``fused_ln_qkv and ln_fp32`` holds whenever the knob is on).
 
     ``steps_per_epoch`` comes from the data pipeline (len(train_loader)
     in the reference, sparsify_clip.py:734).  Weights are drawn from
@@ -208,7 +210,7 @@ def create_train_setup(
     train_step = TrainStep(config, steps_per_epoch, total_steps, schedule)  # refuses early
     dtype = torch.bfloat16 if config.fp16 else torch.float32
     model = create_model(config.model, dtype=dtype, device=device, seed=config.seed,
-                         param_dtype=torch.float32).train()
+                         param_dtype=torch.float32, fused_ln_qkv=config.fused_ln_qkv).train()
     temperature = torch.tensor(config.anchor_temperature, dtype=torch.float32, device=device)
     temperature.requires_grad_(config.anchor_temperature_learnable)
     # the trainables: the model's parameters, then the temperature when

@@ -200,7 +200,6 @@ def test_unknown_loss_type_raises():
     (dict(remat=True), "remat"),
     (dict(onehot_embed=True), "onehot_embed"),
     (dict(ln_fp32=False), "ln_fp32"),
-    (dict(fused_ln_qkv=True), "fused_ln_qkv"),
     (dict(pipeline=True), "pipeline"),
     (dict(fsdp=True), "fsdp"),
     (dict(mesh_model=2), "mesh_model"),
