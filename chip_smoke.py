@@ -19,8 +19,10 @@ Phases, one line each; any failure exits nonzero before the final line:
 6. hold the training kernels against their plain versions at the train
    step's shapes and time both: the attention backward at the vision
    (256, 50, 2304) and causal text (256, 77, 1536) bf16 shapes and once in
-   fp32; the InfoNCE forward and both backward kernels at (256, 512) fp32
-   and at N = 200, which is no multiple of the TPU's 128-row tile;
+   fp32, beside SDPA's backward under each backend that takes the shape
+   (flash, efficient, cuDNN; the fastest is the yardstick, named); the
+   InfoNCE forward and both backward kernels at (256, 512) fp32 and at
+   N = 200, which is no multiple of the TPU's 128-row tile;
 7. train full-width ViT-B-32 (fp32 parameters, bf16 compute) at batch 256
    under ``loss_type: "anchor"`` with a learnable temperature, through
    ``create_train_setup``, ``train_step`` and ``run_training``, on a fixed
@@ -60,7 +62,8 @@ Phases, one line each; any failure exits nonzero before the final line:
    their plain versions and time them beside SDPA and their bound: the
    forward at the ViT-L-14-336 vision shape (64, 577, 3072) in bf16,
    causal and not, and at (32, 577, 3072) in fp32; the backward at
-   (64, 577, 3072) bf16 and (8, 577, 3072) fp32.  Check that the route
+   (64, 577, 3072) bf16 and (8, 577, 3072) fp32, beside SDPA's backward
+   under each backend as phase 6.  Check that the route
    sends (577, 3072, 16 heads) in bf16 and fp32 to the head-group pair and
    the text tower's (77, 2304, 12 heads) to the whole-width pair;
 12. build full-width ViT-L-14-336 in bf16 from a seed (the init time is
@@ -213,6 +216,37 @@ def bound(n_bytes: float, flops: float, dtype: str):
 def attention_pairs(l: int, causal: bool) -> int:
     """(query, key) pairs the mask lets through a head."""
     return l * (l + 1) // 2 if causal else l * l
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_bwd_ms(qkv, dout, heads: int, causal: bool, iters: int, warmup: int):
+    """The backward of PyTorch's fused attention, from its own forward on
+    (B, H, L, D) leaves, timed under each backend of ``SDPA_BACKENDS`` that
+    takes the shape (the backend picked for the forward runs the backward
+    too) → ({backend: ms}, the fastest backend).  A yardstick only: the
+    port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, l, w3 = qkv.shape
+    head_dim = w3 // (3 * heads)
+    q, k, v = (t.detach().requires_grad_(True) for t in
+               qkv.view(b, l, 3, heads, head_dim).permute(2, 0, 3, 1, 4).contiguous())
+    do = dout.view(b, l, heads, head_dim).transpose(1, 2).contiguous()
+    times = {}
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                o = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            times[name.lower()] = cuda_ms(
+                lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
+                iters=iters, warmup=warmup)
+        except RuntimeError:  # the backend does not take this shape or type
+            continue
+    if not times:
+        raise AssertionError(f"no SDPA backend takes {tuple(qkv.shape)} {qkv.dtype}")
+    return times, min(times, key=times.get)
 
 
 def phase_build():
@@ -439,14 +473,9 @@ def phase_train_kernels():
         err = (got.float() - want.float()).abs().max().item()
         ms = cuda_ms(lambda: mha_bwd(qkv, lse, dout, heads, causal), iters=20)
         plain_ms = cuda_ms(lambda: mha_bwd_reference(qkv, lse, dout, heads, causal), iters=20)
-        # yardstick: the backward of PyTorch's fused attention on (B, H, L, D)
-        # leaves, from its own forward
-        q, k, v = (t.detach().requires_grad_(True) for t in
-                   qkv.view(b, l, 3, heads, head_dim).permute(2, 0, 3, 1, 4).contiguous())
-        o = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
-        do = dout.view(b, l, heads, head_dim).transpose(1, 2).contiguous()
-        library_ms = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
-                             iters=20)
+        # yardstick: SDPA's backward, the fastest backend that takes the shape
+        sdpa_ms, library = sdpa_bwd_ms(qkv, dout, heads, causal, iters=20, warmup=5)
+        library_ms = sdpa_ms[library]
         item = qkv.element_size()
         bound_ms, bound_by = bound(
             b * l * (3 * width * 2 + width) * item + b * l * heads * 4,  # qkv, dout, lse; dqkv
@@ -454,11 +483,12 @@ def phase_train_kernels():
             str(dtype).split(".")[1],
         )
         results[f"mha_bwd/{name}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                          library_ms=library_ms, bound_ms=bound_ms,
-                                          bound_by=bound_by)
+                                          library_ms=library_ms, library=f"sdpa/{library}",
+                                          bound_ms=bound_ms, bound_by=bound_by)
         log("phase 6 kernel", kernel="mha_bwd", case=name, shape=list(qkv.shape), heads=heads,
             causal=causal, dtype=str(dtype), max_abs_err=err, rtol=rtol, atol=atol,
             ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
+            library=f"sdpa/{library}", sdpa_bwd_ms=json.dumps(sdpa_ms),
             bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
 
     for n, d in [(256, 512), (200, 512)]:
@@ -992,28 +1022,24 @@ def phase_head_group_kernels(smi: str):
         ms = cuda_ms(lambda: mha_bwd_head_group(qkv, dout, heads), iters=5, warmup=1)
         plain_ms = cuda_ms(lambda: mha_bwd_head_group_reference(qkv, dout, heads), iters=3,
                            warmup=1)
-        # yardstick: the backward of PyTorch's fused attention on (B, H, L, D)
-        # leaves, from its own forward
-        q, k, v = (t.detach().requires_grad_(True) for t in
-                   qkv.view(b, l, 3, heads, head_dim).permute(2, 0, 3, 1, 4).contiguous())
-        o = sdpa(q, k, v)
-        do = dout.view(b, l, heads, head_dim).transpose(1, 2).contiguous()
-        library_ms = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
-                             iters=10, warmup=2)
+        # yardstick: SDPA's backward, the fastest backend that takes the shape
+        sdpa_ms, library = sdpa_bwd_ms(qkv, dout, heads, False, iters=10, warmup=2)
+        library_ms = sdpa_ms[library]
         bound_ms, bound_by = bound(
             b * l * (3 * width * 2 + width) * qkv.element_size(),  # qkv, dout; dqkv
             5 * 2 * b * heads * attention_pairs(l, False) * head_dim,  # S, dP, dV, dQ, dK
             dname,
         )
         results[f"mha_bwd_head_group/{name}"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by=bound_by)
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            library=f"sdpa/{library}", bound_ms=bound_ms, bound_by=bound_by)
         log("phase 11 kernel", kernel="mha_bwd_head_group", case=name, shape=list(qkv.shape),
             heads=heads, causal=False, dtype=str(dtype), max_abs_err=err, rtol=rtol,
             atol=f"{atol:.3g}", ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-            library_ms=f"{library_ms:.5f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+            library_ms=f"{library_ms:.5f}", library=f"sdpa/{library}",
+            sdpa_bwd_ms=json.dumps(sdpa_ms), bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
             card=json.dumps(smi))
-        del qkv, dout, q, k, v, o, do
+        del qkv, dout
     return results
 
 
@@ -1212,6 +1238,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "library": r.get("library"),
         })
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -99,6 +99,13 @@ def _check_kernel_dout(name: str, qkv: torch.Tensor, dout: torch.Tensor) -> None
         raise ValueError(f"{name} kernel needs a contiguous dout")
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it when its data does not start on a 16-byte
+    boundary: the bf16 backward kernels stage 16-byte vectors with
+    cp.async, and a contiguous view may start mid-vector."""
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def _count(fn) -> None:
     with _count_lock:
         fn.launches += 1
@@ -206,7 +213,9 @@ def mha_bwd(
 
     The kernel takes bf16 or fp32 (dout in qkv's type), contiguous
     tensors, a head_dim that is a multiple of 8 and at most 128, and any
-    L: it walks queries and keys in 32-row tiles."""
+    L: it walks queries and keys in tiles (64 and 32 rows in bf16, on the
+    tensor cores; 32 in fp32) and masks the ragged last one.  A view that
+    starts off a 16-byte boundary is copied first."""
     b, l, width, head_dim = _split(qkv, heads)
     if qkv.device.type == "cpu":
         return mha_bwd_reference(qkv, lse, dout, heads, causal)
@@ -217,6 +226,7 @@ def mha_bwd(
                         f"{tuple(lse.shape)} for qkv {tuple(qkv.shape)}")
     if lse.device != qkv.device or not lse.is_contiguous():
         raise ValueError("mha_bwd kernel needs a contiguous lse on qkv's device")
+    qkv, dout = _aligned(qkv), _aligned(dout)
     dqkv = torch.empty_like(qkv)
     drow = torch.empty((b, heads, l), dtype=torch.float32, device=qkv.device)
     lib = _build.library()
@@ -339,15 +349,16 @@ def mha_bwd_head_group(
     qkv: torch.Tensor, dout: torch.Tensor, heads: int, causal: bool = False
 ) -> torch.Tensor:
     """Head-group attention backward: the CUDA kernels for CUDA tensors
-    (a stats pass that recomputes each row's max, sum and rowsum(dP∘P),
-    then dQ, then dK/dV; one launch of the entry point, counted once),
-    the plain version for CPU tensors.  Takes what :func:`mha_bwd` takes,
-    without an LSE."""
+    (dQ, whose first sweep recomputes each row's max, sum and
+    rowsum(dP∘P), then dK/dV; one launch of the entry point, counted
+    once), the plain version for CPU tensors.  Takes what :func:`mha_bwd`
+    takes, without an LSE."""
     b, l, width, head_dim = _split(qkv, heads)
     if qkv.device.type == "cpu":
         return mha_bwd_head_group_reference(qkv, dout, heads, causal)
     _check_kernel_qkv("mha_bwd_head_group", qkv, head_dim)
     _check_kernel_dout("mha_bwd_head_group", qkv, dout)
+    qkv, dout = _aligned(qkv), _aligned(dout)
     dqkv = torch.empty_like(qkv)
     row_max = torch.empty((b, l, heads), dtype=torch.float32, device=qkv.device)
     row_sum = torch.empty_like(row_max)

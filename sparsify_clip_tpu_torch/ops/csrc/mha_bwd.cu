@@ -23,28 +23,26 @@
 // Design: two kernels on one stream, no atomics, deterministic, both in
 // `mha_bwd_tiles.cuh` (shared with the head-group backward), instantiated
 // here with the `SavedLse` row policy.
-//   `mha_bwd_dq_kernel`: a block takes one (batch, head) and 32 query rows.
-//     Pass 1 walks the keys in tiles of 32 and sums Dr; pass 2 walks them
-//     again, forms dS and accumulates dQ. It stores Dr for the second kernel.
-//   `mha_bwd_dkv_kernel`: a block takes one (batch, head) and 32 keys, walks
-//     the query rows in tiles of 32 (from its own first key on when causal),
-//     and accumulates dK and dV.
-// S and dP are recomputed in each pass (nine L^2.D products a head instead
-// of five); in exchange a block's shared memory is four 32-row tiles, so any
-// L takes the same kernel (the slice needs 50 and 77, the zoo 197, 257 and
-// 577) and head_dim may be any multiple of 8 up to 128. Both kernels
-// compute S and dP with the same fp32 FMAs in the same order, so pass 2 and
-// the dK/dV kernel see bitwise the P that Dr was summed over.
+//   the dQ kernel: a block takes one (batch, head) and a tile of query rows.
+//     Its first sweep over the keys sums Dr; its second forms dS and
+//     accumulates dQ. It stores Dr for the second kernel.
+//   the dK/dV kernel: a block takes one (batch, head) and a tile of keys,
+//     walks the query rows (from its own first key on when causal), and
+//     accumulates dK and dV.
+// Any L takes the same kernels (the slice needs 50 and 77, the zoo 197, 257
+// and 577; the ragged last tile is masked by index), and head_dim may be
+// any multiple of 8 up to 128 (zero-filled up to the mma's k of 16).
 //
 // What bounds it on an H100. At ViT-B-32's shapes (B = 256, L = 50 and 77,
-// D = 64) the arithmetic is ~5 GFLOP a layer and the bytes ~0.3 GB, so a
-// kernel on the tensor cores would be bound by device memory. This one is
-// not: it runs plain fp32 FMAs out of shared memory (the bf16 inputs are
-// widened on the way in), 128 threads a block, each thread 8 rows by one
-// key for S and dP and 8 rows by 4 columns for the gradients; it is bound
-// by FMA issue and shared-memory loads, and it pads L = 50 to two 32-row
-// tiles. Its time stands in PERF.md; mma.sync or wgmma for the bf16 path is
-// later work.
+// D = 64) the five products are ~5 GFLOP a layer against ~0.14 GB of qkv,
+// dout and dqkv: 5 us on the tensor cores, 41 us of memory, so the floor is
+// the bytes. The bf16 kernels run every product on mma.sync (64-row tiles,
+// 16 rows a warp, cp.async staging), which keeps the arithmetic well below
+// the memory floor even with S and dP recomputed and the hi + lo split;
+// what is left above the floor is the two sweeps' second read of K and V
+// and the 64-row tile's padding at L = 50 (PERF.md has the times). The fp32
+// route (the eval twin takes no gradient, so no main path runs it) stays on
+// plain FMAs out of shared memory.
 
 #include "mha_bwd_tiles.cuh"
 
@@ -52,17 +50,14 @@
 // returns the first CUDA error (0 on success): a refused launch never runs,
 // and a later synchronise would not report it.
 // dtype: 0 = fp32, 1 = bf16 (qkv, dout and dqkv). drow is (B, H, L) fp32
-// scratch that the wrapper allocates.
+// scratch that the wrapper allocates. The bf16 route copies 16-byte vectors
+// with cp.async: qkv and dout must start on a 16-byte boundary (the wrapper
+// copies a misaligned dout first).
 extern "C" int sparsify_mha_bwd(const void* qkv, const float* lse, const void* dout, void* dqkv,
                                 float* drow, int batch, int seq, int heads, int head_dim,
                                 int causal, int dtype, float scale, void* stream) {
-  if (head_dim <= 0 || head_dim > kMaxHeadDim || head_dim % 8 != 0 || seq <= 0 || heads <= 0 ||
-      batch <= 0 || batch > 65535 || heads > 65535 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_dq_dkv<__nv_bfloat16, SavedLse>(qkv, lse, nullptr, dout, dqkv, drow, batch, seq,
-                                                  heads, head_dim, causal, scale, s);
-  return launch_dq_dkv<float, SavedLse>(qkv, lse, nullptr, dout, dqkv, drow, batch, seq, heads,
-                                        head_dim, causal, scale, s);
+  // SavedLse only reads row_a (the LSE) and never writes it
+  return launch_dq_dkv<SavedLse>(qkv, const_cast<float*>(lse), nullptr, dout, dqkv, drow, batch,
+                                 seq, heads, head_dim, causal, dtype, scale,
+                                 static_cast<cudaStream_t>(stream));
 }

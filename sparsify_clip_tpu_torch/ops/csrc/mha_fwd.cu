@@ -50,6 +50,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int kMaxHeadDim = 128;
@@ -191,33 +193,6 @@ mha_fwd_fp32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
     }
     if (lse != nullptr && lane == 0) lse[(b * L + row) * H + h] = m[rr] + logf(l[rr]);
   }
-}
-
-// D = A.B + D for one m16n8k16 tile: A 16x16 bf16 (row), B 16x8 bf16 (col),
-// D 16x8 fp32. Fragment of lane (g = lane / 4, t = lane % 4), two bf16 a
-// register, lower column (or k) in the low half:
-//   a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
-//   b0 (k 2t..2t+1, n g)  b1 (k 2t+8.., n g)
-//   d0, d1 (g, 2t..2t+1)  d2, d3 (g+8, 2t..2t+1)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// (x, y) -> bf16 pairs hi and lo with hi + lo = (x, y) to ~2^-16 relative
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 __global__ void __launch_bounds__(kWarps * 32)

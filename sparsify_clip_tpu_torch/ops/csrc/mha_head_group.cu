@@ -41,24 +41,24 @@
 // about half of wgmma's rate, and 577 = 9 * 64 + 1 leaves the last query
 // tile one row. Its time stands in PERF.md.
 //
-// Backward (`sparsify_mha_bwd_head_group`, one entry point, three kernels on
-// one stream, no atomics, deterministic):
-//   `mha_headgroup_stats_kernel`: a block takes 32 query rows of one
-//     (batch, head), walks every key tile once and keeps, per row, the
-//     running max m, l = sum exp(s - m) and a = sum exp(s - m) dP, both
-//     rescaled by exp(m_old - m_new) when m grows (an online rescale, not a
-//     second sweep). It writes m and l (B, L, H) and Dr = a / l =
-//     rowsum(dP o P) (B, H, L) to scratch the wrapper allocates.
-//   then the dQ and the dK/dV kernels of `mha_bwd_tiles.cuh` with the
-//     `HeadGroupRows` policy: P = exp(S - m) / l, the TPU kernel's division
-//     form, and Dr as given.
-// Nine L^2.D products a head (S and dP in each of the three passes, then
-// dQ, dK and dV), on fp32 FMAs out of shared memory. What bounds it: at
+// Backward (`sparsify_mha_bwd_head_group`, one entry point, two kernels on
+// one stream, no atomics, deterministic): the dQ and the dK/dV kernels of
+// `mha_bwd_tiles.cuh` with the `HeadGroupRows` policy. The dQ kernel's
+// first sweep over the keys keeps, per row, the running max m, l = sum
+// exp(s - m) and a = sum exp(s - m) dP, both rescaled by exp(m_old - m_new)
+// when m grows, and writes m and l (B, L, H) and Dr = a / l = rowsum(dP o
+// P) (B, H, L) to scratch the wrapper allocates; its second sweep and the
+// dK/dV kernel rebuild P = exp(S - m) / l, normalised by the row sum as the
+// TPU kernel does (the bf16 route keeps m in log2 units and 1 / l).
+// Nine L^2.D products a head (S and dP in each of three sweeps, then dQ,
+// dK and dV); in bf16 all on the tensor cores, dQ, dK and dV with P and dS
+// split into hi + lo (twelve products' worth). What bounds it: at
 // (64, 577, 3072) bf16 the least work is five products, 2 * 5 * 64 * 16 *
 // 577^2 * 64 = 218 GFLOP, 0.22 ms on the tensor cores against 0.16 ms for
 // the 0.53 GB of qkv, dout and dqkv, so the floor is the operations; this
-// kernel is bound by FMA throughput far above it (PERF.md). Tensor cores
-// for the bf16 path are later work.
+// design spends 12/5 of them, on mma.sync (about half of wgmma's rate), so
+// it sits several times above the floor (PERF.md). The fp32 route stays on
+// plain FMAs: no main path takes its gradient.
 
 #include "mha_bwd_tiles.cuh"
 
@@ -69,67 +69,6 @@ constexpr int kKeyTile = 32;                 // keys a pipeline stage
 constexpr int kBf16Rows = 64;                // query rows a bf16 block, 16 a warp
 constexpr int kF32Rows = 16;                 // query rows an fp32 block, 4 a warp
 constexpr int kF32RowsPerWarp = kF32Rows / 4;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));
-  return x;
-}
-
-// 16 bytes from global to shared memory, asynchronously; with `full` false
-// nothing is read and the 16 bytes are zero-filled (src must still be a
-// valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// D = A.B + D for one m16n8k16 tile: A 16x16 bf16 (row), B 16x8 bf16 (col),
-// D 16x8 fp32. Fragment of lane (g = lane / 4, t = lane % 4), two bf16 a
-// register, lower column (or k) in the low half:
-//   a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
-//   b0 (k 2t..2t+1, n g)  b1 (k 2t+8.., n g)
-//   d0, d1 (g, 2t..2t+1)  d2, d3 (g+8, 2t..2t+1)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory, transposed: lanes 8i..8i+7 give
-// the addresses of matrix i's rows, and register i of lane (g, t) holds
-// elements (row 2t, col g) and (row 2t+1, col g) of matrix i. With rows =
-// keys and cols = head columns of row-major V, that is P.V's B fragment.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// (x, y) -> bf16 pairs hi and lo with hi + lo = (x, y) to ~2^-16 relative
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 // Shared memory of the bf16 forward: Q (64 rows) and two K and two V tiles
 // (32 rows each), bf16 rows of kMaxD + 8 (the +8 puts the 8 rows an
@@ -466,74 +405,6 @@ mha_headgroup_fwd_fp32_kernel(const float* __restrict__ qkv, float* __restrict__
   }
 }
 
-// The backward's stats pass. Grid (query tiles of 32, H, B).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mha_headgroup_stats_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                           float* __restrict__ row_max, float* __restrict__ row_sum,
-                           float* __restrict__ drow, int L, int H, int D, int causal,
-                           float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int sd = D + 4;
-  float* q_s = smem;
-  float* do_s = q_s + kTile * sd;
-  float* k_s = do_s + kTile * sd;
-  float* v_s = k_s + kTile * sd;
-
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int W = H * D;
-  const int64_t qkv_stride = 3 * (int64_t)W;
-  const T* qkv_b = qkv + b * L * qkv_stride + (int64_t)h * D;
-  const T* dout_b = dout + b * L * (int64_t)W + (int64_t)h * D;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  stage(q_s, sd, qkv_b, qkv_stride, q0, L, D);
-  stage(do_s, sd, dout_b, (int64_t)W, q0, L, D);
-
-  int row[kRowsPerWarp];
-  float m[kRowsPerWarp], l[kRowsPerWarp], a[kRowsPerWarp];
-#pragma unroll
-  for (int n = 0; n < kRowsPerWarp; ++n) {
-    row[n] = q0 + warp + kWarps * n;
-    m[n] = -INFINITY;
-    l[n] = a[n] = 0.f;
-  }
-
-  const int key_end = causal ? min(L, q0 + kTile) : L;
-  float s[kRowsPerWarp], dp[kRowsPerWarp];
-  for (int k0 = 0; k0 < key_end; k0 += kTile) {
-    __syncthreads();  // the previous K/V tile is consumed; Q and dO are visible
-    stage(k_s, sd, qkv_b + W, qkv_stride, k0, L, D);
-    stage(v_s, sd, qkv_b + 2 * W, qkv_stride, k0, L, D);
-    __syncthreads();
-    // the same S and dP, bit for bit, as the dQ and dK/dV passes see
-    pair_dots(q_s, do_s, k_s, v_s, sd, D, warp, lane, s, dp);
-    const int key = k0 + lane;
-#pragma unroll
-    for (int n = 0; n < kRowsPerWarp; ++n) {
-      const bool valid = row[n] < L && key < L && (!causal || key <= row[n]);
-      const float sc = valid ? s[n] * scale : -INFINITY;
-      const float m_new = fmaxf(m[n], warp_max(sc));
-      // a row past L sees no valid key: keep its sums at 0, never NaN
-      const float alpha = m_new == -INFINITY ? 0.f : expf(m[n] - m_new);
-      const float e = valid ? expf(sc - m_new) : 0.f;
-      l[n] = l[n] * alpha + warp_sum(e);
-      a[n] = a[n] * alpha + warp_sum(e * dp[n]);
-      m[n] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int n = 0; n < kRowsPerWarp; ++n) {
-    if (row[n] >= L || lane != 0) continue;
-    row_max[(b * L + row[n]) * H + h] = m[n];
-    row_sum[(b * L + row[n]) * H + h] = l[n];
-    drow[(b * H + h) * L + row[n]] = a[n] / l[n];
-  }
-}
-
 template <int kMaxD>
 int launch_fwd_bf16(const void* qkv, void* out, int batch, int seq, int heads, int head_dim,
                     int causal, float scale, cudaStream_t stream) {
@@ -546,24 +417,6 @@ int launch_fwd_bf16(const void* qkv, void* out, int batch, int seq, int heads, i
       static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), seq, heads,
       head_dim, causal, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_bwd(const void* qkv, const void* dout, void* dqkv, float* row_max, float* row_sum,
-               float* drow, int batch, int seq, int heads, int head_dim, int causal, float scale,
-               cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes(head_dim);
-  const cudaError_t err = cudaFuncSetAttribute(
-      mha_headgroup_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((seq + kTile - 1) / kTile, heads, batch);
-  mha_headgroup_stats_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), row_max, row_sum, drow, seq, heads,
-      head_dim, causal, scale);
-  const cudaError_t launch = cudaGetLastError();
-  if (launch != cudaSuccess) return (int)launch;
-  return launch_dq_dkv<T, HeadGroupRows>(qkv, row_max, row_sum, dout, dqkv, drow, batch, seq,
-                                         heads, head_dim, causal, scale, stream);
 }
 
 bool valid_shape(int batch, int seq, int heads, int head_dim, int dtype) {
@@ -601,18 +454,16 @@ extern "C" int sparsify_mha_fwd_head_group(const void* qkv, void* out, int batch
   return (int)cudaGetLastError();
 }
 
-// The backward: the stats pass, then dQ, then dK/dV. row_max and row_sum
-// are (B, L, H) fp32 and drow (B, H, L) fp32 scratch that the wrapper
-// allocates.
+// The backward: the dQ kernel (which also writes each row's max, sum and
+// Dr), then the dK/dV kernel. row_max and row_sum are (B, L, H) fp32 and
+// drow (B, H, L) fp32 scratch that the wrapper allocates. The bf16 route
+// copies 16-byte vectors: qkv and dout must start on a 16-byte boundary
+// (the wrapper copies a misaligned dout first).
 extern "C" int sparsify_mha_bwd_head_group(const void* qkv, const void* dout, void* dqkv,
                                            float* row_max, float* row_sum, float* drow,
                                            int batch, int seq, int heads, int head_dim,
                                            int causal, int dtype, float scale, void* stream) {
-  if (!valid_shape(batch, seq, heads, head_dim, dtype)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(qkv, dout, dqkv, row_max, row_sum, drow, batch, seq, heads,
-                                     head_dim, causal, scale, s);
-  return launch_bwd<float>(qkv, dout, dqkv, row_max, row_sum, drow, batch, seq, heads, head_dim,
-                           causal, scale, s);
+  return launch_dq_dkv<HeadGroupRows>(qkv, row_max, row_sum, dout, dqkv, drow, batch, seq, heads,
+                                      head_dim, causal, dtype, scale,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -27,7 +27,8 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
+from collections import deque
+from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
@@ -231,23 +232,45 @@ def create_train_setup(
 
 
 class _ThroughputMeter:
-    """Pairs/s and step time over one epoch's steps (host clock)."""
+    """Windowed pairs/s and step time on the host clock: the JAX package's
+    ``ThroughputMeter`` (sparsify_clip_tpu/utils/profiling.py:25-62).
+
+    Call :meth:`start` at the start of an epoch, then :meth:`step` after
+    each train step.  The window holds the last ``window`` steps: once more
+    have run, the epoch's start, and the first (warm-up) step with it,
+    leave it.  ``n_devices`` is the number of devices one step runs on
+    (one on the port)."""
+
+    def __init__(self, window: int = 50, n_devices: int = 1):
+        self.window = window
+        self.n_devices = n_devices
+        self._times: Deque[Tuple[float, int]] = deque(maxlen=window + 1)
 
     def start(self) -> None:
-        self._t0, self._t1, self._pairs, self._steps = time.perf_counter(), None, 0, 0
+        self._times.clear()
+        self._times.append((time.perf_counter(), 0))
 
     def step(self, batch_size: int) -> None:
-        self._t1 = time.perf_counter()
-        self._pairs += batch_size
-        self._steps += 1
+        self._times.append((time.perf_counter(), batch_size))
 
     @property
     def pairs_per_sec(self) -> float:
-        return self._pairs / max(self._t1 - self._t0, 1e-9) if self._steps else 0.0
+        if len(self._times) < 2:
+            return 0.0
+        (t0, _), (t1, _) = self._times[0], self._times[-1]
+        pairs = sum(b for _, b in list(self._times)[1:])
+        return pairs / max(t1 - t0, 1e-9)
+
+    @property
+    def pairs_per_sec_per_chip(self) -> float:
+        return self.pairs_per_sec / self.n_devices
 
     @property
     def step_time_ms(self) -> float:
-        return (self._t1 - self._t0) / self._steps * 1000 if self._steps else 0.0
+        if len(self._times) < 2:
+            return 0.0
+        (t0, _), (t1, _) = self._times[0], self._times[-1]
+        return (t1 - t0) / (len(self._times) - 1) * 1000
 
 
 def run_training(
@@ -328,7 +351,7 @@ def run_training(
         if log_fn is not None:
             log_fn({
                 "pairs_per_sec": meter.pairs_per_sec,
-                "pairs_per_sec_per_chip": meter.pairs_per_sec,
+                "pairs_per_sec_per_chip": meter.pairs_per_sec_per_chip,
                 "step_time_ms": meter.step_time_ms,
             })
         if eval_fn is not None:

@@ -73,6 +73,14 @@ CASES = [
     (2, 100, 4, 88, True, torch.float32),
     (1, 1, 1, 64, True, torch.bfloat16),
     (1, 1, 1, 64, False, torch.float32),
+    (8, 577, 16, 64, True, torch.bfloat16),    # the vision shape, causal
+] + [
+    # the bf16 tiles' edges: 64-row blocks and 32-row stages, one row short,
+    # full and one over; head_dim zero-filled to 16 (8, 88) and the widest
+    (1, l, 2, head_dim, causal, torch.bfloat16)
+    for l in (63, 64, 65, 129)
+    for head_dim in (8, 88, 128)
+    for causal in (False, True)
 ]
 
 

@@ -74,6 +74,14 @@ def _attention_inputs(b, l, heads, head_dim, causal, dtype, device, seed=0):
         (5, 33, 6, 8, False, torch.bfloat16),
         (1, 1, 1, 8, True, torch.float32),
         (1, 1, 1, 64, False, torch.bfloat16),
+    ] + [
+        # the bf16 tiles' edges: 64-row blocks and 32-row stages, one row
+        # short, full and one over; head_dim zero-filled to 16 (8, 88) and
+        # the widest
+        (1, l, 2, head_dim, causal, torch.bfloat16)
+        for l in (63, 64, 65, 129)
+        for head_dim in (8, 88, 128)
+        for causal in (False, True)
     ],
 )
 def test_mha_bwd_matches_plain_version(device, b, l, heads, head_dim, causal, dtype):
@@ -83,6 +91,17 @@ def test_mha_bwd_matches_plain_version(device, b, l, heads, head_dim, causal, dt
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == qkv.shape
     torch.testing.assert_close(got.float(), want.float(), **BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_bwd_two_runs_are_bit_identical(device, dtype, causal):
+    """No atomics: every gradient entry is summed by one thread in a fixed
+    order, so a rerun gives the same bits."""
+    qkv, lse, dout = _attention_inputs(64, 77, 8, 64, causal, dtype, device, seed=8)
+    runs = [mha_bwd(qkv, lse, dout, 8, causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
 
 
 def test_mha_bwd_counts_each_launch(device):
@@ -95,8 +114,9 @@ def test_mha_bwd_counts_each_launch(device):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_mha_bwd_takes_a_misaligned_dout(device, dtype):
-    """The kernel reads elements, so a contiguous view that starts one
-    element into its storage is read right."""
+    """A contiguous view that starts one element into its storage is read
+    right: the fp32 kernels read elements, and the wrapper hands the bf16
+    kernels (16-byte cp.async vectors) an aligned copy."""
     b, l, heads, head_dim = 2, 50, 4, 64
     qkv, lse, dout = _attention_inputs(b, l, heads, head_dim, False, dtype, device)
     flat = torch.zeros(dout.numel() + 1, dtype=dtype, device=device)

@@ -275,6 +275,34 @@ def test_run_training_stops_early():
 # ------------------------------------------------------------ data
 
 
+def test_throughput_meter_matches_the_jax_meter(monkeypatch):
+    """The port's meter and the JAX ``ThroughputMeter`` read one fake clock
+    over a 120-step epoch (a slow first step, then jittered steps and a
+    last batch of another size) and agree exactly after every step: both
+    keep the last 50 steps, so the slow first step leaves the window."""
+    import time
+
+    from sparsify_clip_tpu.utils.profiling import ThroughputMeter
+    from sparsify_clip_tpu_torch.train import _ThroughputMeter
+
+    steps = 120
+    gaps = 0.1 + 0.01 * np.random.default_rng(0).random(steps)
+    gaps[0] = 5.0  # the first step, with its warm-up
+    clock = iter(np.concatenate([[100.0], 100.0 + np.cumsum(gaps)]).repeat(2).tolist())
+    monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
+    jax_meter, port_meter = ThroughputMeter(window=50, n_chips=1), _ThroughputMeter()
+    jax_meter.start()
+    port_meter.start()
+    for i in range(steps):
+        size = 8 if i < steps - 1 else 5
+        jax_meter.step(size)
+        port_meter.step(size)
+        for key in ("pairs_per_sec", "pairs_per_sec_per_chip", "step_time_ms"):
+            assert getattr(port_meter, key) == getattr(jax_meter, key), (i, key)
+    assert port_meter.step_time_ms == pytest.approx(gaps[-50:].mean() * 1e3)
+    assert port_meter.pairs_per_sec == pytest.approx((49 * 8 + 5) / gaps[-50:].sum())
+
+
 def test_synthetic_batch_is_the_bench_batch():
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     try:
