@@ -9,7 +9,9 @@ Phases, one line each; any failure exits nonzero before the final line:
 1. build the CUDA kernels from ``sparsify_clip_tpu_torch/ops/csrc`` (one
    ``nvcc`` a source, all started together);
 2. hold the attention forward kernel against its plain PyTorch version at
-   the towers' batch-256 shapes (bf16) and once in fp32, and time both;
+   the towers' batch-256 shapes (bf16) and once in fp32, and time both
+   beside SDPA's forward under each backend that takes the shape (the
+   fastest is the yardstick, named);
 3. build full-width ViT-B-32 in bf16 from a seed on the card;
 4. serve image and token-row requests from several threads through
    ``BatchingEncoderServer`` over ``CLIPEncoder``, check the embeddings
@@ -57,11 +59,14 @@ Phases, one line each; any failure exits nonzero before the final line:
    finite, each eval must launch 24 ``mha_fwd`` a batch and nothing else,
    and the final eval must agree with the same eval on the plain
    attention;
-11. hold the head-group attention kernels (``ops/csrc/mha_head_group.cu``,
+11. hold the head-group attention kernels (``ops/csrc/mha_fwd.cu``'s
+   head-group entry point and ``ops/csrc/mha_head_group.cu``,
    the route of sequences whose packed qkv is over 3 MB a sample) against
    their plain versions and time them beside SDPA and their bound: the
    forward at the ViT-L-14-336 vision shape (64, 577, 3072) in bf16,
-   causal and not, and at (32, 577, 3072) in fp32; the backward at
+   causal and not, and at (32, 577, 3072) and the eval's (64, 577, 3072)
+   in fp32, beside SDPA's forward under each backend as phase 2; the
+   backward at
    (64, 577, 3072) bf16 and (8, 577, 3072) fp32, beside SDPA's backward
    under each backend as phase 6.  Check that the route
    sends (577, 3072, 16 heads) in bf16 and fp32 to the head-group pair and
@@ -221,32 +226,56 @@ def attention_pairs(l: int, causal: bool) -> int:
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
 
-def sdpa_bwd_ms(qkv, dout, heads: int, causal: bool, iters: int, warmup: int):
-    """The backward of PyTorch's fused attention, from its own forward on
-    (B, H, L, D) leaves, timed under each backend of ``SDPA_BACKENDS`` that
-    takes the shape (the backend picked for the forward runs the backward
-    too) → ({backend: ms}, the fastest backend).  A yardstick only: the
-    port never calls it."""
+def sdpa_backend_ms(run, what: str, iters: int, warmup: int):
+    """``run()`` timed under each backend of ``SDPA_BACKENDS`` that takes
+    its shape → ({backend: ms}, the fastest backend)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    b, l, w3 = qkv.shape
-    head_dim = w3 // (3 * heads)
-    q, k, v = (t.detach().requires_grad_(True) for t in
-               qkv.view(b, l, 3, heads, head_dim).permute(2, 0, 3, 1, 4).contiguous())
-    do = dout.view(b, l, heads, head_dim).transpose(1, 2).contiguous()
     times = {}
     for name in SDPA_BACKENDS:
         try:
             with sdpa_kernel(getattr(SDPBackend, name)):
-                o = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
-            times[name.lower()] = cuda_ms(
-                lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
-                iters=iters, warmup=warmup)
+                times[name.lower()] = cuda_ms(run(), iters=iters, warmup=warmup)
         except RuntimeError:  # the backend does not take this shape or type
             continue
     if not times:
-        raise AssertionError(f"no SDPA backend takes {tuple(qkv.shape)} {qkv.dtype}")
+        raise AssertionError(f"no SDPA backend takes {what}")
     return times, min(times, key=times.get)
+
+
+def sdpa_qkv(qkv, heads: int):
+    """(B, H, L, D) copies of q, k and v from a packed (B, L, 3W) qkv."""
+    b, l, w3 = qkv.shape
+    return qkv.view(b, l, 3, heads, w3 // (3 * heads)).permute(2, 0, 3, 1, 4).contiguous()
+
+
+def sdpa_fwd_ms(qkv, heads: int, causal: bool, iters: int, warmup: int):
+    """PyTorch's fused attention forward on (B, H, L, D) copies, timed under
+    each backend that takes the shape → ({backend: ms}, the fastest).  A
+    yardstick only: the port never calls it."""
+    q, k, v = sdpa_qkv(qkv, heads)
+
+    def run():
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)
+
+    return sdpa_backend_ms(run, f"{tuple(qkv.shape)} {qkv.dtype}", iters, warmup)
+
+
+def sdpa_bwd_ms(qkv, dout, heads: int, causal: bool, iters: int, warmup: int):
+    """The backward of PyTorch's fused attention, from its own forward on
+    (B, H, L, D) leaves, timed under each backend that takes the shape (the
+    backend picked for the forward runs the backward too) → ({backend: ms},
+    the fastest backend).  A yardstick only: the port never calls it."""
+    b, l, w3 = qkv.shape
+    q, k, v = (t.detach().requires_grad_(True) for t in sdpa_qkv(qkv, heads))
+    do = dout.view(b, l, heads, w3 // (3 * heads)).transpose(1, 2).contiguous()
+
+    def run():
+        o = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        return lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+
+    return sdpa_backend_ms(run, f"{tuple(qkv.shape)} {qkv.dtype}", iters, warmup)
 
 
 def phase_build():
@@ -255,9 +284,8 @@ def phase_build():
     t = time.perf_counter()
     path, build_log = _build.build()
     _build.library()
-    usage = [ln.split(":", 1)[1].strip() for ln in build_log.splitlines() if "Used" in ln]
     log("phase 1 build", ok=True, seconds=f"{time.perf_counter() - t:.3f}",
-        library=path.name, ptxas=json.dumps(usage))
+        library=path.name, ptxas=json.dumps(_build.ptxas_usage(build_log)))
 
 
 def phase_kernel():
@@ -282,10 +310,9 @@ def phase_kernel():
         err = (got.float() - want.float()).abs().max().item()
         ms = cuda_ms(lambda: mha_fwd(qkv, heads, causal))
         plain_ms = cuda_ms(lambda: mha_fwd_reference(qkv, heads, causal))
-        # yardstick: PyTorch's fused attention on (B, H, L, D) copies
-        q, k, v = qkv.view(b, l, 3, heads, head_dim).permute(2, 0, 3, 1, 4).contiguous()
-        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal))
+        # yardstick: SDPA's forward, the fastest backend that takes the shape
+        sdpa_ms, library = sdpa_fwd_ms(qkv, heads, causal, iters=50, warmup=5)
+        library_ms = sdpa_ms[library]
         item = qkv.element_size()
         bound_ms, bound_by = bound(
             b * l * 4 * heads * head_dim * item,  # qkv read, context written
@@ -293,10 +320,11 @@ def phase_kernel():
             str(dtype).split(".")[1],
         )
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+                             library=f"sdpa/{library}", bound_ms=bound_ms, bound_by=bound_by)
         log("phase 2 kernel", case=name, shape=list(qkv.shape), heads=heads,
             causal=causal, dtype=str(dtype), max_abs_err=err, rtol=rtol, atol=atol,
             ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
+            library=f"sdpa/{library}", sdpa_fwd_ms=json.dumps(sdpa_ms),
             bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
     return results
 
@@ -966,7 +994,6 @@ def phase_head_group_kernels(smi: str):
     if routes != {"vision_bf16": True, "vision_fp32": True, "text_bf16": False}:
         raise AssertionError(f"ViT-L-14-336 routes {routes}")
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
     rng = np.random.default_rng(SEED + 4)
     l, heads, head_dim = 577, 16, 64
@@ -975,9 +1002,11 @@ def phase_head_group_kernels(smi: str):
     def normal(shape, dtype):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
 
+    # fp32 at batch 32 (the shape timed before, kept comparable) and at the eval's 64
     for name, b, causal, dtype in [("vision", 64, False, torch.bfloat16),
                                    ("vision-causal", 64, True, torch.bfloat16),
-                                   ("vision-fp32", 32, False, torch.float32)]:
+                                   ("vision-fp32", 32, False, torch.float32),
+                                   ("vision-fp32-b64", L336_BATCH, False, torch.float32)]:
         dname = str(dtype).split(".")[1]
         qkv = normal((b, l, 3 * width), dtype)
         got = mha_fwd_head_group(qkv, heads, causal)
@@ -990,21 +1019,23 @@ def phase_head_group_kernels(smi: str):
         ms = cuda_ms(lambda: mha_fwd_head_group(qkv, heads, causal), iters=20, warmup=2)
         plain_ms = cuda_ms(lambda: mha_fwd_head_group_reference(qkv, heads, causal), iters=5,
                            warmup=1)
-        q, k, v = qkv.view(b, l, 3, heads, head_dim).permute(2, 0, 3, 1, 4).contiguous()
-        library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal), iters=20, warmup=2)
+        # yardstick: SDPA's forward, the fastest backend that takes the shape
+        sdpa_ms, library = sdpa_fwd_ms(qkv, heads, causal, iters=20, warmup=2)
+        library_ms = sdpa_ms[library]
         bound_ms, bound_by = bound(
             b * l * 4 * width * qkv.element_size(),  # qkv read, context written
             2 * 2 * b * heads * attention_pairs(l, causal) * head_dim,  # S and P.V
             dname,
         )
         results[f"mha_fwd_head_group/{name}"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by=bound_by)
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            library=f"sdpa/{library}", bound_ms=bound_ms, bound_by=bound_by)
         log("phase 11 kernel", kernel="mha_fwd_head_group", case=name, shape=list(qkv.shape),
             heads=heads, causal=causal, dtype=str(dtype), max_abs_err=err, rtol=rtol, atol=atol,
             ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
+            library=f"sdpa/{library}", sdpa_fwd_ms=json.dumps(sdpa_ms),
             bound_ms=f"{bound_ms:.5f}", bound_by=bound_by, card=json.dumps(smi))
-        del qkv, q, k, v
+        del qkv
 
     for name, b, dtype in [("vision", 64, torch.bfloat16), ("vision-fp32", 8, torch.float32)]:
         dname = str(dtype).split(".")[1]
@@ -1202,7 +1233,7 @@ def main() -> int:
                       lunif_kernels["lunif_fwd/256"]),
         "lunif_bwd": ("ops/csrc/lunif.cu", "sparsify_clip_tpu/ops/pallas_lunif.py:91",
                       lunif_kernels["lunif_bwd/256"]),
-        "mha_fwd_head_group": ("ops/csrc/mha_head_group.cu",
+        "mha_fwd_head_group": ("ops/csrc/mha_fwd.cu",
                                "sparsify_clip_tpu/ops/pallas_attention.py:204",
                                head_group["mha_fwd_head_group/vision"]),
         "mha_bwd_head_group": ("ops/csrc/mha_head_group.cu",

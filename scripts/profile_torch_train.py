@@ -51,12 +51,14 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # kernel name fragment → group, first match wins (the head-group backward
-# runs the shared dQ and dK/dV kernels with its `HeadGroupRows` policy)
+# runs the shared dQ and dK/dV kernels with its `HeadGroupRows` policy; both
+# forwards run the kernels of mha_fwd_tiles.cuh, the wgmma one at head_dim
+# 64 past 128 rows: the ViT-L-14-336 vision tower)
 GROUPS = [
-    ("headgroup_fwd", "head-group attention forward (mha_head_group.cu)"),
     ("headgroup", "head-group attention backward (mha_head_group.cu)"),
     ("mha_bwd", "attention backward (mha_bwd.cu)"),
-    ("mha_fwd", "attention forward (mha_fwd.cu)"),
+    ("mha_fwd_wgmma", "attention forward, wgmma (mha_fwd_tiles.cuh)"),
+    ("mha_fwd", "attention forward, mma.sync or fp32 (mha_fwd_tiles.cuh)"),
     ("infonce", "InfoNCE (infonce.cu)"),
     ("ln_qkv", "fused LN+qkv forward (ln_qkv.cu)"),
     ("lunif", "uniformity (lunif.cu)"),

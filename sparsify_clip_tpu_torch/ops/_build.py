@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -103,6 +104,43 @@ def build() -> Tuple[Path, str]:
         for obj in objects:
             obj.unlink(missing_ok=True)
     return target, "".join(logs)
+
+
+def demangle(symbols: list) -> list:
+    """The C++ names of mangled symbols, without their parameter types,
+    from the toolkit's ``cu++filt`` (beside ``nvcc``)."""
+    if not symbols:
+        return []
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cu++filt")
+    proc = subprocess.run([tool, "-p", *symbols], capture_output=True, text=True, check=True)
+    return proc.stdout.splitlines()
+
+
+def ptxas_usage(build_log: str) -> list:
+    """Each kernel's registers, spilled bytes and static shared memory from
+    the ``-Xptxas=-v`` lines of a build log: a dict a kernel, with its
+    source file and its name (:func:`demangle`)."""
+    usage = []
+    for ln in build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        if entry:
+            unit = re.search(r"_\d+_(\w+?)_cu_", entry.group(1))
+            usage.append({"source": f"{unit.group(1)}.cu" if unit else "",
+                          "kernel": entry.group(1)})
+            continue
+        if not usage:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if spill:
+            usage[-1]["spill_stores"], usage[-1]["spill_loads"] = map(int, spill.groups())
+        regs = re.search(r"Used (\d+) registers", ln)
+        if regs:
+            usage[-1]["registers"] = int(regs.group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            usage[-1]["static_smem"] = int(smem.group(1)) if smem else 0
+    for u, name in zip(usage, demangle([u["kernel"] for u in usage])):
+        u["kernel"] = name
+    return usage
 
 
 def library() -> ctypes.CDLL:

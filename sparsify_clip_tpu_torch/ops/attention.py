@@ -29,8 +29,9 @@ the result is the (B, L, W) context.
   :func:`mha_bwd_head_group_reference` are the plain versions of
   ``_fwd_kernel_head_group`` and ``_bwd_kernel_head_group``
   (pallas_attention.py:204-274); :func:`mha_fwd_head_group` and
-  :func:`mha_bwd_head_group` wrap ``csrc/mha_head_group.cu`` and count
-  their launches the same way.
+  :func:`mha_bwd_head_group` wrap ``csrc/mha_fwd.cu``'s second entry
+  point and ``csrc/mha_head_group.cu`` and count their launches the same
+  way.
 * :func:`attention_core` is what the towers call, on both devices.  When
   a gradient is wanted it goes through :class:`MhaFunction`, whose
   forward is :func:`mha_fwd` with the LSE and saves qkv and the LSE, and
@@ -304,8 +305,8 @@ def mha_fwd_head_group_reference(
 
 def mha_fwd_head_group(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
     """Head-group attention forward: the CUDA kernel
-    (``csrc/mha_head_group.cu``) for a CUDA tensor, the plain version for
-    a CPU tensor.  Takes what :func:`mha_fwd` takes; writes no LSE."""
+    (``csrc/mha_fwd.cu``, ``sparsify_mha_fwd_head_group``) for a CUDA
+    tensor, the plain version for a CPU tensor.  Takes what :func:`mha_fwd` takes; writes no LSE."""
     b, l, width, head_dim = _split(qkv, heads)
     if qkv.device.type == "cpu":
         return mha_fwd_head_group_reference(qkv, heads, causal)

@@ -128,17 +128,6 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// the sum over a lane quad (the four lanes that share an mma row)
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFullMask, x, 1);
-  return x + __shfl_xor_sync(kFullMask, x, 2);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
-}
-
 // ------------------------------------------------------------------ fp32
 
 // Rows [r0, r0 + kTile) of one head's D columns (source row stride `stride`
@@ -432,20 +421,6 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-// The ldmatrix row address of this lane, as an offset into a tile of row
-// stride kStride: for mma's A fragment from a row-major (m, k) tile, and for
-// B fragments from a (k, n) tile (transposed load), matrices rows 0-7 /
-// 8-15 by columns 0-7 / 8-15; for two 8-wide n-tiles of B fragments from an
-// (n, k) tile (plain load), matrices n 0-7 by k 0-7 / 8-15, then n 8-15.
-template <int kStride>
-__device__ __forceinline__ int frag_offset(int lane) {
-  return ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride + (lane >> 4) * 8;
-}
-template <int kStride>
-__device__ __forceinline__ int nk_offset(int lane) {
-  return ((lane & 7) + (lane >> 4) * 8) * kStride + ((lane >> 3) & 1) * 8;
-}
-
 // acc(16 x 32) += X(16 x 16 rows of a row-major tile at `a`) . Y^T, Y the
 // 32 rows of an (n, k) tile at `bt`, over pad_vecs / 2 k-steps of 16: the
 // 16-row warp slab's S or dP (or S^T, dP^T) for one stage.
@@ -701,7 +676,7 @@ mha_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, float* __restrict_
 // registers are held to 128 a thread, four blocks an SM: it fits without
 // spilling (ptxas), and the fourth block hides more of the mma and
 // ldmatrix latency than the registers it costs (PERF.md §6 has the times,
-// from scripts/profile_attention_bwd.py).
+// from scripts/profile_attention.py).
 template <int kMaxD, typename Rows>
 __global__ void __launch_bounds__(kThreads, kMaxD <= 64 ? 4 : 1)
 mha_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ row_a,

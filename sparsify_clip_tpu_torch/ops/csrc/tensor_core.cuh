@@ -1,8 +1,9 @@
 // Tensor-core and asynchronous-copy helpers shared by the bf16 kernels:
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix fragment loads,
-// the hi + lo split that keeps an fp32 operand at fp32 grade, and cp.async
-// staging. Included by `mha_fwd.cu`, `mha_head_group.cu` (through
-// `mha_bwd_tiles.cuh`), `mha_bwd.cu` and `ln_qkv.cu`; the anonymous
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix fragment loads and
+// their lane offsets, reductions over an accumulator row's lane quad, the
+// hi + lo split that keeps an fp32 operand at fp32 grade, and cp.async
+// staging. Included by `mha_fwd_tiles.cuh` and `mha_bwd_tiles.cuh` (for
+// `mha_fwd.cu`, `mha_bwd.cu` and `mha_head_group.cu`) and `ln_qkv.cu`; the anonymous
 // namespace keeps each translation unit's copy apart at link time.
 
 #pragma once
@@ -52,8 +53,29 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
                : "r"(a));
 }
 
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// The ldmatrix row address of this lane, as an offset into a tile of row
+// stride kStride: for mma's A fragment from a row-major (m, k) tile, and for
+// B fragments from a (k, n) tile (transposed load), matrices rows 0-7 /
+// 8-15 by columns 0-7 / 8-15; for two 8-wide n-tiles of B fragments from an
+// (n, k) tile (plain load), matrices n 0-7 by k 0-7 / 8-15, then n 8-15.
+template <int kStride>
+__device__ __forceinline__ int frag_offset(int lane) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride + (lane >> 4) * 8;
+}
+template <int kStride>
+__device__ __forceinline__ int nk_offset(int lane) {
+  return ((lane & 7) + (lane >> 4) * 8) * kStride + ((lane >> 3) & 1) * 8;
+}
+
+// the sum and the max over a lane quad (the four lanes that share a row of
+// an mma accumulator)
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 // (x, y) -> bf16 pairs hi and lo with hi + lo = (x, y) to ~2^-16 relative

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from sparsify_clip_tpu.ops.pallas_attention import attention_core as jax_attention_core
-from sparsify_clip_tpu.ops.pallas_attention import mha_pallas
+from sparsify_clip_tpu.ops.pallas_attention import _run_fwd, mha_pallas
 from sparsify_clip_tpu_torch.ops import _build
 from sparsify_clip_tpu_torch.ops.attention import attention_core, mha_fwd, mha_fwd_reference
 
@@ -26,6 +26,15 @@ SHAPES = [
     (2, 16, 32, 2, False),
 ]
 FP32 = dict(rtol=2e-5, atol=2e-6)
+# the CUDA forward's tile edges (query tiles of up to 128 rows, 64-key
+# stages): one short of an edge, on it and one over, and the ViT-L-14-336
+# length; head_dim 8 and 88 (zero-filled to 16), 64 and the widest, 128
+EDGE_SHAPES = [
+    (l, head_dim, causal)
+    for l in (63, 64, 65, 127, 128, 129, 577)
+    for head_dim in (8, 64, 88, 128)
+    for causal in (False, True)
+]
 
 
 def _qkv(b, l, w, seed=13):
@@ -40,6 +49,17 @@ def test_reference_matches_pallas_kernel(b, l, w, heads, causal):
         want = np.asarray(mha_pallas(jnp.asarray(x), heads, causal))
     got, _ = mha_fwd_reference(torch.from_numpy(x), heads, causal)
     np.testing.assert_allclose(got.numpy(), want, **FP32)
+
+
+@pytest.mark.parametrize("l,head_dim,causal", EDGE_SHAPES)
+def test_reference_and_lse_match_pallas_kernel_at_tile_edges(l, head_dim, causal):
+    heads = 2
+    x = _qkv(1, l, heads * head_dim, seed=l + head_dim)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_lse = (np.asarray(a) for a in _run_fwd(jnp.asarray(x), heads, causal))
+    got, lse = mha_fwd_reference(torch.from_numpy(x), heads, causal, with_lse=True)
+    np.testing.assert_allclose(got.numpy(), want, **FP32)
+    np.testing.assert_allclose(lse.numpy(), want_lse, **FP32)
 
 
 @pytest.mark.parametrize("b,l,w,heads,causal", SHAPES)
@@ -101,3 +121,30 @@ def test_library_name_tracks_the_sources():
     assert path.name.startswith("libsparsify_kernels_") and path.suffix == ".so"
     assert path == _build.library_path()
     assert {p.name for p in _build._sources()} >= {"mha_fwd.cu"}
+
+
+def test_ptxas_usage_names_each_kernel(monkeypatch):
+    symbols = [
+        "_ZN43_GLOBAL__N__a5e578d3_10_mha_fwd_cu_fc8036118attn_fwd20mha_fwd_wgmma_kernelILb0EEE"
+        "vPK13__nv_bfloat16PS2_Pfiiif",
+        "_ZN12_GLOBAL__N_122mha_bwd_dq_bf16_kernelILi64ENS_13HeadGroupRowsEEEvPK13__nv_bfloat16"
+        "PfS5_S4_PS2_S5_iiiif",
+    ]
+    names = {symbols[0]: "attn_fwd::mha_fwd_wgmma_kernel<false>",
+             symbols[1]: "mha_bwd_dq_bf16_kernel<64, HeadGroupRows>"}
+    monkeypatch.setattr(_build, "demangle", lambda got: [names[s] for s in got])
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{symbols[0]}' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 112 registers, used 1 barriers, 400 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{symbols[1]}' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers, 1024 bytes smem, 400 bytes cmem[0]",
+    ])
+    assert _build.ptxas_usage(log) == [
+        {"source": "mha_fwd.cu", "kernel": "attn_fwd::mha_fwd_wgmma_kernel<false>",
+         "spill_stores": 0, "spill_loads": 0, "registers": 112, "static_smem": 0},
+        {"source": "", "kernel": "mha_bwd_dq_bf16_kernel<64, HeadGroupRows>",
+         "spill_stores": 4, "spill_loads": 12, "registers": 96, "static_smem": 1024},
+    ]
+    assert _build.ptxas_usage("no entry functions") == []

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from sparsify_clip_tpu_torch.ops.attention import mha_fwd, mha_fwd_reference
+from sparsify_clip_tpu_torch.ops.attention import mha_fwd, mha_fwd_head_group, mha_fwd_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +65,88 @@ def test_kernel_matches_plain_version(device, b, l, heads, head_dim, causal, dty
     assert got.dtype == dtype and got.shape == (b, l, heads * head_dim)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     torch.testing.assert_close(got_lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+# the forward's tile edges (query tiles of up to 128 rows, 64-key stages):
+# one short of an edge, on it and one over, and the ViT-L-14-336 length;
+# a last stage of 16 and of 17 keys past 128 rows (the wgmma kernel's
+# 16-key tail and the full stage after it); head_dim 8 and 88 (zero-filled
+# to 16), 64 (the main path's) and 128
+EDGE_CASES = [
+    (l, head_dim, causal, dtype)
+    for l in (63, 64, 65, 127, 128, 129, 144, 145, 577)
+    for head_dim in (8, 64, 88, 128)
+    for causal in (False, True)
+    for dtype in (torch.bfloat16, torch.float32)
+]
+
+
+@pytest.mark.parametrize("l,head_dim,causal,dtype", EDGE_CASES)
+def test_kernel_matches_plain_version_at_tile_edges(device, l, head_dim, causal, dtype):
+    qkv = _qkv(2, l, 2, head_dim, dtype, device, seed=l + head_dim)
+    got, got_lse = mha_fwd(qkv, 2, causal, with_lse=True)
+    want, want_lse = mha_fwd_reference(qkv, 2, causal, with_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(got_lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("l,heads,causal", [(50, 12, False), (77, 8, True), (577, 16, False)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_two_runs_are_bit_identical(device, l, heads, causal, dtype):
+    qkv = _qkv(8, l, heads, 64, dtype, device, seed=8)
+    runs = [mha_fwd(qkv, heads, causal, with_lse=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def _context_p_hi_only(qkv, heads, causal):
+    """A control: the plain fp32 forward with the softmax numerator rounded
+    to bf16 before P.V, which is what the bf16 kernel would compute if it
+    dropped P's lo half."""
+    b, l, w3 = qkv.shape
+    d = w3 // (3 * heads)
+    q, k, v = qkv.float().view(b, l, 3, heads, d).permute(2, 0, 3, 1, 4)
+    s = (q @ k.transpose(-1, -2)) * d ** -0.5
+    if causal:
+        above = torch.ones(l, l, dtype=torch.bool, device=s.device).triu(1)
+        s = s.masked_fill(above, float("-inf"))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    ctx = (e.bfloat16().float() @ v) / e.sum(dim=-1, keepdim=True)
+    return ctx.transpose(1, 2).reshape(b, l, w3 // 3)
+
+
+# The bf16 context's mean error against the unrounded fp32 plain context,
+# over the mean magnitude.  Rounding the context to bf16 alone costs about
+# 0.0014; a P.V with P as bf16 hi alone adds its own rounding on top (the
+# control, about 0.0020); so does a dropped key.  The bound lies between the
+# kernel's readings and the control's (PERF.md, "P.V precision").
+P_LO_BOUND = 0.0016
+
+
+@pytest.mark.parametrize(
+    "forward,b,l,heads,causal",
+    [
+        (mha_fwd, 256, 50, 12, False),              # ViT-B-32 vision tower
+        (mha_fwd, 256, 77, 8, True),                # text tower
+        (mha_fwd_head_group, 64, 577, 16, False),   # ViT-L-14-336 vision tower (wgmma)
+        (mha_fwd_head_group, 64, 577, 16, True),
+    ],
+    ids=["vision-50", "text-77-causal", "vision-577", "vision-577-causal"],
+)
+def test_bf16_context_keeps_the_fp32_grade_of_p(device, record_property, forward, b, l, heads,
+                                                causal):
+    qkv = _qkv(b, l, heads, 64, torch.bfloat16, device, seed=l)
+    got = forward(qkv, heads, causal)
+    got = (got[0] if isinstance(got, tuple) else got).float()
+    want = mha_fwd_reference(qkv.float(), heads, causal)[0]
+    control = _context_p_hi_only(qkv, heads, causal).bfloat16().float()
+    scale = want.abs().mean()
+    kernel_err = ((got - want).abs().mean() / scale).item()
+    control_err = ((control - want).abs().mean() / scale).item()
+    record_property("kernel_rel_err", kernel_err)
+    record_property("p_hi_only_rel_err", control_err)
+    assert kernel_err < P_LO_BOUND < control_err, (kernel_err, control_err)
 
 
 def test_kernel_without_lse_gives_the_same_context(device):

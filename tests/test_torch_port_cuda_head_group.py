@@ -1,5 +1,6 @@
-"""The head-group attention kernels (``ops/csrc/mha_head_group.cu``)
-against their plain PyTorch versions, on the card.
+"""The head-group attention kernels (the forward of ``ops/csrc/mha_fwd.cu``
+and the backward of ``ops/csrc/mha_head_group.cu``) against their plain
+PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports no JAX, so it also runs on a machine that has only PyTorch::
@@ -91,6 +92,29 @@ def test_forward_matches_plain_version(device, b, l, heads, head_dim, causal, dt
     want = mha_fwd_head_group_reference(qkv, heads, causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (b, l, heads * head_dim)
+    torch.testing.assert_close(got.float(), want.float(), **FWD_TOL[dtype])
+
+
+# the forward's tile edges (query tiles of up to 128 rows, 64-key stages):
+# one short of an edge, on it and one over, and the ViT-L-14-336 length;
+# a last stage of 16 and of 17 keys past 128 rows (the wgmma kernel's
+# 16-key tail and the full stage after it); head_dim 8 and 88 (zero-filled
+# to 16), 64 (the main path's) and 128
+FWD_EDGE_CASES = [
+    (l, head_dim, causal, dtype)
+    for l in (63, 64, 65, 127, 128, 129, 144, 145, 577)
+    for head_dim in (8, 64, 88, 128)
+    for causal in (False, True)
+    for dtype in (torch.bfloat16, torch.float32)
+]
+
+
+@pytest.mark.parametrize("l,head_dim,causal,dtype", FWD_EDGE_CASES)
+def test_forward_matches_plain_version_at_tile_edges(device, l, head_dim, causal, dtype):
+    qkv, _ = _inputs(2, l, 2, head_dim, dtype, device, seed=l + head_dim)
+    got = mha_fwd_head_group(qkv, 2, causal)
+    want = mha_fwd_head_group_reference(qkv, 2, causal)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **FWD_TOL[dtype])
 
 

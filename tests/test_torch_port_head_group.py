@@ -48,6 +48,15 @@ SHAPES = [
     (2, 33, 64, 4, True),
     (1, 33, 256, 4, True),
 ]
+# the CUDA forward's tile edges (query tiles of up to 128 rows, 64-key
+# stages): one short of an edge, on it and one over, and the ViT-L-14-336
+# length; head_dim 8 and 88 (zero-filled to 16), 64 and the widest, 128
+EDGE_SHAPES = [
+    (l, head_dim, causal)
+    for l in (63, 64, 65, 127, 128, 129, 577)
+    for head_dim in (8, 64, 88, 128)
+    for causal in (False, True)
+]
 
 
 def _towers(name):
@@ -121,6 +130,17 @@ def test_forward_reference_matches_the_head_group_kernel(per_head, b, l, w, head
     np.testing.assert_allclose(got.numpy(), want, **FWD)
     # the CPU wrapper is the plain version
     assert torch.equal(mha_fwd_head_group(torch.from_numpy(x), heads, causal), got)
+
+
+@pytest.mark.parametrize("l,head_dim,causal", EDGE_SHAPES)
+def test_forward_reference_matches_the_head_group_kernel_at_tile_edges(
+        per_head, l, head_dim, causal):
+    heads = 2
+    x = _qkv(1, l, heads * head_dim, seed=l + head_dim)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pa.mha_pallas(jnp.asarray(x), heads, causal))
+    got = mha_fwd_head_group_reference(torch.from_numpy(x), heads, causal)
+    np.testing.assert_allclose(got.numpy(), want, **FWD)
 
 
 @pytest.mark.parametrize("b,l,w,heads,causal", SHAPES)
