@@ -91,15 +91,21 @@ Phases, one line each; any failure exits nonzero before the final line:
    ``F.linear(F.layer_norm(x))`` (two library calls) and its bound: the
    ViT-L-14-336 shapes at batch 64, vision (36928, 1024) → 3072 and text
    (4928, 768) → 2304 in bf16, vision in fp32 (the eval twin), and 1000
-   rows at W 1664 in bf16 (the widest tower, a ragged last tile);
+   rows at W 1664 in bf16 (the widest tower, a ragged last tile); then the
+   backward's LayerNorm kernel (same source) against autograd of its plain
+   version at the vision and text bf16 shapes and the vision fp32 one,
+   timed beside ``native_layer_norm_backward`` fed the fast-variance row
+   statistics plus ``F.layer_norm`` for y's recompute (two library calls)
+   and its bound; two runs of each kernel must agree bit for bit;
 16. train ViT-L-14-336 under exp 6 at batch 64 as phase 13, with
-   ``fused_ln_qkv: true``: every train step launches phase 13's kernels
-   and 36 ``ln_qkv_fwd`` (24 vision, 12 text), the backward none.  The
-   warm and the main step at batch 8 are held against the plain versions
-   (which launch nothing) and against the same step on the unfused
-   blocks (kernels and all, no ``ln_qkv_fwd``);
+   ``fused_ln_qkv: true``: every train step launches phase 13's kernels,
+   36 ``ln_qkv_fwd`` (24 vision, 12 text) and, in the backward, 36
+   ``ln_fast_bwd``.  The warm and the main step at batch 8 are held
+   against the plain versions (which launch nothing) and against the same
+   step on the unfused blocks (kernels and all, no ``ln_qkv_fwd`` or
+   ``ln_fast_bwd``);
 17. the eval inside that run, as phase 14, plus 36 fp32 ``ln_qkv_fwd`` a
-   batch.
+   batch and no ``ln_fast_bwd``.
 
 Depth cuts of the ViT-L-14-336 phases: 2 epochs of 4 steps (the
 reference trains 100); the eval set is 256 pairs in 4 batches of 64
@@ -188,6 +194,13 @@ L336_EVAL_PAIRS = 256
 # head-group backward vs plain version in fp32: against the largest entry
 # (dS = P∘(dP − Dr) cancels; sums over 577 keys in other orders)
 HG_BWD_FP32_TOL = (1e-4, 1e-5)  # rtol, atol relative to the largest entry
+# the backward's LayerNorm kernel vs autograd of its plain version: y and dx
+# are fp32 values rounded once to their type from row statistics summed in
+# other orders (one step of the type, plus 1e-5 of the largest entry where
+# the fp32 terms cancel); dscale and dbias sum N rows in another order
+LN_BWD_STEP = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -23}
+LN_BWD_CANCEL = 1e-5            # of the largest entry, y and dx
+LN_BWD_GRAD_TOL = (1e-4, 1e-5)  # dscale, dbias: rtol, atol relative to the largest entry
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -284,8 +297,11 @@ def phase_build():
     t = time.perf_counter()
     path, build_log = _build.build()
     _build.library()
+    usage = _build.ptxas_usage(build_log)
     log("phase 1 build", ok=True, seconds=f"{time.perf_counter() - t:.3f}",
-        library=path.name, ptxas=json.dumps(_build.ptxas_usage(build_log)))
+        library=path.name, ptxas=json.dumps(usage),
+        spilling=json.dumps([u["kernel"] for u in usage if u.get("spill_stores")]),
+        serialized_wgmma=json.dumps([ln for ln in build_log.splitlines() if "C752" in ln]))
 
 
 def phase_kernel():
@@ -565,7 +581,8 @@ def phase_train_kernels():
 
 
 KERNELS = ("mha_fwd", "mha_bwd", "infonce_fwd", "infonce_bwd_dimg", "infonce_bwd_dtxt",
-           "lunif_fwd", "lunif_bwd", "mha_fwd_head_group", "mha_bwd_head_group", "ln_qkv_fwd")
+           "lunif_fwd", "lunif_bwd", "mha_fwd_head_group", "mha_bwd_head_group", "ln_qkv_fwd",
+           "ln_fast_bwd")
 
 
 def counters():
@@ -576,7 +593,7 @@ def counters():
             "infonce_bwd_dtxt": infonce.infonce_bwd_dtxt, "lunif_fwd": lunif.lunif_fwd,
             "lunif_bwd": lunif.lunif_bwd, "mha_fwd_head_group": attention.mha_fwd_head_group,
             "mha_bwd_head_group": attention.mha_bwd_head_group,
-            "ln_qkv_fwd": ln_qkv.ln_qkv_fwd}
+            "ln_qkv_fwd": ln_qkv.ln_qkv_fwd, "ln_fast_bwd": ln_qkv.ln_fast_bwd}
 
 
 def reset_counts():
@@ -849,7 +866,7 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
                 torch.cuda.synchronize()
             finally:
                 _set_fused_ln_qkv(setup.model, True)
-            unfused_expected = dict(expected, ln_qkv_fwd=0)
+            unfused_expected = dict(expected, ln_qkv_fwd=0, ln_fast_bwd=0)
             if read_counts() != unfused_expected:
                 raise AssertionError(f"the unfused {phase} step launched {read_counts()}, "
                                      f"expected {unfused_expected}")
@@ -1075,10 +1092,12 @@ def phase_head_group_kernels(smi: str):
 
 
 def phase_ln_qkv_kernels(smi: str):
-    """Phase 15: the fused LN+qkv kernel against its plain version at the
-    ViT-L-14-336 batch-64 shapes, timed beside the unfused pair of library
-    calls and its bound."""
-    from sparsify_clip_tpu_torch.ops.ln_qkv import ln_qkv_fwd, ln_qkv_reference
+    """Phase 15: the fused LN+qkv kernel and the backward's LayerNorm
+    kernel against their plain versions at the ViT-L-14-336 batch-64
+    shapes, timed beside their library yardsticks and their bound."""
+    from sparsify_clip_tpu_torch.ops.ln_qkv import (
+        ln_fast_bwd, ln_fast_bwd_reference, ln_qkv_fwd, ln_qkv_reference, row_stats_reference,
+    )
 
     F = torch.nn.functional
     eps = 1e-5
@@ -1105,6 +1124,8 @@ def phase_ln_qkv_kernels(smi: str):
         rtol, atol = KERNEL_TOL[dname]
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
         err = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, ln_qkv_fwd(*args)):
+            raise AssertionError(f"ln_qkv_fwd/{name}: two runs differ")
         del got, want
         slow = dtype == torch.float32
         ms = cuda_ms(lambda: ln_qkv_fwd(*args), iters=5 if slow else 20, warmup=2)
@@ -1122,13 +1143,70 @@ def phase_ln_qkv_kernels(smi: str):
         )
         results[f"ln_qkv_fwd/{name}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                              library_ms=library_ms, bound_ms=bound_ms,
-                                             bound_by=bound_by)
+                                             bound_by=bound_by,
+                                             library="F.linear(F.layer_norm(x)), two calls")
         log("phase 15 kernel", kernel="ln_qkv_fwd", case=name, shape=[n, w, 3 * w],
             dtype=str(dtype), max_abs_err=err, rtol=rtol, atol=atol, ms=f"{ms:.5f}",
             plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
             library="F.linear(F.layer_norm(x)), two calls", bound_ms=f"{bound_ms:.5f}",
             bound_by=bound_by, card=json.dumps(smi))
         del x, args, weight, wt
+
+    # the backward's LayerNorm: from x and dy = g.W, y again, dx, dscale, dbias
+    for name, n, w, dtype in [("vision", 64 * 577, 1024, torch.bfloat16),
+                              ("text", 64 * 77, 768, torch.bfloat16),
+                              ("vision-fp32", 64 * 577, 1024, torch.float32)]:
+        dname = str(dtype).split(".")[1]
+        x, dy = normal((n, w)).to(dtype), normal((n, w)).to(dtype)
+        scale, bias = 1 + normal((w,), 0.1), normal((w,), 0.1)
+        args = (x, dy, scale, bias, eps, dtype)
+        got, want = ln_fast_bwd(*args), ln_fast_bwd_reference(*args)
+        torch.cuda.synchronize()
+        errs = {}
+        for part, a, b in zip(("y", "dx", "dscale", "dbias"), got, want):
+            big = b.float().abs().max().item()
+            if part in ("y", "dx"):
+                tol = dict(rtol=LN_BWD_STEP[dname], atol=LN_BWD_CANCEL * big)
+            else:
+                tol = dict(rtol=LN_BWD_GRAD_TOL[0], atol=LN_BWD_GRAD_TOL[1] * big)
+            torch.testing.assert_close(a.float(), b.float(), msg=f"ln_fast_bwd/{name} {part}",
+                                       **tol)
+            errs[part] = (a.float() - b.float()).abs().max().item()
+        if not all(torch.equal(a, b) for a, b in zip(got, ln_fast_bwd(*args))):
+            raise AssertionError(f"ln_fast_bwd/{name}: two runs differ")
+        del got, want
+        ms = cuda_ms(lambda: ln_fast_bwd(*args), iters=20, warmup=2)
+        plain_ms = cuda_ms(lambda: ln_fast_bwd_reference(*args), iters=5, warmup=2)
+        # yardstick: LayerNorm's backward fed the fast-variance statistics,
+        # and y's recompute, two library calls on operands in the compute type
+        sc, bi = scale.to(dtype), bias.to(dtype)
+        _, m0, _ = torch.native_layer_norm(x, [w], sc, bi, eps)  # the statistics' type and shape
+        stats = row_stats_reference(x, eps).to(m0.dtype)
+        mean, rstd = stats[:, :1].reshape(m0.shape), stats[:, 1:].reshape(m0.shape)
+        del m0
+
+        def library():
+            torch.ops.aten.native_layer_norm_backward(dy, x, [w], mean, rstd, sc, bi,
+                                                      [True, True, True])
+            F.layer_norm(x, (w,), sc, bi, eps)
+
+        library_ms = cuda_ms(library, iters=20, warmup=2)
+        item = x.element_size()
+        bound_ms, bound_by = bound(
+            4 * n * w * item + 4 * w * 4,  # x, dy read; y, dx written; scale, bias; dscale, dbias
+            14 * n * w,  # x̂, y, dŷ, dx and the four sums, a few operations an element
+            dname,
+        )
+        results[f"ln_fast_bwd/{name}"] = dict(
+            max_abs_err=errs["dx"], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            library="native_layer_norm_backward + F.layer_norm, two calls")
+        log("phase 15 kernel", kernel="ln_fast_bwd", case=name, shape=[n, w], dtype=str(dtype),
+            max_abs_err=json.dumps(errs), ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+            library_ms=f"{library_ms:.5f}",
+            library="native_layer_norm_backward + F.layer_norm, two calls",
+            bound_ms=f"{bound_ms:.5f}", bound_by=bound_by, card=json.dumps(smi))
+        del x, dy, args, stats, mean, rstd
     return results
 
 
@@ -1207,7 +1285,8 @@ def main() -> int:
     ln_qkv = phase_ln_qkv_kernels(smi)
     torch.cuda.empty_cache()
     # 24 vision and 12 text blocks each run the fused LN+qkv once a forward
-    fused = dict(attention, ln_qkv_fwd=36)
+    # and its LayerNorm backward once a backward
+    fused = dict(attention, ln_qkv_fwd=36, ln_fast_bwd=36)
     exp6_fused = phase_exp6(
         smi, L336, (16, 17), L336_BATCH, L336_CHECK_BATCH, L336_STEPS_PER_EPOCH, L336_EVAL_PAIRS,
         warm_step=dict(fused, lunif_fwd=2, lunif_bwd=2),
@@ -1241,21 +1320,33 @@ def main() -> int:
                                head_group["mha_bwd_head_group/vision"]),
         "ln_qkv_fwd": ("ops/csrc/ln_qkv.cu", "sparsify_clip_tpu/ops/pallas_ln_qkv.py:55",
                        ln_qkv["ln_qkv_fwd/vision"]),
+        "ln_qkv_fwd/fp32": ("ops/csrc/ln_qkv.cu", "sparsify_clip_tpu/ops/pallas_ln_qkv.py:55",
+                            ln_qkv["ln_qkv_fwd/vision-fp32"]),
+        "ln_fast_bwd": ("ops/csrc/ln_qkv.cu",
+                        "sparsify_clip_tpu/ops/pallas_ln_qkv.py:135 _vjp_bwd (XLA vjp of the "
+                        "twin, no pallas_call)", ln_qkv["ln_fast_bwd/vision"]),
     }
+    # the fused LN+qkv runs in bf16 on the train paths and in fp32 (the twin)
+    # on the eval paths: each case counts its own paths' launches
+    counted = {"ln_qkv_fwd": ("ln_qkv_fwd", lambda path: not path.startswith("eval")),
+               "ln_qkv_fwd/fp32": ("ln_qkv_fwd", lambda path: path.startswith("eval"))}
     entries = []
-    for name in KERNELS:
+    for name in (*KERNELS[:KERNELS.index("ln_qkv_fwd") + 1], "ln_qkv_fwd/fp32",
+                 *KERNELS[KERNELS.index("ln_qkv_fwd") + 1:]):
         source, replaces, r = sources[name]
+        counter, on_path = counted.get(name, (name, lambda path: True))
         by_path = {
-            "train": train["launches"][name],
-            "train_exp6": sum(c[name] for c in exp6["train"]),
-            "eval": sum(c[name] for c in exp6["eval"]),
-            "serve": serve["launches"][name],
-            "train_exp6_l336": sum(c[name] for c in exp6_l336["train"]),
-            "eval_l336": sum(c[name] for c in exp6_l336["eval"]),
-            "serve_l336": serve_l336["launches"][name],
-            "train_exp6_l336_fused": sum(c[name] for c in exp6_fused["train"]),
-            "eval_l336_fused": sum(c[name] for c in exp6_fused["eval"]),
+            "train": train["launches"][counter],
+            "train_exp6": sum(c[counter] for c in exp6["train"]),
+            "eval": sum(c[counter] for c in exp6["eval"]),
+            "serve": serve["launches"][counter],
+            "train_exp6_l336": sum(c[counter] for c in exp6_l336["train"]),
+            "eval_l336": sum(c[counter] for c in exp6_l336["eval"]),
+            "serve_l336": serve_l336["launches"][counter],
+            "train_exp6_l336_fused": sum(c[counter] for c in exp6_fused["train"]),
+            "eval_l336_fused": sum(c[counter] for c in exp6_fused["eval"]),
         }
+        by_path = {path: count for path, count in by_path.items() if on_path(path)}
         entries.append({
             "name": name,
             "route": "cuda",

@@ -20,7 +20,7 @@ picks some):
   tower takes the head-group attention kernels;
 * ``l336_fused_exp6_main``: that main-phase step with ``fused_ln_qkv:
   true`` (``chip_smoke.py`` phase 16): every block's ln_1 and in_proj run
-  as the fused LN+qkv kernel.
+  as the fused LN+qkv kernel, and their backward's LayerNorm as one kernel.
 
 For each:
 
@@ -53,14 +53,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # kernel name fragment → group, first match wins (the head-group backward
 # runs the shared dQ and dK/dV kernels with its `HeadGroupRows` policy; both
 # forwards run the kernels of mha_fwd_tiles.cuh, the wgmma one at head_dim
-# 64 past 128 rows: the ViT-L-14-336 vision tower)
+# 64 past 128 rows: the ViT-L-14-336 vision tower; ln_qkv.cu's kernels go
+# to their groups ahead of the generic LayerNorm and reduction fragments)
 GROUPS = [
     ("headgroup", "head-group attention backward (mha_head_group.cu)"),
     ("mha_bwd", "attention backward (mha_bwd.cu)"),
     ("mha_fwd_wgmma", "attention forward, wgmma (mha_fwd_tiles.cuh)"),
     ("mha_fwd", "attention forward, mma.sync or fp32 (mha_fwd_tiles.cuh)"),
     ("infonce", "InfoNCE (infonce.cu)"),
+    ("ln_fast_bwd", "fused LN+qkv backward LayerNorm (ln_qkv.cu)"),
     ("ln_qkv", "fused LN+qkv forward (ln_qkv.cu)"),
+    ("ln_row_stats", "fused LN+qkv forward (ln_qkv.cu)"),
     ("lunif", "uniformity (lunif.cu)"),
     ("nvjet", "cuBLAS GEMM"),
     ("gemm", "cuBLAS GEMM"),

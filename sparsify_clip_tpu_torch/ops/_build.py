@@ -225,10 +225,22 @@ def library() -> ctypes.CDLL:
             lib.sparsify_ln_qkv_fwd.argtypes = [
                 p, p, p,        # x, LayerNorm scale, LayerNorm bias (fp32)
                 p, p, p,        # weight (3W, W), bias (3W,), out (N, 3W)
+                p,              # row statistics scratch (N, 2) fp32
                 i, i, f,        # n, width, eps
                 i,              # dtype (0 fp32, 1 bf16)
                 p,              # cudaStream_t
             ]
             lib.sparsify_ln_qkv_fwd.restype = i
+            lib.sparsify_ln_fast_bwd_scratch.argtypes = [i, i]  # n, width
+            lib.sparsify_ln_fast_bwd_scratch.restype = ctypes.c_longlong
+            lib.sparsify_ln_fast_bwd.argtypes = [
+                p, p, p, p,     # x, dy, LayerNorm scale, LayerNorm bias (fp32)
+                p, p,           # y, dx (N, W)
+                p, p,           # partials scratch, dscale then dbias (2W,) fp32
+                i, i, f,        # n, width, eps
+                i,              # dtype (0 fp32, 1 bf16)
+                p,              # cudaStream_t
+            ]
+            lib.sparsify_ln_fast_bwd.restype = i
             _lib = lib
         return _lib

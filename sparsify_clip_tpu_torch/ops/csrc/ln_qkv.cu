@@ -1,8 +1,9 @@
-// LayerNorm fused into the packed qkv projection, forward:
+// LayerNorm fused into the packed qkv projection: the forward, and the
+// backward's LayerNorm gradient.
 //
 //   qkv = LN_fp32(x) . W^T + b
 //
-// Replaces the TPU kernel `_fwd_kernel` of
+// The forward replaces the TPU kernel `_fwd_kernel` of
 // sparsify_clip_tpu/ops/pallas_ln_qkv.py (driven by `_run_fwd` under
 // `ln_qkv_pallas`). Its arithmetic, term for term:
 //   mean = sum(x) / W and var = sum(x*x) / W - mean^2 in fp32 (the fast
@@ -18,45 +19,72 @@
 //         so a weight row is k-contiguous (the JAX kernel's (W, 3W)
 //         transposed);
 //   kb    (3W,) in the output's type;
-//   out   (N, 3W) in the output's type.
+//   out   (N, 3W) in the output's type;
+//   stats (N, 2) fp32 scratch: each row's mean and rstd.
 // W is a multiple of 8 (16-byte vectors) up to 1664 (ViT-bigG); N is any.
 //
-// bf16, `ln_qkv_bf16_kernel<kBM>`: a block owns kBM rows (64, or 32 where
-// 64 normalized rows of W would not fit in shared memory beside the weight
-// stages: W > 1216). It reads each row once, takes its mean and E[x^2] with
-// a warp reduction, and writes the normalized rows, rounded to bf16, into
-// shared memory once, zero-padded to a multiple of 64 in k. Then it walks
-// its columns in tiles of 128 and k in stages of 64: (128, 64) weight
-// stages stream from L2 through a ring of four shared buffers with
-// cp.async, three in flight while one is multiplied (mma.sync m16n8k16,
-// bf16 in, fp32 accumulate; 8 warps as 2 x 4, a warp 32 (or 16) rows by 32
-// columns). A weight row is k-contiguous, so ldmatrix without transpose
-// gives the B fragments as it gives the A fragments of the row-major y;
-// shared rows are padded by 8 elements so that the 8 rows an ldmatrix
-// reads fall on distinct banks. After a column tile's last k stage the warp
-// rounds its accumulators, adds the bias and stores. Where the rows give fewer than four waves of resident
-// blocks (the text tower: 77 row tiles on 132 SMs), the columns are split
-// over grid.y and each split normalizes its rows again (x is read once a
-// split; its bytes are 1/3 of the output's for one split).
+// Row statistics (`ln_row_stats_kernel`): a first pass, a warp a row, reads
+// x once and writes each row's mean and rstd (0.3 MB at the ViT-L-14-336
+// vision shape), so the product kernels read them instead of reducing rows
+// they see only a k stage at a time.
 //
-// fp32, `ln_qkv_fp32_kernel`: plain fp32 FMAs, no TF32 (TF32 would round
-// the inputs). A block owns 32 rows: a first pass takes each row's mean and
-// rstd, then the block walks its 128-column tiles in k stages of 32, and
-// normalizes each x stage as it stages it (a resident fp32 row tile of W
-// 1664 would not fit): x and weight stages go through registers into
-// shared memory transposed (k-major), double-buffered, and each thread
-// accumulates a 4 x 4 tile from two 16-byte shared loads a k.
+// bf16 (`ln_qkv_wgmma_kernel`): Hopper's warpgroup MMA. A tile is 128 rows
+// (two consumer warpgroups of 64) by 192 output columns (m64n192k16; 192
+// divides 3W at W 768, 1024 and 1664), and one block an SM walks tiles t,
+// t + grid, ... with the columns fastest, so the blocks in flight share
+// their rows and the weight stays in L2. k moves in stages of 64 (one
+// 128-byte swizzle row of bf16): a producer warpgroup (one thread, its
+// registers given to the consumers by setmaxnreg) loads each stage's x
+// (128, 64) and weight (192, 64) boxes by TMA, through tensor maps in the
+// 128-byte swizzle that zero-fill past the edges, into a ring of four
+// buffers with a full and an empty mbarrier each; the tensor cores read the
+// weight K-major through a descriptor. The normalized rows never land in
+// memory: each consumer warp reads its 16 rows of the x stage by ldmatrix,
+// which gives mma.sync's A layout, normalizes them in fp32 with its rows'
+// mean and rstd and the stage's scale and bias, rounds to bf16 and hands
+// them to wgmma as its register A fragment. A stage's normalization runs
+// while the previous stage's products are in flight (two sets of A
+// registers; a stage is handed back once its products are done), and the
+// ring runs on across tiles, so the next tile's loads fly during a tile's
+// epilogue, which rounds the accumulators, adds the bias, rounds again and
+// leaves through a swizzled shared tile as 16-byte stores. Edges: rows past
+// N are zero-filled with rstd 0 and not stored; weight rows past 3W and k
+// past W are zero-filled, with scale and bias 0 there, so a k tail adds
+// exactly 0. (Staging by cp.async from the consumers, with a block barrier
+// a stage, was far slower on an H100: the consumers' instruction issue
+// bound it.)
+//
+// fp32 (`ln_qkv_fp32_kernel`): plain fp32 FMAs (TF32 would round the
+// inputs), register-blocked: a 128 x 128 tile of 256 threads, each owning
+// an 8 x 8 micro-tile (rows ty*4 + i and 64 + ty*4 + i, columns tx*4 + j and
+// 64 + tx*4 + j), so two float4 loads of y and two of the weight feed 64
+// FMAs. k moves in stages of 16, double-buffered: x is normalized as it is
+// staged k-major, and the weight rows are transposed k-major as they land.
 //
 // What bounds it. At the ViT-L-14-336 vision shape in bf16, (36928, 1024)
 // against (3072, 1024), the work is 2 * 36928 * 1024 * 3072 = 232 GFLOP,
 // 0.235 ms on the tensor cores at 989 TFLOP/s, against 0.31 GB of x,
-// weight and output, 0.092 ms at 3.35 TB/s: the operations. This kernel is
-// not at that floor: mma.sync runs at about half of wgmma's rate, each
-// 64-row block streams the whole 6 MB weight from L2 (64 FLOP a weight
-// byte), and the epilogue stores are not overlapped with the next tile's
-// product. In fp32 the floor is 3.47 ms at 67 TFLOP/s; the FMA loop does
-// two shared loads a 16 FMAs. Times in PERF.md.
+// weight and output, 0.092 ms at 3.35 TB/s: the operations. A 128 x 192
+// tile serves 85 FLOP per byte it stages from L2, and the normalization
+// runs under the stage's products. In fp32 the floor is 3.47 ms at 67
+// TFLOP/s of FMA issue. Times in PERF.md.
+//
+// The backward's LayerNorm (`ln_fast_bwd_kernel`): the gradient of the
+// fast-variance LayerNorm above, which the JAX package takes by XLA's vjp of
+// the twin `ln_qkv_reference` (pallas_ln_qkv.py:135-140; no pallas_call).
+// Given x and dy = dL/dy (the normalized rows' gradient, (N, W) in the
+// output's type), one block of 64 rows: a warp a row takes mean and rstd
+// as the forward does, then mean(dyh) and mean(dyh * xh) with xh = (x -
+// mean) * rstd and dyh = dy * scale; then the block walks its rows by
+// column vectors and writes y (recomputed, rounded to the output type, for
+// dW = g^T . y), dx = rstd * (dyh - mean(dyh) - xh * mean(dyh * xh)) in
+// x's type, and its fp32 partials of dscale = sum(dy * xh) and dbias =
+// sum(dy). A second kernel (`ln_fast_bwd_reduce_kernel`) sums the partials
+// over the blocks in a fixed order: no atomics, so two runs agree bit for
+// bit. Bound by bytes: x and dy read, y and dx written (0.30 GB at the
+// vision shape, 0.090 ms).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,21 +94,34 @@
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kThreads = 256;   // 8 warps
 constexpr int kMaxWidth = 1664;
-constexpr size_t kMaxSmem = 232448;  // what a block can opt into on sm_90
-constexpr int kBN = 128;              // output columns a tile
-// bf16
-constexpr int kBK = 64;               // k a weight stage
-constexpr int kStages = 4;            // weight stages in the shared ring
-constexpr int kWStride = kBK + 8;     // bf16 elements a weight-stage row in shared memory
+// row statistics
+constexpr int kStatsThreads = 256;     // a warp a row
+// bf16, wgmma
+constexpr int kWarpgroupWarps = 4;
+constexpr int kWgThreads = 384;        // two consumer warpgroups and a producer
+constexpr int kWgRows = 128;           // 64 a warpgroup
+constexpr int kWgCols = 192;           // m64n192k16
+constexpr int kWgK = 64;               // k a stage: a 128-byte row of bf16
+constexpr int kWgStages = 4;           // ring of x + weight stages
+constexpr int kXStageBytes = kWgRows * 128;
+constexpr int kWStageBytes = kWgCols * 128;
+constexpr int kStageBytes = kXStageBytes + kWStageBytes;  // 40 KB, a multiple of 1024
+constexpr int kOutChunks = kWgCols / 8;                   // 16-byte chunks an output row
+constexpr int kOutRowBytes = kWgCols * 2;
+constexpr int kOutBytes = kWgRows * kOutRowBytes;
 // fp32
-constexpr int kF32BM = 32;
-constexpr int kF32BK = 32;
-constexpr int kF32YStride = kF32BM + 4;
-constexpr int kF32WStride = kBN + 4;
+constexpr int kF32Threads = 256;       // (ty, tx) = (tid / 16, tid % 16)
+constexpr int kF32Tile = 128;          // rows and columns a block
+constexpr int kF32K = 16;              // k a stage
+constexpr int kF32Stride = kF32Tile + 4;
+// backward
+constexpr int kBwdThreads = 256;
+constexpr int kBwdRows = 64;           // rows a block, one set of partials
+constexpr int kRedCols = 32, kRedSlices = 32;  // the partials' reduction block
 
-__host__ __device__ __forceinline__ int round_up(int a, int b) { return (a + b - 1) / b * b; }
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ __forceinline__ int round_up(int a, int b) { return cdiv(a, b) * b; }
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -88,353 +129,686 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// bf16 shared memory: kBM normalized rows of kpad + 8, then the weight ring
-size_t bf16_smem_bytes(int bm, int kpad) {
-  return (size_t)bm * (kpad + 8) * sizeof(__nv_bfloat16) +
-         (size_t)kStages * kBN * kWStride * sizeof(__nv_bfloat16);
+__device__ __forceinline__ float2 bf2_to_f2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+__device__ __forceinline__ uint32_t f2_to_bf2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Grid (row tiles, column splits); a split walks `tiles_per_split` column
-// tiles (the last one fewer), and no split is empty.
-template <int kBM>
-__global__ void __launch_bounds__(kThreads)
-ln_qkv_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
-                   const float* __restrict__ bias, const __nv_bfloat16* __restrict__ w,
-                   const __nv_bfloat16* __restrict__ kb, __nv_bfloat16* __restrict__ out, int N,
-                   int W, float eps, int tiles_per_split) {
-  constexpr int kMT = kBM / 32;  // 16-row m-tiles a warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int kpad = round_up(W, kBK);
-  const int ys = kpad + 8;  // bf16 elements a normalized row in shared memory
-  __nv_bfloat16* y_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* w_s = y_s + kBM * ys;  // [kStages][kBN][kWStride]
+// 8 consecutive elements (16 or 32 bytes, 16-byte aligned) as floats, and back
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = bf2_to_f2(w[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(f2_to_bf2(v[0], v[1]), f2_to_bf2(v[2], v[3]),
+                                            f2_to_bf2(v[4], v[5]), f2_to_bf2(v[6], v[7]));
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// ------------------------------------------------------------ row statistics
+
+// Grid ceil(N / 8), 256 threads: a warp a row.
+template <typename T>
+__global__ void __launch_bounds__(kStatsThreads)
+ln_row_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats, int N, int W,
+                    float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kStatsThreads / 32) + (threadIdx.x >> 5);
+  if (row >= N) return;
+  const T* xr = x + (int64_t)row * W;
+  float s = 0.f, ss = 0.f;
+  for (int c = lane * 8; c < W; c += 32 * 8) {
+    float v[8];
+    load8(xr + c, v);
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      s += v[e] + v[e + 1];
+      ss += v[e] * v[e] + v[e + 1] * v[e + 1];
+    }
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  if (lane == 0) {
+    const float mean = s / W;
+    stats[row] = make_float2(mean, rsqrtf(ss / W - mean * mean + eps));
+  }
+}
+
+// ------------------------------------------------------------------ bf16
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// the consumers' wait for the phase of parity `parity` to complete
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+// the producer's: one of ~10 s traps (the launch then fails) instead of
+// hanging the card (a trap on the consumers' side would make ptxas wait on
+// every product before it)
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > (1LL << 34)) __trap();
+  }
+}
+// box (c0, c1) of a 2-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// two bf16 of x -> ((x - mean) * rstd) * scale + bias in fp32 -> two bf16
+__device__ __forceinline__ uint32_t normalize2(uint32_t v, float mean, float rstd, float2 s,
+                                               float2 b) {
+  const float2 f = bf2_to_f2(v);
+  return f2_to_bf2(((f.x - mean) * rstd) * s.x + b.x, ((f.y - mean) * rstd) * s.y + b.y);
+}
+
+// 1024 bytes of slack to align the ring, the ring, the output tile, the
+// LayerNorm's scale and bias zero-padded to kpad, and a full and an empty
+// barrier a stage
+size_t wgmma_smem_bytes(int kpad) {
+  return 1024 + (size_t)kWgStages * kStageBytes + kOutBytes + 2 * (size_t)kpad * sizeof(float) +
+         2 * kWgStages * sizeof(uint64_t);
+}
+
+// Grid min(tiles, SMs), 384 threads, one block an SM. Warpgroup 2 is the
+// producer: one thread walks the steps (a step is a tile's k stage) and
+// loads each stage's x (128, 64) and weight (192, 64) boxes by TMA into
+// the ring, once the stage's empty barrier says both consumers are done
+// with its last use; the full barrier counts the bytes in. Warpgroups 0 and
+// 1 consume, 64 rows each.
+__global__ void __launch_bounds__(kWgThreads, 1)
+ln_qkv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                    const __grid_constant__ CUtensorMap tmap_w, const float2* __restrict__ stats,
+                    const float* __restrict__ scale, const float* __restrict__ bias,
+                    const __nv_bfloat16* __restrict__ kb, __nv_bfloat16* __restrict__ out, int N,
+                    int W) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes of the shared address
+  unsigned char* ring =
+      smem_raw + ((1024 - (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) & 1023)) &
+                  1023);
+  unsigned char* out_s = ring + kWgStages * kStageBytes;  // [128][24 chunks], chunk c at c ^ (r % 8)
+  const int kpad = round_up(W, kWgK);
+  float* scale_s = reinterpret_cast<float*>(out_s + kOutBytes);
+  float* bias_s = scale_s + kpad;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias_s + kpad);
+  uint64_t* empty = full + kWgStages;
 
   const int W3 = 3 * W;
-  const int row0 = blockIdx.x * kBM;
-  const int n_col_tiles = (W3 + kBN - 1) / kBN;
-  const int j0 = blockIdx.y * tiles_per_split;
-  const int j1 = min(n_col_tiles, j0 + tiles_per_split);
-  const int nk = kpad / kBK;
-  const int steps = (j1 - j0) * nk;
+  const int nk = kpad / kWgK;
+  const int col_tiles = cdiv(W3, kWgCols);
+  const int tiles = cdiv(N, kWgRows) * col_tiles;
+  const int steps = cdiv(tiles - (int)blockIdx.x, (int)gridDim.x) * nk;  // grid <= tiles
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // warps as 2 (rows) x 4 (columns)
-  // this lane's ldmatrix rows: A (row lane % 16, k half lane / 16) and B
-  // (n row lane % 8 of n-tile pair half lane / 16, k half (lane / 8) % 2)
-  const int a_row = lane & 15, a_k = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) * 8;
 
-  auto load_w = [&](int buf, int step) {
-    const int j = j0 + step / nk, kt = step % nk;
-    __nv_bfloat16* dst = w_s + buf * kBN * kWStride;
-    for (int i = tid; i < kBN * (kBK / 8); i += kThreads) {
-      const int r = i >> 3, c = i & 7;
-      const int n = j * kBN + r, k = kt * kBK + c * 8;
-      const bool full = n < W3 && k < W;
-      cp_async16(dst + r * kWStride + c * 8, full ? w + (int64_t)n * W + k : w, full);
+  for (int i = tid; i < kpad; i += kWgThreads) {
+    scale_s[i] = i < W ? scale[i] : 0.f;
+    bias_s[i] = i < W ? bias[i] : 0.f;
+  }
+  if (tid == 0) {
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, 2);  // one arrival a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the origin of this block's tile tl (tiles blockIdx.x + tl * gridDim.x,
+  // the columns fastest)
+  auto tile_origin = [&](int tl, int& r0, int& c0) {
+    const int tile = blockIdx.x + tl * gridDim.x;
+    r0 = (tile / col_tiles) * kWgRows;
+    c0 = (tile % col_tiles) * kWgCols;
+  };
+
+  if (warp >= 2 * kWarpgroupWarps) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 2 * kWarpgroupWarps * 32) {
+      int r0 = 0, c0 = 0;
+      for (int s = 0, kt = 0, tl = 0; s < steps; ++s) {
+        const int st = s % kWgStages, use = s / kWgStages;
+        if (use > 0) mbar_wait_or_trap(empty + st, (use - 1) & 1);
+        if (kt == 0) tile_origin(tl, r0, c0);
+        unsigned char* xs = ring + st * kStageBytes;
+        mbar_expect_tx(full + st, kStageBytes);
+        tma_load_2d(xs, &tmap_x, kt * kWgK, r0, full + st);
+        tma_load_2d(xs + kXStageBytes, &tmap_w, kt * kWgK, c0, full + st);
+        if (++kt == nk) kt = 0, ++tl;
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = warp * 16;  // this warp's 16 rows of the tile (warpgroup warp / 4)
+  float mean[2] = {0.f, 0.f}, rstd[2] = {0.f, 0.f};  // rows wrow + g and wrow + g + 8
+
+  // the A fragments of step s (stage kt of tile tl): this warp's 16 rows of
+  // the x stage, normalized, once the stage has landed
+  auto prep = [&](uint32_t (&a)[kWgK / 16][4], int s, int kt, int tl) {
+    if (kt == 0) {
+      int r0, c0;
+      tile_origin(tl, r0, c0);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = r0 + wrow + g + 8 * hr;
+        const float2 st = row < N ? stats[row] : make_float2(0.f, 0.f);
+        mean[hr] = st.x;
+        rstd[hr] = st.y;
+      }
+    }
+    mbar_wait(full + s % kWgStages, (s / kWgStages) & 1);
+    const unsigned char* xs = ring + (s % kWgStages) * kStageBytes;
+    const int r = wrow + (lane & 15);
+#pragma unroll
+    for (int ks = 0; ks < kWgK / 16; ++ks) {
+      uint32_t raw[4];  // (row g, k 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8)
+      ldmatrix_x4(raw, reinterpret_cast<const __nv_bfloat16*>(
+                           xs + r * 128 + (((2 * ks + (lane >> 4)) ^ (r & 7)) << 4)));
+      const int k = kt * kWgK + ks * 16 + 2 * t;
+      const float2 s0 = *reinterpret_cast<const float2*>(scale_s + k);
+      const float2 s1 = *reinterpret_cast<const float2*>(scale_s + k + 8);
+      const float2 b0 = *reinterpret_cast<const float2*>(bias_s + k);
+      const float2 b1 = *reinterpret_cast<const float2*>(bias_s + k + 8);
+      a[ks][0] = normalize2(raw[0], mean[0], rstd[0], s0, b0);
+      a[ks][1] = normalize2(raw[1], mean[1], rstd[1], s0, b0);
+      a[ks][2] = normalize2(raw[2], mean[0], rstd[0], s1, b1);
+      a[ks][3] = normalize2(raw[3], mean[1], rstd[1], s1, b1);
     }
   };
-  // the first stages fly while the rows are normalized; one commit group
-  // a stage, empty past the end, so that the wait counts stay uniform
+
+  float acc[kWgCols / 2];
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < steps) load_w(st, st);
-    cp_async_commit();
+  for (int i = 0; i < kWgCols / 2; ++i) acc[i] = 0.f;
+
+  // step s's products: four m64n192k16, the first of a tile overwriting acc
+  auto issue = [&](const uint32_t (&a)[kWgK / 16][4], int s, int kt) {
+    const uint64_t dw = sw128_desc(ring + (s % kWgStages) * kStageBytes + kXStageBytes);
+    const int carry = kt != 0;
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWgK / 16; ++ks)  // 16 k = 32 bytes = 2 descriptor units
+      wgmma_rs<0>(acc, a[ks], dw + 2 * ks, ks > 0 ? 1 : carry);
+    wgmma_commit();
+    fence_operand(acc);
+  };
+
+  // tile tl is complete: round, add the bias, round, and store through
+  // this warp's 16 rows of the output tile
+  auto epilogue = [&](int tl) {
+    int r0, c0;
+    tile_origin(tl, r0, c0);
+#pragma unroll
+    for (int j = 0; j < kOutChunks; ++j) {
+      const int col = c0 + j * 8 + 2 * t;
+      const float2 kbv = col < W3 ? bf2_to_f2(*reinterpret_cast<const uint32_t*>(kb + col))
+                                  : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = wrow + g + 8 * hr;
+        const float v0 = __bfloat162float(__float2bfloat16_rn(acc[4 * j + 2 * hr])) + kbv.x;
+        const float v1 = __bfloat162float(__float2bfloat16_rn(acc[4 * j + 2 * hr + 1])) + kbv.y;
+        *reinterpret_cast<uint32_t*>(out_s + r * kOutRowBytes + ((j ^ (r & 7)) << 4) + 4 * t) =
+            f2_to_bf2(v0, v1);
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * kOutChunks; i += 32) {
+      const int rr = i / kOutChunks, c = i - rr * kOutChunks;
+      const int r = wrow + rr, row = r0 + r, col = c0 + c * 8;  // 3W is a multiple of 24
+      if (row < N && col < W3) {
+        *reinterpret_cast<uint4*>(out + (int64_t)row * W3 + col) =
+            *reinterpret_cast<const uint4*>(out_s + r * kOutRowBytes + ((c ^ (r & 7)) << 4));
+      }
+    }
+    __syncwarp();
+  };
+
+  // Step s: issue its products, free step s - 1's stage once they are done
+  // (one arrival a warpgroup: its four warps' A fragments went into them),
+  // normalize step s + 1 under them, and at a tile's last stage store it.
+  auto step = [&](uint32_t (&cur)[kWgK / 16][4], uint32_t (&nxt)[kWgK / 16][4], int s, int& kt,
+                  int& tl) {
+    issue(cur, s, kt);
+    wgmma_wait<1>();
+    if (s > 0 && (tid & 127) == 0) mbar_arrive(empty + (s - 1) % kWgStages);
+    const bool last = kt == nk - 1;
+    const int kt1 = last ? 0 : kt + 1, tl1 = last ? tl + 1 : tl;
+    if (s + 1 < steps) prep(nxt, s + 1, kt1, tl1);
+    if (last) {
+      wgmma_wait<0>();
+      fence_operand(acc);
+      epilogue(tl);
+    }
+    kt = kt1;
+    tl = tl1;
+  };
+  uint32_t a0[kWgK / 16][4], a1[kWgK / 16][4];
+  int kt = 0, tl = 0;
+  prep(a0, 0, 0, 0);
+  for (int s = 0; s < steps; s += 2) {
+    step(a0, a1, s, kt, tl);
+    if (s + 1 < steps) step(a1, a0, s + 1, kt, tl);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no libcuda link)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (rows, W) bf16 row-major matrix in boxes of (box_rows, 64): 128-byte
+// swizzle, zero past its edges
+bool bf16_tensor_map(CUtensorMap* map, const void* ptr, int rows, int width, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)width * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kWgK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ------------------------------------------------------------------ fp32
+
+// Grid (ceil(3W / 128), ceil(N / 128)), 256 threads: the columns fastest,
+// so the blocks in flight share their rows. Two blocks an SM (128
+// registers): on an H100, one block an SM, or 128-thread blocks of 8 x 16
+// micro-tiles (six float4 loads a 128 FMAs), were slower.
+__global__ void __launch_bounds__(kF32Threads, 2)
+ln_qkv_fp32_kernel(const float* __restrict__ x, const float2* __restrict__ stats,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   const float* __restrict__ w, const float* __restrict__ kb,
+                   float* __restrict__ out, int N, int W) {
+  __shared__ __align__(16) float a_s[2][kF32K][kF32Stride];  // normalized rows, k-major
+  __shared__ __align__(16) float b_s[2][kF32K][kF32Stride];  // weight rows, k-major
+  __shared__ float2 st_s[kF32Tile];
+
+  const int W3 = 3 * W;
+  const int c0 = blockIdx.x * kF32Tile, r0 = blockIdx.y * kF32Tile;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int nk = cdiv(W, kF32K);
+  if (tid < kF32Tile) {
+    const int row = r0 + tid;
+    st_s[tid] = row < N ? stats[row] : make_float2(0.f, 0.f);
   }
 
-  // Normalize: a warp takes rows warp, warp + 8, ...; x goes to shared
-  // memory as it is, then is rewritten in place as y (each lane rereads the
-  // vectors it wrote, so no barrier is needed between the two passes).
-  const int vecs = W / 8, pad_vecs = kpad / 8;
-  for (int r = warp; r < kBM; r += kThreads / 32) {
-    const int row = row0 + r;
-    uint4* yrow = reinterpret_cast<uint4*>(y_s + r * ys);
-    if (row >= N) {
-      for (int c = lane; c < pad_vecs; c += 32) yrow[c] = make_uint4(0u, 0u, 0u, 0u);
-      continue;
+  // a stage in registers: two float4 of x and two of the weight a thread
+  // (4 threads cover a row's 16 k)
+  constexpr int kQ = kF32Tile * kF32K / 4 / kF32Threads, kRowVecs = kF32K / 4;
+  float4 xv[kQ], wv[kQ];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto load = [&](int kt) {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int i = tid + q * kF32Threads, lr = i / kRowVecs, k = kt * kF32K + (i % kRowVecs) * 4;
+      const int row = r0 + lr, n = c0 + lr;  // k < W implies k + 3 < W
+      xv[q] = row < N && k < W ? *reinterpret_cast<const float4*>(x + (int64_t)row * W + k) : zero;
+      wv[q] = n < W3 && k < W ? *reinterpret_cast<const float4*>(w + (int64_t)n * W + k) : zero;
     }
-    const uint4* xrow = reinterpret_cast<const uint4*>(x + (int64_t)row * W);
-    float s = 0.f, ss = 0.f;
-    for (int c = lane; c < vecs; c += 32) {
-      const uint4 v = xrow[c];
-      yrow[c] = v;
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+  };
+  auto store = [&](int buf, int kt) {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int i = tid + q * kF32Threads, lr = i / kRowVecs, kc = (i % kRowVecs) * 4;
+      const int k = kt * kF32K + kc;
+      const float2 st = st_s[lr];
+      const bool live = k < W;
+      const float4 sc4 = live ? __ldg(reinterpret_cast<const float4*>(scale + k)) : zero;
+      const float4 bi4 = live ? __ldg(reinterpret_cast<const float4*>(bias + k)) : zero;
+      const float v[4] = {xv[q].x, xv[q].y, xv[q].z, xv[q].w};
+      const float u[4] = {wv[q].x, wv[q].y, wv[q].z, wv[q].w};
+      const float sc[4] = {sc4.x, sc4.y, sc4.z, sc4.w}, bi[4] = {bi4.x, bi4.y, bi4.z, bi4.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h[e]);
-        s += f.x + f.y;
-        ss += f.x * f.x + f.y * f.y;
+        a_s[buf][kc + e][lr] = live ? ((v[e] - st.x) * st.y) * sc[e] + bi[e] : 0.f;
+        b_s[buf][kc + e][lr] = u[e];
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  __syncthreads();  // the row statistics
+  load(0);
+  store(0, 0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nk) load(kt + 1);  // global reads fly during the products
+#pragma unroll
+    for (int k = 0; k < kF32K; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&a_s[buf][k][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&a_s[buf][k][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&b_s[buf][k][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&b_s[buf][k][64 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    // the other buffer was last read in the previous stage, before its barrier
+    if (kt + 1 < nk) store(buf ^ 1, kt + 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (row >= N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = c0 + h * 64 + tx * 4;  // a multiple of 4; so is 3W
+      if (col < W3) {
+        *reinterpret_cast<float4*>(out + (int64_t)row * W3 + col) = make_float4(
+            acc[i][4 * h] + __ldg(kb + col), acc[i][4 * h + 1] + __ldg(kb + col + 1),
+            acc[i][4 * h + 2] + __ldg(kb + col + 2), acc[i][4 * h + 3] + __ldg(kb + col + 3));
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ backward
+
+// Grid ceil(N / 64), 256 threads. partial: (grid, 2W) fp32, the block's
+// dscale then dbias over its rows.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+ln_fast_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   T* __restrict__ y, T* __restrict__ dx, float* __restrict__ partial, int N,
+                   int W, float eps) {
+  __shared__ float4 row_s[kBwdRows];               // mean, rstd, mean(dyh), mean(dyh * xh)
+  __shared__ float red_s[kBwdThreads * 16];        // each thread's column sums
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * kBwdRows;
+
+  // a warp a row: the forward's statistics, then the two row means of dx
+  for (int r = warp; r < kBwdRows && r0 + r < N; r += kBwdThreads / 32) {
+    const T* xr = x + (int64_t)(r0 + r) * W;
+    const T* dr = dy + (int64_t)(r0 + r) * W;
+    float s = 0.f, ss = 0.f;
+    for (int c = lane * 8; c < W; c += 32 * 8) {
+      float v[8];
+      load8(xr + c, v);
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        s += v[e] + v[e + 1];
+        ss += v[e] * v[e] + v[e + 1] * v[e + 1];
       }
     }
     s = warp_sum(s);
     ss = warp_sum(ss);
     const float mean = s / W;
     const float rstd = rsqrtf(ss / W - mean * mean + eps);
-    for (int c = lane; c < vecs; c += 32) {
-      uint4 v = yrow[c];
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+    float sd = 0.f, sdx = 0.f;
+    for (int c = lane * 8; c < W; c += 32 * 8) {
+      float v[8], d[8], sc[8];
+      load8(xr + c, v);
+      load8(dr + c, d);
+      load8(scale + c, sc);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int k = c * 8 + 2 * e;
-        const float2 f = __bfloat1622float2(h[e]);
-        const float y0 = ((f.x - mean) * rstd) * __ldg(scale + k) + __ldg(bias + k);
-        const float y1 = ((f.y - mean) * rstd) * __ldg(scale + k + 1) + __ldg(bias + k + 1);
-        h[e] = __floats2bfloat162_rn(y0, y1);
-      }
-      yrow[c] = v;
-    }
-    for (int c = vecs + lane; c < pad_vecs; c += 32) yrow[c] = make_uint4(0u, 0u, 0u, 0u);
-  }
-
-  float acc[kMT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of stage s have landed
-    // every thread's have, every normalized row is written (on the first
-    // step), and every warp is done with the buffer the prefetch refills,
-    // which held stage s - 1
-    __syncthreads();
-    const int pre = s + kStages - 1;
-    if (pre < steps) load_w(pre % kStages, pre);
-    cp_async_commit();
-
-    const int kt = s % nk;
-    const __nv_bfloat16* wt = w_s + (s % kStages) * kBN * kWStride;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t a[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-        ldmatrix_x4(a[mt], y_s + (wm * (kBM / 2) + mt * 16 + a_row) * ys + kt * kBK + ks * 16 + a_k);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t b[4];  // b0, b1 of n-tile 2 np, then of n-tile 2 np + 1
-        ldmatrix_x4(b, wt + (wn * 32 + np * 16 + b_row) * kWStride + ks * 16 + b_k);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-        }
+      for (int e = 0; e < 8; ++e) {
+        const float dh = d[e] * sc[e];
+        sd += dh;
+        sdx += dh * ((v[e] - mean) * rstd);
       }
     }
-
-    if (kt == nk - 1) {
-      // the column tile is complete: round, add the bias, round, store
-      const int j = j0 + s / nk;
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = j * kBN + wn * 32 + nt * 8 + 2 * t;  // even; 3W is a multiple of 8
-#pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int row = row0 + wm * (kBM / 2) + mt * 16 + g + 8 * hr;
-            if (row < N && col < W3) {
-              const float v0 = __bfloat162float(__float2bfloat16_rn(acc[mt][nt][2 * hr])) +
-                               __bfloat162float(kb[col]);
-              const float v1 = __bfloat162float(__float2bfloat16_rn(acc[mt][nt][2 * hr + 1])) +
-                               __bfloat162float(kb[col + 1]);
-              *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * W3 + col) =
-                  __floats2bfloat162_rn(v0, v1);
-            }
-          }
-          acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-        }
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-ln_qkv_fp32_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                   const float* __restrict__ bias, const float* __restrict__ w,
-                   const float* __restrict__ kb, float* __restrict__ out, int N, int W, float eps,
-                   int tiles_per_split) {
-  // k-major stages: y_s[k][row], w_s[k][column]
-  __shared__ __align__(16) float y_s[2][kF32BK][kF32YStride];
-  __shared__ __align__(16) float w_s[2][kF32BK][kF32WStride];
-  __shared__ float mean_s[kF32BM], rstd_s[kF32BM];
-
-  const int W3 = 3 * W;
-  const int row0 = blockIdx.x * kF32BM;
-  const int n_col_tiles = (W3 + kBN - 1) / kBN;
-  const int j0 = blockIdx.y * tiles_per_split;
-  const int j1 = min(n_col_tiles, j0 + tiles_per_split);
-  const int nk = (W + kF32BK - 1) / kF32BK;
-  const int steps = (j1 - j0) * nk;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 31, ty = tid >> 5;  // this thread's 4 columns and 4 rows
-
-  // row statistics: a warp takes 4 rows
-#pragma unroll
-  for (int i = 0; i < kF32BM / 8; ++i) {
-    const int r = warp * (kF32BM / 8) + i, row = row0 + r;
-    float s = 0.f, ss = 0.f;
-    if (row < N) {
-      const float4* xr = reinterpret_cast<const float4*>(x + (int64_t)row * W);
-      for (int c = lane; c < W / 4; c += 32) {
-        const float4 v = xr[c];
-        s += (v.x + v.y) + (v.z + v.w);
-        ss += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
-      }
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    if (lane == 0) {
-      const float mean = s / W;
-      mean_s[r] = mean;
-      rstd_s[r] = row < N ? rsqrtf(ss / W - mean * mean + eps) : 0.f;
-    }
+    sd = warp_sum(sd);
+    sdx = warp_sum(sdx);
+    if (lane == 0) row_s[r] = make_float4(mean, rstd, sd / W, sdx / W);
   }
   __syncthreads();
 
-  // a stage in registers: one x vector and four weight vectors a thread
-  // (8 threads cover a row's 32 k: global reads in 128-byte runs)
-  float4 xv, wv[4];
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  auto load = [&](int step) {
-    const int j = j0 + step / nk, kt = step % nk;
-    const int c = tid & 7, k = kt * kF32BK + c * 4;  // k < W implies k + 3 < W
-    const int row = row0 + (tid >> 3);
-    xv = row < N && k < W ? *reinterpret_cast<const float4*>(x + (int64_t)row * W + k) : zero;
+  // by column vectors: thread (q, v) takes vector v of rows q, q + groups, ...
+  const int nvec = W / 8;
+  const int groups = kBwdThreads / nvec;  // >= 1: nvec <= 208
+  const int v = tid % nvec, q = tid / nvec;
+  float ps[8], pb[8];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = j * kBN + ((tid + q * kThreads) >> 3);
-      wv[q] = n < W3 && k < W ? *reinterpret_cast<const float4*>(w + (int64_t)n * W + k) : zero;
-    }
-  };
-  auto store = [&](int buf, int step) {
-    const int kt = step % nk;
-    const int c = tid & 7, k = kt * kF32BK + c * 4;
-    const int r = tid >> 3, row = row0 + r;
-    const float v[4] = {xv.x, xv.y, xv.z, xv.w};
-    const float mean = mean_s[r], rstd = rstd_s[r];
+  for (int e = 0; e < 8; ++e) ps[e] = pb[e] = 0.f;
+  if (q < groups) {
+    float sc[8], bi[8];
+    load8(scale + v * 8, sc);
+    load8(bias + v * 8, bi);
+#pragma unroll 2
+    for (int r = q; r < kBwdRows && r0 + r < N; r += groups) {
+      const float4 st = row_s[r];
+      const int64_t off = (int64_t)(r0 + r) * W + v * 8;
+      float xv[8], dv[8], yv[8], gv[8];
+      load8(x + off, xv);
+      load8(dy + off, dv);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool live = row < N && k + e < W;
-      y_s[buf][c * 4 + e][r] =
-          live ? ((v[e] - mean) * rstd) * __ldg(scale + k + e) + __ldg(bias + k + e) : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = (tid + q * kThreads) >> 3;
-      w_s[buf][c * 4 + 0][n] = wv[q].x;
-      w_s[buf][c * 4 + 1][n] = wv[q].y;
-      w_s[buf][c * 4 + 2][n] = wv[q].z;
-      w_s[buf][c * 4 + 3][n] = wv[q].w;
-    }
-  };
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  load(0);
-  store(0, 0);
-  __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < steps) load(s + 1);  // global reads fly during the product
-#pragma unroll 8
-    for (int k = 0; k < kF32BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&y_s[buf][k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&w_s[buf][k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
-    }
-    // the other buffer was last read in the previous step, before its barrier
-    if (s + 1 < steps) store(buf ^ 1, s + 1);
-    if (s % nk == nk - 1) {
-      const int col = (j0 + s / nk) * kBN + tx * 4;  // a multiple of 4; so is 3W
-      if (col < W3) {
-        const float b4[4] = {__ldg(kb + col), __ldg(kb + col + 1), __ldg(kb + col + 2),
-                             __ldg(kb + col + 3)};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = row0 + ty * 4 + i;
-          if (row < N) {
-            *reinterpret_cast<float4*>(out + (int64_t)row * W3 + col) =
-                make_float4(acc[i][0] + b4[0], acc[i][1] + b4[1], acc[i][2] + b4[2],
-                            acc[i][3] + b4[3]);
-          }
-        }
+      for (int e = 0; e < 8; ++e) {
+        const float xh = (xv[e] - st.x) * st.y;
+        yv[e] = xh * sc[e] + bi[e];
+        gv[e] = st.y * (dv[e] * sc[e] - st.z - xh * st.w);
+        ps[e] += dv[e] * xh;
+        pb[e] += dv[e];
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+      store8(y + off, yv);
+      store8(dx + off, gv);
     }
-    __syncthreads();
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    red_s[tid * 16 + e] = ps[e];
+    red_s[tid * 16 + 8 + e] = pb[e];
+  }
+  __syncthreads();
+  if (tid < nvec) {  // the groups' sums, in order
+    float s16[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s16[e] = red_s[tid * 16 + e];
+    for (int qq = 1; qq < groups; ++qq) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s16[e] += red_s[(qq * nvec + tid) * 16 + e];
+    }
+    float* p = partial + (int64_t)blockIdx.x * 2 * W + tid * 8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      p[e] = s16[e];
+      p[W + e] = s16[8 + e];
+    }
   }
 }
 
-// Column tiles a split walks: one split where the row tiles alone give four
-// waves of resident blocks, else as many as it takes (every split non-empty).
-int column_tiles_per_split(int row_tiles, int col_tiles, int resident) {
-  const long want = 4L * (resident > 0 ? resident : 1);
-  long splits = (want + row_tiles - 1) / row_tiles;
-  splits = splits < 1 ? 1 : (splits > col_tiles ? col_tiles : splits);
-  return (int)((col_tiles + splits - 1) / splits);
+// Grid ceil(2W / 32), (32, 32) threads: column j of the partials summed over
+// the blocks b = slice, slice + 32, ..., then over the 32 slices, in order.
+__global__ void __launch_bounds__(kRedCols * kRedSlices)
+ln_fast_bwd_reduce_kernel(const float* __restrict__ partial, int blocks, int cols,
+                          float* __restrict__ out) {
+  __shared__ float part_s[kRedSlices][kRedCols + 1];
+  const int j = blockIdx.x * kRedCols + threadIdx.x, slice = threadIdx.y;
+  float acc = 0.f;
+  if (j < cols) {
+#pragma unroll 4
+    for (int b = slice; b < blocks; b += kRedSlices) acc += partial[(int64_t)b * cols + j];
+  }
+  part_s[slice][threadIdx.x] = acc;
+  __syncthreads();
+  if (slice == 0 && j < cols) {
+    float s = 0.f;
+    for (int i = 0; i < kRedSlices; ++i) s += part_s[i][threadIdx.x];
+    out[j] = s;
+  }
 }
 
-template <typename Kernel>
-int resident_blocks(Kernel kernel, size_t smem) {
-  int dev = 0, sms = 0, per_sm = 0;
+// ------------------------------------------------------------------ launch
+
+int sm_count() {
+  int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  return err == cudaSuccess ? sms * per_sm : -(int)err;
+  return err == cudaSuccess ? sms : -(int)err;
 }
 
-template <int kBM>
-int launch_bf16(const void* x, const float* scale, const float* bias, const void* w,
-                const void* kb, void* out, int n, int width, float eps, cudaStream_t stream) {
-  const size_t smem = bf16_smem_bytes(kBM, round_up(width, kBK));
-  const cudaError_t err = cudaFuncSetAttribute(
-      ln_qkv_bf16_kernel<kBM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int resident = resident_blocks(ln_qkv_bf16_kernel<kBM>, smem);
-  if (resident < 0) return -resident;
-  const int row_tiles = (n + kBM - 1) / kBM, col_tiles = (3 * width + kBN - 1) / kBN;
-  const int per = column_tiles_per_split(row_tiles, col_tiles, resident);
-  const dim3 grid(row_tiles, (col_tiles + per - 1) / per);
-  ln_qkv_bf16_kernel<kBM><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), scale, bias, static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(kb), static_cast<__nv_bfloat16*>(out), n, width, eps, per);
+template <typename T>
+int launch_stats(const void* x, float2* stats, int n, int width, float eps, cudaStream_t stream) {
+  ln_row_stats_kernel<T><<<cdiv(n, kStatsThreads / 32), kStatsThreads, 0, stream>>>(
+      static_cast<const T*>(x), stats, n, width, eps);
   return (int)cudaGetLastError();
+}
+
+int launch_wgmma(const void* x, const float2* stats, const float* scale, const float* bias,
+                 const void* w, const void* kb, void* out, int n, int width,
+                 cudaStream_t stream) {
+  CUtensorMap mx, mw;
+  if (!bf16_tensor_map(&mx, x, n, width, kWgRows) ||
+      !bf16_tensor_map(&mw, w, 3 * width, width, kWgCols))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wgmma_smem_bytes(round_up(width, kWgK));
+  const cudaError_t err = cudaFuncSetAttribute(
+      ln_qkv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms < 0) return -sms;
+  const int tiles = cdiv(n, kWgRows) * cdiv(3 * width, kWgCols);
+  ln_qkv_wgmma_kernel<<<tiles < sms ? tiles : sms, kWgThreads, smem, stream>>>(
+      mx, mw, stats, scale, bias, static_cast<const __nv_bfloat16*>(kb),
+      static_cast<__nv_bfloat16*>(out), n, width);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* dy, const float* scale, const float* bias, void* y,
+               void* dx, float* partial, float* dscale_dbias, int n, int width, float eps,
+               cudaStream_t stream) {
+  const int blocks = cdiv(n, kBwdRows);
+  ln_fast_bwd_kernel<T><<<blocks, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), scale, bias, static_cast<T*>(y),
+      static_cast<T*>(dx), partial, n, width, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ln_fast_bwd_reduce_kernel<<<cdiv(2 * width, kRedCols), dim3(kRedCols, kRedSlices), 0, stream>>>(
+      partial, blocks, 2 * width, dscale_dbias);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int n, int width, int dtype) {
+  return n <= 0 || width <= 0 || width % 8 || width > kMaxWidth || (dtype != 0 && dtype != 1);
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. Launches on `stream` and returns the
-// first CUDA error (0 on success): a refused launch never runs, and a later
-// synchronise would not report it. dtype: 0 = fp32, 1 = bf16 (x, w, kb and
-// out alike; scale and bias are fp32). x and w must start on a 16-byte
-// boundary (16-byte loads and cp.async); the wrapper checks it.
+// C entry points, bound with ctypes. Each launches on `stream` and returns
+// the first CUDA error (0 on success): a refused launch never runs, and a
+// later synchronise would not report it. dtype: 0 = fp32, 1 = bf16 (x, w,
+// kb and out alike; scale and bias are fp32). Pointers start on a 16-byte
+// boundary (16-byte loads and TMA); the wrapper checks it.
+
+// The forward: the row statistics into `stats` ((N, 2) fp32 scratch), then
+// the product.
 extern "C" int sparsify_ln_qkv_fwd(const void* x, const float* scale, const float* bias,
-                                   const void* w, const void* kb, void* out, int n, int width,
-                                   float eps, int dtype, void* stream) {
-  if (n <= 0 || width <= 0 || width % 8 || width > kMaxWidth || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
+                                   const void* w, const void* kb, void* out, void* stats, int n,
+                                   int width, float eps, int dtype, void* stream) {
+  if (bad_shape(n, width, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float2* st = static_cast<float2*>(stats);
   if (dtype == 1) {
-    return bf16_smem_bytes(64, round_up(width, kBK)) <= kMaxSmem
-               ? launch_bf16<64>(x, scale, bias, w, kb, out, n, width, eps, s)
-               : launch_bf16<32>(x, scale, bias, w, kb, out, n, width, eps, s);
+    const int err = launch_stats<__nv_bfloat16>(x, st, n, width, eps, s);
+    return err ? err : launch_wgmma(x, st, scale, bias, w, kb, out, n, width, s);
   }
-  const int resident = resident_blocks(ln_qkv_fp32_kernel, 0);
-  if (resident < 0) return -resident;
-  const int row_tiles = (n + kF32BM - 1) / kF32BM, col_tiles = (3 * width + kBN - 1) / kBN;
-  const int per = column_tiles_per_split(row_tiles, col_tiles, resident);
-  const dim3 grid(row_tiles, (col_tiles + per - 1) / per);
-  ln_qkv_fp32_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(x), scale, bias, static_cast<const float*>(w),
-      static_cast<const float*>(kb), static_cast<float*>(out), n, width, eps, per);
+  const int err = launch_stats<float>(x, st, n, width, eps, s);
+  if (err) return err;
+  const dim3 grid(cdiv(3 * width, kF32Tile), cdiv(n, kF32Tile));
+  ln_qkv_fp32_kernel<<<grid, kF32Threads, 0, s>>>(
+      static_cast<const float*>(x), st, scale, bias, static_cast<const float*>(w),
+      static_cast<const float*>(kb), static_cast<float*>(out), n, width);
   return (int)cudaGetLastError();
+}
+
+// fp32 elements of the backward's `partial` scratch for (N, W)
+extern "C" long long sparsify_ln_fast_bwd_scratch(int n, int width) {
+  return (long long)cdiv(n, kBwdRows) * 2 * width;
+}
+
+// The backward's LayerNorm: from x (N, W) and dy (N, W), both in the dtype,
+// and the fp32 scale and bias, y and dx (N, W) in the dtype and
+// dscale_dbias (2W,) fp32: dscale, then dbias.
+extern "C" int sparsify_ln_fast_bwd(const void* x, const void* dy, const float* scale,
+                                    const float* bias, void* y, void* dx, float* partial,
+                                    float* dscale_dbias, int n, int width, float eps, int dtype,
+                                    void* stream) {
+  if (bad_shape(n, width, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1
+             ? launch_bwd<__nv_bfloat16>(x, dy, scale, bias, y, dx, partial, dscale_dbias, n,
+                                         width, eps, s)
+             : launch_bwd<float>(x, dy, scale, bias, y, dx, partial, dscale_dbias, n, width,
+                                 eps, s);
 }

@@ -394,32 +394,6 @@ mha_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __rest
 constexpr int kWgThreads = 128;                 // one warpgroup, 64 query rows
 constexpr int kSwTile = kKeys * 128;            // 64 rows of 64 bf16, bytes
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// this thread's generic-proxy shared-memory writes (cp.async), made visible
-// to the async proxy the tensor cores read through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// The shared-memory matrix descriptor of a 128-byte-swizzled tile whose
-// 8-row groups lie 1024 bytes apart: start address (bits 0-13), leading
-// byte offset (16-29, unused by these tiles), stride byte offset (32-45),
-// layout 1 = 128-byte swizzle (62-63); addresses and offsets in 16 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
 // D (64 x 64 fp32, the warpgroup's accumulator fragment) = A . B, plus D
 // when `accumulate` is non-zero: A 64 x 16 and B 16 x 64 bf16, both from
 // shared memory through descriptors, both K-major (row-major A; B as its
@@ -450,25 +424,6 @@ __device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_
       "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D += A . B: A 64 x 16 bf16 from registers (each warp's 16 rows in
-// mma.sync's m16n8k16 A layout), B 16 x 64 bf16 from shared memory,
-// MN-major (a row-major (k, n) tile: keys by head columns).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // Grid (ceil(L / 64), H, B), 128 threads; head_dim 64. Registers held to
@@ -555,8 +510,8 @@ mha_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __res
       uint32_t hi[4], lo[4];
       p_fragments(s, 0, hi, lo);
       wgmma_fence();
-      wgmma_rs(reinterpret_cast<float(&)[32]>(o), hi, dv);
-      wgmma_rs(reinterpret_cast<float(&)[32]>(o), lo, dv);
+      wgmma_rs<1>(reinterpret_cast<float(&)[32]>(o), hi, dv, 1);
+      wgmma_rs<1>(reinterpret_cast<float(&)[32]>(o), lo, dv, 1);
       wgmma_commit();
       wgmma_wait<0>();
       __syncthreads();
@@ -584,8 +539,8 @@ mha_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __res
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeyN / 2; ++kk) {  // 16 keys = 2048 bytes = 128 descriptor units
-      wgmma_rs(reinterpret_cast<float(&)[32]>(o), hi[kk], dv + 128 * kk);
-      wgmma_rs(reinterpret_cast<float(&)[32]>(o), lo[kk], dv + 128 * kk);
+      wgmma_rs<1>(reinterpret_cast<float(&)[32]>(o), hi[kk], dv + 128 * kk, 1);
+      wgmma_rs<1>(reinterpret_cast<float(&)[32]>(o), lo[kk], dv + 128 * kk, 1);
     }
     wgmma_commit();
     wgmma_wait<0>();

@@ -1,10 +1,13 @@
 // Tensor-core and asynchronous-copy helpers shared by the bf16 kernels:
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix fragment loads and
 // their lane offsets, reductions over an accumulator row's lane quad, the
-// hi + lo split that keeps an fp32 operand at fp32 grade, and cp.async
-// staging. Included by `mha_fwd_tiles.cuh` and `mha_bwd_tiles.cuh` (for
-// `mha_fwd.cu`, `mha_bwd.cu` and `mha_head_group.cu`) and `ln_qkv.cu`; the anonymous
-// namespace keeps each translation unit's copy apart at link time.
+// hi + lo split that keeps an fp32 operand at fp32 grade, cp.async
+// staging, and Hopper's warpgroup MMA (wgmma) with A from registers: its
+// fences, the descriptor of a 128-byte-swizzled shared tile, and the issue
+// at n64 and n192. Included by `mha_fwd_tiles.cuh` and `mha_bwd_tiles.cuh`
+// (for `mha_fwd.cu`, `mha_bwd.cu` and `mha_head_group.cu`) and `ln_qkv.cu`;
+// the anonymous namespace keeps each translation unit's copy apart at link
+// time.
 
 #pragma once
 
@@ -111,6 +114,104 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------------------ wgmma
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins an accumulator fragment in place: no instruction that reads or
+// writes it moves across this point (the wgmma waits are asm the compiler
+// cannot see the accumulators in).
+template <int kN>
+__device__ __forceinline__ void fence_operand(float (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// this thread's generic-proxy shared-memory writes (cp.async), made visible
+// to the async proxy the tensor cores read through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The shared-memory matrix descriptor of a 128-byte-swizzled tile whose
+// 8-row groups lie 1024 bytes apart: start address (bits 0-13), leading
+// byte offset (16-29, unused by these tiles), stride byte offset (32-45),
+// layout 1 = 128-byte swizzle (62-63); addresses and offsets in 16 bytes.
+// In such a tile, 16-byte chunk c of row r lies at r * 128 + (c ^ (r % 8))
+// * 16 from a 1024-byte-aligned base; k16 step s of a K-major tile (a row
+// of 64 bf16) is the descriptor plus 2 s.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// D = A . B (+ D when scale_d is non-zero), m64nNk16, bf16 in, fp32
+// accumulate: A 64 x 16 from registers (each warp of the warpgroup gives
+// its 16 rows in mma.sync's m16n8k16 A layout), B 16 x N from shared memory
+// through a descriptor, K-major (kTransB 0: a row-major (n, k) tile) or
+// MN-major (kTransB 1: a row-major (k, n) tile). D is the warpgroup's
+// accumulator fragment, N / 2 floats a thread: for 8-column n-tile j, d[4j],
+// d[4j + 1] hold (row 16 warp + g, columns 8j + 2t, 8j + 2t + 1) and d[4j +
+// 2], d[4j + 3] row + 8, lane = 4g + t. N is 64 (32 floats) or 192 (96).
+template <int kTransB, int kAcc>
+__device__ __forceinline__ void wgmma_rs(float (&d)[kAcc], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  static_assert(kAcc == 32 || kAcc == 96, "wgmma_rs takes n64 or n192");
+  if constexpr (kAcc == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
 }
 
 }  // namespace

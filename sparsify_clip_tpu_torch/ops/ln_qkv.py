@@ -24,13 +24,21 @@ in one kernel, with the normalized rows kept on chip.
 * :func:`ln_qkv_fwd` wraps the CUDA kernel ``csrc/ln_qkv.cu``.  A CPU
   tensor goes to the plain version; a CUDA tensor launches the kernel or
   raises.  ``ln_qkv_fwd.launches`` counts launches.
+* :func:`row_stats_reference` is the plain version of the kernels'
+  row-statistics pass: each row's fp32 mean and rstd = rsqrt(E[x²] −
+  E[x]² + eps), the twin's (pallas_ln_qkv.py:111-113).
+* :func:`ln_fast_bwd` wraps the backward's LayerNorm kernel (same
+  source): from x and dy = dL/dy it gives the normalized rows y again
+  (for dW), dx, dscale and dbias in one pass a row.  Its plain version
+  :func:`ln_fast_bwd_reference` is autograd through the fast-variance
+  LayerNorm.  ``ln_fast_bwd.launches`` counts launches.
 * :class:`LnQkvFunction` is the forward kernel with the JAX twin's
   gradient (pallas_ln_qkv.py:126-140): it saves x, the LayerNorm scale
   and bias, the weight and the bias, and its backward recomputes only the
   normalized rows.  XLA drops the twin's forward product inside
   ``jax.vjp``; eager PyTorch would not, so the backward is written out:
-  dW = gᵀ·y and db = Σ g in ``dtype``, dy = g·W, and dx, dscale and dbias
-  by autograd through the fast-variance LayerNorm.
+  dy = g·W in ``dtype``, then :func:`ln_fast_bwd` (y, dx, dscale and
+  dbias), then dW = gᵀ·y and db = Σ g in ``dtype``.
 * :func:`ln_qkv_core` is what the blocks call: through
   :class:`LnQkvFunction` when a gradient is wanted, else (serving, eval)
   the forward alone.
@@ -45,16 +53,28 @@ import torch
 
 from sparsify_clip_tpu_torch.ops import _build
 
-MAX_WIDTH = 1664  # ViT-bigG's; the bf16 kernel keeps 32-64 normalized rows in shared memory
+MAX_WIDTH = 1664  # ViT-bigG's; the bf16 kernel keeps the LayerNorm's scale and bias in shared memory
 _count_lock = threading.Lock()
+
+
+def _mean_and_fast_var(x32: torch.Tensor):
+    """Each row's mean and E[x²] − E[x]² (not clipped at 0), fp32."""
+    mean = x32.mean(-1, keepdim=True)
+    return mean, (x32 * x32).mean(-1, keepdim=True) - mean * mean
+
+
+def row_stats_reference(x2d: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of the kernels' row-statistics pass: (N, 2) fp32,
+    each row's mean and rsqrt(E[x²] − E[x]² + eps)."""
+    mean, var = _mean_and_fast_var(x2d.float())
+    return torch.cat([mean, torch.rsqrt(var + eps)], dim=-1)
 
 
 def _layer_norm_fast(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      eps: float) -> torch.Tensor:
     """fp32 LayerNorm over the last axis with the variance E[x²] − E[x]²."""
     x32 = x.float()
-    mean = x32.mean(-1, keepdim=True)
-    var = (x32 * x32).mean(-1, keepdim=True) - mean * mean
+    mean, var = _mean_and_fast_var(x32)
     y = (x32 - mean) * torch.rsqrt(var + eps)
     return y * scale.float() + bias.float()
 
@@ -79,6 +99,12 @@ def ln_qkv_reference(x2d: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def _count(fn) -> None:
     with _count_lock:
         fn.launches += 1
+
+
+def _check_aligned(what: str, *tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        # 16-byte vector loads and TMA; a misaligned one faults
+        raise ValueError(f"{what} kernel needs tensors whose data starts on a 16-byte boundary")
 
 
 def _check_kernel(x2d, scale, bias, weight, kbias, dtype) -> None:
@@ -109,9 +135,7 @@ def _check_kernel(x2d, scale, bias, weight, kbias, dtype) -> None:
             f"{tuple(weight.shape)}, {tuple(kbias.shape)}")
     if not x2d.is_contiguous():
         raise ValueError("ln_qkv_fwd kernel needs a contiguous x")
-    if x2d.data_ptr() % 16:
-        # 16-byte vector loads and cp.async; a misaligned one faults
-        raise ValueError("ln_qkv_fwd kernel needs an x whose data starts on a 16-byte boundary")
+    _check_aligned("ln_qkv_fwd", x2d)
 
 
 def ln_qkv_fwd(x2d: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -131,14 +155,14 @@ def ln_qkv_fwd(x2d: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     w_c = weight.to(dtype).contiguous()
     kb = kbias.to(dtype).contiguous()
     sc, bi = scale.float().contiguous(), bias.float().contiguous()
-    if w_c.data_ptr() % 16:
-        raise ValueError("ln_qkv_fwd kernel needs a weight whose data starts on a 16-byte boundary")
+    _check_aligned("ln_qkv_fwd", w_c, kb, sc, bi)
     out = torch.empty((n, 3 * w), dtype=dtype, device=x2d.device)
+    stats = torch.empty((n, 2), dtype=torch.float32, device=x2d.device)
     lib = _build.library()
     with torch.cuda.device(x2d.device):
         err = lib.sparsify_ln_qkv_fwd(
             x2d.data_ptr(), sc.data_ptr(), bi.data_ptr(), w_c.data_ptr(), kb.data_ptr(),
-            out.data_ptr(), n, w, float(eps), int(dtype == torch.bfloat16),
+            out.data_ptr(), stats.data_ptr(), n, w, float(eps), int(dtype == torch.bfloat16),
             torch.cuda.current_stream(x2d.device).cuda_stream,
         )
     if err:
@@ -150,14 +174,90 @@ def ln_qkv_fwd(x2d: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 ln_qkv_fwd.launches = 0
 
 
+def ln_fast_bwd_reference(x2d: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, eps: float = 1e-5,
+                          dtype: Optional[torch.dtype] = None):
+    """Plain version of the backward's LayerNorm: the normalized rows y =
+    :func:`_normalized_rows` in ``dtype`` and, by autograd through them
+    against dy (N, W) in ``dtype``, dx (x's type), dscale and dbias
+    (their parameters' types) → (y, dx, dscale, dbias)."""
+    dtype = dtype or x2d.dtype
+    leaves = [t.detach().requires_grad_(True) for t in (x2d, scale, bias)]
+    with torch.enable_grad():
+        y = _normalized_rows(*leaves, eps, dtype)
+    dx, dscale, dbias = torch.autograd.grad(y, leaves, dy)
+    return y.detach(), dx, dscale, dbias
+
+
+def _check_bwd_kernel(x2d, dy, scale, bias, dtype) -> None:
+    """What the backward kernel takes: the forward kernel's x, scale and
+    bias, and dy (N, W) contiguous in ``dtype``, all on 16-byte
+    boundaries."""
+    if x2d.device.type != "cuda":
+        raise ValueError(f"ln_fast_bwd runs on cpu or cuda tensors, got {x2d.device}")
+    if any(t.device != x2d.device for t in (dy, scale, bias)):
+        raise ValueError("ln_fast_bwd kernel needs its tensors on one device")
+    if dtype not in (torch.bfloat16, torch.float32) or x2d.dtype != dtype or dy.dtype != dtype:
+        raise TypeError(f"ln_fast_bwd kernel takes x and dy in one type, bf16 or fp32, got "
+                        f"{x2d.dtype} and {dy.dtype} for {dtype}")
+    if x2d.ndim != 2 or dy.shape != x2d.shape:
+        raise ValueError(f"ln_fast_bwd takes x and dy of one shape (N, W), got "
+                         f"{tuple(x2d.shape)} and {tuple(dy.shape)}")
+    n, w = x2d.shape
+    if n == 0 or w % 8 or not 0 < w <= MAX_WIDTH:
+        raise ValueError(f"ln_fast_bwd kernel takes N >= 1 and W a multiple of 8 up to "
+                         f"{MAX_WIDTH}, got {tuple(x2d.shape)}")
+    if tuple(scale.shape) != (w,) or tuple(bias.shape) != (w,):
+        raise ValueError(f"ln_fast_bwd takes scale and bias ({w},), got "
+                         f"{tuple(scale.shape)}, {tuple(bias.shape)}")
+    if not (x2d.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("ln_fast_bwd kernel needs a contiguous x and dy")
+    _check_aligned("ln_fast_bwd", x2d, dy)
+
+
+def ln_fast_bwd(x2d: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
+    """The backward's LayerNorm: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor.  Same result as
+    :func:`ln_fast_bwd_reference`: (y, dx, dscale, dbias).
+
+    The kernel reduces its fp32 dscale and dbias over the rows in a fixed
+    order (no atomics), so two runs agree bit for bit."""
+    dtype = dtype or x2d.dtype
+    if x2d.device.type == "cpu":
+        return ln_fast_bwd_reference(x2d, dy, scale, bias, eps, dtype)
+    _check_bwd_kernel(x2d, dy, scale, bias, dtype)
+    n, w = x2d.shape
+    sc, bi = scale.float().contiguous(), bias.float().contiguous()
+    _check_aligned("ln_fast_bwd", sc, bi)
+    y, dx = torch.empty_like(x2d), torch.empty_like(x2d)
+    lib = _build.library()
+    partial = torch.empty(lib.sparsify_ln_fast_bwd_scratch(n, w), dtype=torch.float32,
+                          device=x2d.device)
+    dscale_dbias = torch.empty(2 * w, dtype=torch.float32, device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        err = lib.sparsify_ln_fast_bwd(
+            x2d.data_ptr(), dy.data_ptr(), sc.data_ptr(), bi.data_ptr(), y.data_ptr(),
+            dx.data_ptr(), partial.data_ptr(), dscale_dbias.data_ptr(), n, w, float(eps),
+            int(dtype == torch.bfloat16), torch.cuda.current_stream(x2d.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"ln_fast_bwd kernel launch failed with CUDA error {err}")
+    _count(ln_fast_bwd)
+    return y, dx, dscale_dbias[:w].to(scale.dtype), dscale_dbias[w:].to(bias.dtype)
+
+
+ln_fast_bwd.launches = 0
+
+
 class LnQkvFunction(torch.autograd.Function):
     """The fused forward with the JAX twin's gradient, as
     ``ln_qkv_pallas``'s custom VJP: the forward saves its five inputs,
-    the backward recomputes the normalized rows y (not the product) and
-    takes dW = gᵀ·y, db = Σ g and dy = g·W in ``dtype`` (the types the
-    unfused ``linear`` gives; the casts' backward hands fp32 parameters
-    fp32 gradients), then dx, dscale and dbias through the fast-variance
-    LayerNorm."""
+    the backward takes dy = g·W in ``dtype``, then the normalized rows y
+    again with dx, dscale and dbias through the fast-variance LayerNorm
+    (:func:`ln_fast_bwd`, one kernel on the card), and dW = gᵀ·y and
+    db = Σ g in ``dtype`` (the types the unfused ``linear`` gives; the
+    casts' backward hands fp32 parameters fp32 gradients)."""
 
     @staticmethod
     def forward(ctx, x2d, scale, bias, weight, kbias, eps: float, dtype: torch.dtype):
@@ -171,17 +271,12 @@ class LnQkvFunction(torch.autograd.Function):
         x2d, scale, bias, weight, kbias = ctx.saved_tensors
         dtype = ctx.dtype
         g = g.to(dtype)
-        leaves = [t.detach().requires_grad_(need)
-                  for t, need in zip((x2d, scale, bias), ctx.needs_input_grad[:3])]
-        with torch.enable_grad():
-            y = _normalized_rows(*leaves, ctx.eps, dtype)
-        dweight = torch.matmul(g.t(), y.detach()).to(weight.dtype) \
-            if ctx.needs_input_grad[3] else None
+        y, dx, dscale, dbias = ln_fast_bwd(x2d, torch.matmul(g, weight.to(dtype)), scale, bias,
+                                           ctx.eps, dtype)
+        dweight = torch.matmul(g.t(), y).to(weight.dtype) if ctx.needs_input_grad[3] else None
         dkbias = g.sum(0).to(kbias.dtype) if ctx.needs_input_grad[4] else None
-        wanted = [t for t in leaves if t.requires_grad]
-        grads = iter(torch.autograd.grad(y, wanted, torch.matmul(g, weight.to(dtype)))
-                     if wanted else ())
-        dx, dscale, dbias = (next(grads) if t.requires_grad else None for t in leaves)
+        dx, dscale, dbias = (t if need else None
+                             for t, need in zip((dx, dscale, dbias), ctx.needs_input_grad[:3]))
         return dx, dscale, dbias, dweight, dkbias, None, None
 
 

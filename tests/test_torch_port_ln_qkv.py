@@ -7,6 +7,10 @@ on the CPU.
   any tile), W of 64 and 768 and, at few rows, 1280, and rows whose mean
   is ten times their spread, where the fast variance E[x²] − E[x]² that
   both sides take is furthest from an exact one;
+* the row-statistics plain version :func:`row_stats_reference` (the
+  kernels' first pass) against the JAX twin's mean and fast variance at
+  ragged widths, and the backward's LayerNorm wrapper :func:`ln_fast_bwd`
+  giving a CPU tensor its plain version, uncounted;
 * :class:`LnQkvFunction`'s five gradients against ``jax.grad`` of
   ``ln_qkv_pallas`` in interpret mode, and against autograd of the plain
   version, so the written-out backward is the twin's gradient;
@@ -59,7 +63,8 @@ from sparsify_clip_tpu_torch.models import clip as port_clip
 from sparsify_clip_tpu_torch.models.layers import ResidualAttentionBlock, gelu_exact
 from sparsify_clip_tpu_torch.ops import ln_qkv as port_ln_qkv
 from sparsify_clip_tpu_torch.ops.ln_qkv import (
-    LnQkvFunction, ln_qkv_core, ln_qkv_fwd, ln_qkv_reference,
+    LnQkvFunction, ln_fast_bwd, ln_fast_bwd_reference, ln_qkv_core, ln_qkv_fwd,
+    ln_qkv_reference, row_stats_reference,
 )
 from sparsify_clip_tpu_torch.train import create_train_setup
 
@@ -168,6 +173,38 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     before = ln_qkv_fwd.launches
     assert torch.equal(ln_qkv_fwd(*args, EPS), ln_qkv_reference(*args, EPS))
     assert ln_qkv_fwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shift", [0.0, 3.0])
+@pytest.mark.parametrize("w", [8, 72, 520, 1408])
+def test_row_stats_plain_version_matches_the_jax_twin(w, shift, dtype):
+    """The kernels' first pass takes each row's mean and rsqrt(E[x²] −
+    E[x]² + eps) as the twin does (pallas_ln_qkv.py:111-113); fp32 sums of
+    W terms in other orders, the variance's cancellation on rows shifted
+    by s standard deviations growing as 1 + s²."""
+    jdt, tdt = DTYPES[dtype]
+    x = _inputs(33, w, seed=12, shift=shift)[0]
+    x32 = jnp.asarray(x, jdt).astype(jnp.float32)
+    mean = jnp.mean(x32, axis=-1, keepdims=True)
+    var = jnp.mean(x32 * x32, axis=-1, keepdims=True) - mean * mean
+    want = np.concatenate([np.asarray(mean), np.asarray(jax.lax.rsqrt(var + EPS))], axis=-1)
+    got = row_stats_reference(torch.from_numpy(x).to(tdt), EPS)
+    assert got.dtype == torch.float32 and got.shape == (33, 2)
+    np.testing.assert_allclose(got[:, 0].numpy(), want[:, 0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got[:, 1].numpy(), want[:, 1], rtol=1e-5 * (1 + shift ** 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_backward_takes_the_plain_version_uncounted(dtype):
+    x, scale, bias = _port_args(*_inputs(40, 64, shift=1.0), dtype)[:3]
+    dy = torch.from_numpy(np.random.default_rng(2).standard_normal((40, 64)).astype(np.float32))
+    before = ln_fast_bwd.launches
+    got = ln_fast_bwd(x, dy.to(dtype), scale, bias, EPS)
+    want = ln_fast_bwd_reference(x, dy.to(dtype), scale, bias, EPS)
+    assert ln_fast_bwd.launches == before
+    assert [t.dtype for t in got] == [dtype, dtype, torch.float32, torch.float32]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_other_devices_raise():
