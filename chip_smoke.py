@@ -23,8 +23,9 @@ Phases, one line each; any failure exits nonzero before the final line:
    (256, 50, 2304) and causal text (256, 77, 1536) bf16 shapes and once in
    fp32, beside SDPA's backward under each backend that takes the shape
    (flash, efficient, cuDNN; the fastest is the yardstick, named); the
-   InfoNCE forward and both backward kernels at (256, 512) fp32 and at
-   N = 200, which is no multiple of the TPU's 128-row tile;
+   InfoNCE forward and both backward kernels at (256, 512) fp32, at
+   N = 200, which is no multiple of the TPU's 128-row tile or of the
+   backward's 32-row tile, and at ViT-L-14-336's (64, 768);
 7. train full-width ViT-B-32 (fp32 parameters, bf16 compute) at batch 256
    under ``loss_type: "anchor"`` with a learnable temperature, through
    ``create_train_setup``, ``train_step`` and ``run_training``, on a fixed
@@ -38,8 +39,7 @@ Phases, one line each; any failure exits nonzero before the final line:
    per step.  Step ms, pairs/s and peak device memory are printed beside
    the card's name and power limit;
 8. hold the fused uniformity forward and backward kernels against their
-   plain versions at (256, 512) fp32 unit rows and at N = 200, and time
-   both;
+   plain versions at phase 6's shapes, fp32 unit rows, and time both;
 9. train full-width ViT-B-32 at batch 256 under the exp-6 configuration
    (``only_lunif_n_then_anchor+lalign+lunif(centroids)``, one warm epoch,
    fixed temperature 0.1, bf16 compute) through ``create_train_setup``,
@@ -114,7 +114,9 @@ each epoch).  The earlier phases run as they did.
 
 The last lines are a JSON object of per-kernel results (time, plain time,
 library time, the card's least time for the work, launches on the main
-paths), the card's ``nvidia-smi`` name and power limit, and ``{"ok":
+paths; for the loss kernels of phases 6 and 8 also ``device_ms``, the
+card's own time a call, apart from the host's time to issue it), the
+card's ``nvidia-smi`` name and power limit, and ``{"ok":
 true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script fails.
 """
@@ -147,8 +149,12 @@ NORM_TOL = 1e-3
 # attention backward kernel vs plain version: as the forward (one bf16
 # rounding of fp32 sums taken in other orders); fp32 sums over L <= 77
 BWD_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 2e-5)}  # (rtol, atol)
+# the loss kernels' shapes (phases 6 and 8): ViT-B-32's batch 256 and 512-wide
+# embeddings, N = 200 (no multiple of any tile), ViT-L-14-336's batch 64 and
+# 768-wide embeddings
+LOSS_SHAPES = ((256, 512), (200, 512), (64, 768))
 # InfoNCE kernels vs plain versions, all fp32: other summation orders over
-# D = 512 and N <= 256; gradients against their largest entry
+# D <= 768 and N <= 256; gradients against their largest entry
 NCE_TOL = (1e-4, 1e-6)
 NCE_GRAD_TOL = (1e-4, 1e-5)  # atol relative to the gradient's largest entry
 # training phase
@@ -214,6 +220,23 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """The card's time a call of ``fn``, without the host's: the calls are
+    queued behind a sleep kernel long enough for the host to enqueue them
+    all, so the card runs them back to back (``cuda_ms`` times calls as
+    the host issues them, which is the host's time where it is longer)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # about 25 ms at the H100's clock
     start.record()
     for _ in range(iters):
         fn()
@@ -535,7 +558,7 @@ def phase_train_kernels():
             library=f"sdpa/{library}", sdpa_bwd_ms=json.dumps(sdpa_ms),
             bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
 
-    for n, d in [(256, 512), (200, 512)]:
+    for n, d in LOSS_SHAPES:
         emb = rng.standard_normal((2, n, d), dtype=np.float32)
         emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
         img, txt = torch.from_numpy(emb).cuda()
@@ -570,13 +593,14 @@ def phase_train_kernels():
                     torch.testing.assert_close(a, w, rtol=NCE_GRAD_TOL[0],
                                                atol=NCE_GRAD_TOL[1] * scale)
                 err = max(err, (a - w).abs().max().item())
-            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            ms, plain_ms, dev_ms = cuda_ms(kernel), cuda_ms(plain), device_ms(kernel)
             bound_ms, bound_by = bound(n_bytes, flops, "float32")
             results[f"{name}/{n}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                          library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                                          device_ms=dev_ms, library_ms=None, bound_ms=bound_ms,
+                                          bound_by=bound_by)
             log("phase 6 kernel", kernel=name, n=n, d=d, max_abs_err=err,
-                ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.5f}",
-                bound_by=bound_by)
+                ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+                bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
     return results
 
 
@@ -755,7 +779,7 @@ def phase_lunif_kernels():
 
     results = {}
     rng = np.random.default_rng(SEED + 3)
-    for n, d in [(256, 512), (200, 512)]:
+    for n, d in LOSS_SHAPES:
         x = rng.standard_normal((n, d), dtype=np.float32)
         x = torch.from_numpy(x / np.linalg.norm(x, axis=-1, keepdims=True)).cuda()
         g = torch.ones((), device="cuda")
@@ -782,14 +806,15 @@ def phase_lunif_kernels():
              half_gram + 2 * n * n * d),
         ]
         for name, kernel, plain, n_bytes, flops in checks:
-            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            ms, plain_ms, dev_ms = cuda_ms(kernel), cuda_ms(plain), device_ms(kernel)
             bound_ms, bound_by = bound(n_bytes, flops, "float32")
             results[f"{name}/{n}"] = dict(max_abs_err=errors[name], ms=ms, plain_ms=plain_ms,
-                                          library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+                                          device_ms=dev_ms, library_ms=None, bound_ms=bound_ms,
+                                          bound_by=bound_by)
             log("phase 8 kernel", kernel=name, n=n, d=d, max_abs_err=errors[name],
                 s_rtol=LUNIF_S_RTOL, loss_atol=LUNIF_LOSS_ATOL, dx_tol=json.dumps(LUNIF_DX_TOL),
-                ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.5f}",
-                bound_by=bound_by)
+                ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+                bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
     return results
 
 
@@ -1356,6 +1381,7 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
+            "device_ms": r.get("device_ms"),
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],

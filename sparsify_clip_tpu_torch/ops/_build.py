@@ -24,6 +24,8 @@ import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
@@ -143,6 +145,19 @@ def ptxas_usage(build_log: str) -> list:
     return usage
 
 
+def launch(fn, device, *args) -> int:
+    """``fn(*args, stream)``, an entry point of :func:`library`, on the
+    current stream of ``device`` (a CUDA ``torch.device``), with the device
+    made current for the call only where it is not: a device switch and the
+    public stream object cost microseconds a call, which a train step's
+    host pays for every launch."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call, with every entry
     point's argument and result types declared."""
@@ -196,7 +211,7 @@ def library() -> ctypes.CDLL:
                 p, p, p, p,     # img, txt, temperature, g (device scalars)
                 p, p,           # row_lse, col_lse
                 i, i,           # n, d
-                p, p, p,        # d_img, dT partials scratch, d_temp
+                p, p, p,        # d_img, scratch, d_temp
                 p,              # cudaStream_t
             ]
             lib.sparsify_infonce_bwd_dimg.restype = i
@@ -204,10 +219,12 @@ def library() -> ctypes.CDLL:
                 p, p, p, p,     # img, txt, temperature, g
                 p, p,           # row_lse, col_lse
                 i, i,           # n, d
-                p,              # d_txt
+                p, p,           # d_txt, scratch
                 p,              # cudaStream_t
             ]
             lib.sparsify_infonce_bwd_dtxt.restype = i
+            lib.sparsify_infonce_bwd_scratch.argtypes = [i, i]  # n, d
+            lib.sparsify_infonce_bwd_scratch.restype = ctypes.c_longlong
             lib.sparsify_lunif_fwd.argtypes = [
                 p, i, i, f,     # x, n, d, t
                 p, p,           # norms, partial sums scratch
@@ -218,10 +235,12 @@ def library() -> ctypes.CDLL:
             lib.sparsify_lunif_bwd.argtypes = [
                 p, p, p,        # x, S, g (device scalars)
                 i, i, f,        # n, d, t
-                p, p,           # norms scratch, dx
+                p, p,           # scratch, dx
                 p,              # cudaStream_t
             ]
             lib.sparsify_lunif_bwd.restype = i
+            lib.sparsify_lunif_bwd_scratch.argtypes = [i, i]  # n, d
+            lib.sparsify_lunif_bwd_scratch.restype = ctypes.c_longlong
             lib.sparsify_ln_qkv_fwd.argtypes = [
                 p, p, p,        # x, LayerNorm scale, LayerNorm bias (fp32)
                 p, p, p,        # weight (3W, W), bias (3W,), out (N, 3W)

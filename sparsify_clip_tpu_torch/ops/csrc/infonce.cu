@@ -16,27 +16,41 @@
 // Every product is an fp32 FMA (no tensor cores: TF32 would round the
 // embeddings to 10 bits, and the JAX side asks for Precision.HIGHEST). The
 // TPU pads N to 128-row tiles; here every row and column index is masked
-// against N, so any N works, and D is walked in chunks of 128 columns, so
-// any D works for the logits (the backward keeps a block's gradient rows in
-// shared memory: D <= 2048).
+// against N, so any N works, and D is walked in chunks; the entry points
+// and their wrappers refuse D > 2048.
 //
-// One kernel body serves both directions: the column LSE of Z is the row
-// LSE of Z^T = txt.img^T / T, and d_txt is the d_img of the transposed
-// problem with the two LSE vectors swapped. The dot products are the same
-// FMAs in the same order either way, so both directions see the same Z.
-// A block takes 16 rows of its side (4 a warp) and walks the other side in
-// tiles of 32 rows, one a lane; the row LSE is an online max/sum across the
-// tiles. Sums across blocks (the loss and dT) go through a second pass in
-// one block, in a fixed order, so results do not change from run to run.
+// One kernel body serves both directions of each pass: the column LSE of Z
+// is the row LSE of Z^T = txt.img^T / T, and d_txt is the d_img of the
+// transposed problem with the two LSE vectors swapped. Every logit is one
+// fmaf chain over d = 0..D-1 in ascending order, divided by T, in the
+// forward (`tile_logits`) and in the backward (`pair::dot_chunk`), in either
+// direction, so the forward's LSE and the backward's dZ see the same Z.
+//
+// Forward: a block takes 16 rows of its side (4 a warp) and walks the other
+// side in tiles of 32 rows, one a lane; the row LSE is an online max/sum
+// across the tiles, and a one-block pass sums the loss in a fixed order.
+//
+// Backward, on `pair_tiles.cuh`: a grid of (i-tile, j-split, column split)
+// blocks over 32 x 32 tiles of Z, 64 of them at N = 256 and 128 once D's
+// columns are split (48 at N = 64, D = 768). A block computes its tile of Z
+// and dZ, and writes its share of dZ.b for its columns (and, for d_img, of
+// sum(dZ o Z)) to scratch; a second kernel adds the j-splits' shares in
+// ascending order, divides by T and, for d_img, sums dT's shares in a fixed
+// order. Two launches a direction; no atomics, so two runs agree bit for
+// bit.
 //
 // What bounds it on an H100: at N = 256, D = 512 the forward is 2 x 67 MFLOP
-// and the backward 4 x 67 MFLOP over 1 MB of embeddings, far below both
-// ceilings; with 16 blocks a pass at N = 256 the kernels fill 16 of 132 SMs
-// and are bound by the latency of one block's FMA chain (PERF.md).
+// and each backward direction 2 x 67 MFLOP over 1 MB of embeddings: about 2
+// us at 67 TFLOP/s of fp32, below the two launches. The forward's 16 blocks
+// a direction at N = 256 are bound by the latency of one block's FMA chain;
+// the backward's blocks by shared memory's bandwidth into registers
+// (`pair_tiles.cuh`), its calls by that and their two launches (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "pair_tiles.cuh"
 
 namespace {
 
@@ -48,13 +62,8 @@ constexpr int kColTile = 32;                  // rows of the other side a tile: 
 constexpr int kChunk = 128;                   // D columns staged at a time
 constexpr int kSd = kChunk + 1;               // odd row stride: lane-indexed rows hit distinct banks
 constexpr int kMaxD = 2048;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
-  return x;
-}
+using pair::kFullMask;
+using pair::warp_sum;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -171,98 +180,118 @@ __global__ void infonce_loss_kernel(const float* __restrict__ row_lse,
   if (threadIdx.x == 0) loss[0] = ((r - d) / N + (c - d) / N) / 2.f;
 }
 
-// d_a = dZ.b / T for the block's rows of a, where a.b^T / T is Z in this
-// direction; lse_a indexes a's rows, lse_b b's. With dt_partial non-null
-// the block also writes its share of sum(dZ o Z).
-__global__ void __launch_bounds__(kThreads)
+// First pass of the backward, d_a = dZ.b / T, where a.b^T / T is Z in this
+// direction (lse_a indexes a's rows, lse_b b's): block (bi, s, z) walks the
+// j-tiles of split s against i-tile bi; for each it computes the logits
+// tile, dZ into shared memory and dZ.b's share for column slice z, added to
+// share[s] (s, N, D). With dt_share non-null, blocks z = 0 also write their
+// share of sum(dZ o Z) to dt_share[s * gridDim.x + bi]. No __launch_bounds__:
+// under one ptxas caps the kernel at 128 registers and spills; without, it
+// takes 110 and spills nothing.
+__global__ void
 infonce_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    const float* __restrict__ temp, const float* __restrict__ g,
                    const float* __restrict__ lse_a, const float* __restrict__ lse_b, int N, int D,
-                   float* __restrict__ d_a, float* __restrict__ dt_partial) {
-  extern __shared__ float smem[];
-  float* a_s = smem;                           // kRows x kSd
-  float* b_s = a_s + kRows * kSd;              // kColTile x kSd
-  float* dz_s = b_s + kColTile * kSd;          // kRows x (kColTile + 1)
-  float* acc_s = dz_s + kRows * (kColTile + 1);  // kRows x D
-  __shared__ float red[kWarps];
-
+                   int z_cols, bool vec, float* __restrict__ share, float* __restrict__ dt_share) {
+  __shared__ pair::Smem sm;
+  __shared__ float red[pair::kThreads / 32];
   const float T = *temp;
   const float coef = *g / (2.f * N);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * kRows;
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) acc_s[i] = 0.f;
-
-  float dt = 0.f, z[kRowsPerWarp];
-  for (int j0 = 0; j0 < N; j0 += kColTile) {
-    tile_logits(a, b, N, D, r0, j0, T, a_s, b_s, z);
-    const int j = j0 + lane;
+  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
+  const int i0 = blockIdx.x * pair::kTile, s = blockIdx.y;
+  const int c_begin = blockIdx.z * z_cols, c_end = min(D, c_begin + z_cols);
+  int jt_begin, jt_end;
+  pair::split_range(gridDim.x, gridDim.y, s, &jt_begin, &jt_end);
+  float dt = 0.f;
+  for (int jt = jt_begin; jt < jt_end; ++jt) {
+    const int j0 = jt * pair::kTile;
+    const auto grads = [&](const float (&z)[2][2]) {
 #pragma unroll
-    for (int n = 0; n < kRowsPerWarp; ++n) {
-      const int rl = warp * kRowsPerWarp + n;
-      const int r = r0 + rl;
-      float dz = 0.f;
-      if (r < N && j < N) {
-        dz = coef * (expf(z[n] - lse_a[r]) + expf(z[n] - lse_b[j]) - (r == j ? 2.f : 0.f));
-        dt = fmaf(dz, z[n], dt);
-      }
-      dz_s[rl * (kColTile + 1) + lane] = dz;
-    }
-    // acc += dZ_tile . b_tile, one column a thread, chunk by chunk
-    const int n_cols = min(kColTile, N - j0);
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-      __syncthreads();  // dz_s is written; the last b_s chunk is consumed
-      stage(b_s, b, kColTile, j0, c0, N, D);
-      __syncthreads();
-      const int col = c0 + threadIdx.x;
-      if (col < D) {
-        for (int r = 0; r < kRows; ++r) {
-          float acc = acc_s[r * D + col];
-          for (int jj = 0; jj < n_cols; ++jj)
-            acc = fmaf(dz_s[r * (kColTile + 1) + jj], b_s[jj * kSd + threadIdx.x], acc);
-          acc_s[r * D + col] = acc;
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int il = ti + 16 * u, jl = tj + 16 * v;
+          const int i = i0 + il, j = j0 + jl;
+          const float zz = z[u][v] / T;
+          float dz = 0.f;
+          if (i < N && j < N) {
+            dz = coef * (expf(zz - lse_a[i]) + expf(zz - lse_b[j]) - (i == j ? 2.f : 0.f));
+            dt = fmaf(dz, zz, dt);
+          }
+          sm.wt[jl][il] = dz;
         }
-      }
-    }
+      __syncthreads();
+    };
+    pair::pair_tile(sm, a, b, N, D, i0, j0, c_begin, c_end, share + (size_t)s * N * D,
+                    jt == jt_begin, vec, [](const auto&, int) {}, grads);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = r0 + i / D;
-    if (r < N) d_a[(int64_t)r0 * D + i] = acc_s[i] / T;
-  }
-  if (dt_partial != nullptr) {
+  if (dt_share != nullptr && blockIdx.z == 0) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     dt = warp_sum(dt);
     if (lane == 0) red[warp] = dt;
     __syncthreads();
     if (threadIdx.x == 0) {
       float total = 0.f;
-      for (int w = 0; w < kWarps; ++w) total += red[w];
-      dt_partial[blockIdx.x] = total;
+      for (int w = 0; w < pair::kThreads / 32; ++w) total += red[w];
+      dt_share[s * gridDim.x + blockIdx.x] = total;
     }
   }
 }
 
-__global__ void infonce_dt_kernel(const float* __restrict__ partial, int n_blocks,
-                                  const float* __restrict__ temp, float* __restrict__ d_temp) {
-  __shared__ float red[32];
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n_blocks; i += blockDim.x) s += partial[i];
-  s = block_sum(s, red);
-  if (threadIdx.x == 0) d_temp[0] = -s / *temp;
+// Second pass: d_a = (the splits' shares added in ascending order) / T, a
+// thread for 4 consecutive columns of a row; with dt_share non-null, warp 0
+// of block 0 also adds the n_dt shares of sum(dZ o Z) (lane-strided, then a
+// fixed xor tree) into dT = -sum / T.
+__global__ void infonce_bwd_finish_kernel(const float* __restrict__ share, int splits,
+                                          const float* __restrict__ temp, int N, int D, bool vec,
+                                          float* __restrict__ d_a,
+                                          const float* __restrict__ dt_share, int n_dt,
+                                          float* __restrict__ d_temp) {
+  const float T = *temp;
+  if (dt_share != nullptr && blockIdx.x == 0 && threadIdx.x < 32) {
+    float s = 0.f;
+    for (int k = threadIdx.x; k < n_dt; k += 32) s += dt_share[k];
+    s = warp_sum(s);
+    if (threadIdx.x == 0) d_temp[0] = -s / T;
+  }
+  const int quads = (D + 3) / 4;
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= (int64_t)N * quads) return;
+  const int i = (int)(k / quads), c = (int)(k % quads) * 4;
+  const size_t plane = (size_t)N * D, at = (size_t)i * D + c;
+  if (vec) {
+    float4 acc = *reinterpret_cast<const float4*>(share + at);
+    for (int s = 1; s < splits; ++s) {
+      const float4 v = *reinterpret_cast<const float4*>(share + s * plane + at);
+      acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+    }
+    *reinterpret_cast<float4*>(d_a + at) =
+        make_float4(acc.x / T, acc.y / T, acc.z / T, acc.w / T);
+  } else {
+    for (int e = 0; e < 4 && c + e < D; ++e) {
+      float acc = share[at + e];
+      for (int s = 1; s < splits; ++s) acc += share[s * plane + at + e];
+      d_a[at + e] = acc / T;
+    }
+  }
 }
 
 int n_blocks(int n) { return (n + kRows - 1) / kRows; }
 
+// Both passes of one direction's backward; dt_share and d_temp null for d_txt.
 int launch_bwd(const float* a, const float* b, const float* temp, const float* g,
-               const float* lse_a, const float* lse_b, int n, int d, float* d_a,
-               float* dt_partial, cudaStream_t stream) {
-  const size_t smem =
-      (kRows * kSd + kColTile * kSd + kRows * (kColTile + 1) + (size_t)kRows * d) * sizeof(float);
-  // above 48 KB a block's dynamic shared memory must be asked for
-  cudaError_t err = cudaFuncSetAttribute(infonce_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+               const float* lse_a, const float* lse_b, int n, int d, float* d_a, float* scratch,
+               float* d_temp, cudaStream_t stream) {
+  const pair::Plan p = pair::plan(n, d);
+  const bool vec = pair::vec_ok(d, a, b, d_a) && pair::vec_ok(d, scratch, scratch, scratch);
+  float* dt_share = d_temp != nullptr ? scratch + p.share_floats(n, d) : nullptr;
+  infonce_bwd_kernel<<<p.grid(), pair::kThreads, 0, stream>>>(a, b, temp, g, lse_a, lse_b, n,
+                                                              d, p.z_cols, vec, scratch, dt_share);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  infonce_bwd_kernel<<<n_blocks(n), kThreads, smem, stream>>>(a, b, temp, g, lse_a, lse_b, n, d,
-                                                              d_a, dt_partial);
+  const long long threads = (long long)n * ((d + 3) / 4);
+  infonce_bwd_finish_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+      scratch, p.splits, temp, n, d, vec, d_a, dt_share, p.tiles * p.splits, d_temp);
   return (int)cudaGetLastError();
 }
 
@@ -271,8 +300,9 @@ bool bad_shape(int n, int d) { return n <= 0 || d <= 0 || d > kMaxD; }
 }  // namespace
 
 // C entry points, bound with ctypes. Each launches on `stream` and returns
-// the first CUDA error (0 on success). Scratch (diag: N floats; dt_partial:
-// ceil(N / 16) floats) is allocated by the wrapper.
+// the first CUDA error (0 on success). Scratch is allocated by the wrapper:
+// for the forward, diag, N floats; for either backward,
+// sparsify_infonce_bwd_scratch(N, D) floats.
 extern "C" int sparsify_infonce_fwd(const float* img, const float* txt, const float* temp, int n,
                                     int d, float* loss, float* row_lse, float* col_lse,
                                     float* diag, void* stream) {
@@ -286,23 +316,28 @@ extern "C" int sparsify_infonce_fwd(const float* img, const float* txt, const fl
   return (int)cudaGetLastError();
 }
 
+// The backward's scratch in floats: dZ.b's shares (splits, N, D), then the
+// (splits x i-tiles) shares of sum(dZ o Z); 0 for a shape the kernels refuse.
+extern "C" long long sparsify_infonce_bwd_scratch(int n, int d) {
+  if (bad_shape(n, d)) return 0;
+  const pair::Plan p = pair::plan(n, d);
+  return (long long)p.share_floats(n, d) + (long long)p.tiles * p.splits;
+}
+
 extern "C" int sparsify_infonce_bwd_dimg(const float* img, const float* txt, const float* temp,
                                          const float* g, const float* row_lse,
                                          const float* col_lse, int n, int d, float* d_img,
-                                         float* dt_partial, float* d_temp, void* stream) {
+                                         float* scratch, float* d_temp, void* stream) {
   if (bad_shape(n, d)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = launch_bwd(img, txt, temp, g, row_lse, col_lse, n, d, d_img, dt_partial, s);
-  if (err) return err;
-  infonce_dt_kernel<<<1, 256, 0, s>>>(dt_partial, n_blocks(n), temp, d_temp);
-  return (int)cudaGetLastError();
+  return launch_bwd(img, txt, temp, g, row_lse, col_lse, n, d, d_img, scratch, d_temp,
+                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sparsify_infonce_bwd_dtxt(const float* img, const float* txt, const float* temp,
                                          const float* g, const float* row_lse,
                                          const float* col_lse, int n, int d, float* d_txt,
-                                         void* stream) {
+                                         float* scratch, void* stream) {
   if (bad_shape(n, d)) return (int)cudaErrorInvalidValue;
-  return launch_bwd(txt, img, temp, g, col_lse, row_lse, n, d, d_txt, nullptr,
+  return launch_bwd(txt, img, temp, g, col_lse, row_lse, n, d, d_txt, scratch, nullptr,
                     static_cast<cudaStream_t>(stream));
 }

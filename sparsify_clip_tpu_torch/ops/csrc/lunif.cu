@@ -16,34 +16,47 @@
 // (subtracting N afterwards would cancel catastrophically when the
 // off-diagonal terms are small). Every product is an fp32 FMA (no tensor
 // cores: TF32 would round x to 10 bits, and the JAX side asks for
-// Precision.HIGHEST). D is walked in chunks of 128 columns; the backward
-// keeps a block's (Wx) rows in shared memory, so D <= 2048.
+// Precision.HIGHEST). The entry points and their wrappers refuse D > 2048.
 //
 // On the TPU one SMEM accumulator is carried across a sequential grid. Here
 // blocks run in no order: each forward block sums its 16 x 32 tile of W and
 // writes the partial, and a second one-block pass adds the partials in a
 // fixed order and takes the log on the device, so S and the loss never need
-// a host read and do not change from run to run. The backward needs no
-// cross-block sum: each block owns 16 rows i and walks every j.
+// a host read and do not change from run to run.
 //
-// Forward and backward see the same W: the norms come from one kernel (one
-// warp a row, a fixed reduction tree), and G_ij is the same FMA chain over
-// d = 0..D-1 in both, through the same `tile_gram` and `pair_weight`.
+// The backward runs on `pair_tiles.cuh`: a grid of (i-tile, j-split,
+// column split) blocks over 32 x 32 tiles of W, 64 of them at N = 256 and
+// 128 once D's columns are split (48 at N = 64, D = 768). A block computes
+// its tile's norms and Gram, W, its share of r (one thread a row, j
+// ascending) and its share of W.x for its columns, and writes both to
+// scratch; a second kernel adds the j-splits' shares in ascending order and
+// writes dx. No atomics: two runs agree bit for bit. Two launches a call, as
+// before (the norms pass is folded into the first).
+//
+// Forward and backward see the same W: n_i is the same lane-strided fmaf sum
+// and xor tree in both (the forward's norms kernel; the backward's first
+// pass over its staged chunks, lane l taking columns l, l + 32, ... in
+// order), G_ij is one fmaf chain over d = 0..D-1 in ascending order in both
+// (`tile_gram`, `pair::dot_chunk`), and `pair_weight` turns them into W.
 //
 // What bounds it on an H100: at N = 256, D = 512 the forward needs the i<j
 // half of the symmetric Gram, N (N-1) D = 33 MFLOP (these kernels compute
 // both halves, 2 N^2 D), and the backward adds 2 N^2 D = 67 MFLOP for W.x,
 // over 0.5 MB of input: about 0.5 us and 1.5 us at 67 TFLOP/s of fp32, far
-// below launch latency. The forward
-// spreads the N^2 tiles over (N/16) x (N/32) = 128 blocks; the backward has
-// N/16 = 16 blocks on 132 SMs and is bound by the latency of one block's FMA
-// chain, as the InfoNCE backward is (PERF.md).
+// below launch latency. The forward spreads the N^2 tiles over (N/16) x
+// (N/32) = 128 blocks. The backward's blocks are bound by shared memory's
+// bandwidth into registers (`pair_tiles.cuh`), its call by that and its two
+// launches (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "pair_tiles.cuh"
+
 namespace {
+
+using pair::warp_sum;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -54,13 +67,6 @@ constexpr int kChunk = 128;                   // D columns staged at a time (= k
 constexpr int kSd = kChunk + 1;               // odd row stride: lane-indexed rows hit distinct banks
 constexpr int kMaxD = 2048;
 constexpr int kNormWarps = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
-  return x;
-}
 
 // n_i = sum_d x_id^2: one warp a row, lane-strided partial sums and a fixed
 // xor tree.
@@ -168,74 +174,99 @@ __global__ void lunif_sum_kernel(const float* __restrict__ partial, int n_partia
   }
 }
 
-// dx for the block's 16 rows: W recomputed tile by tile as the forward
-// computes it; r and Wx accumulate in the block (r in registers, one
-// partial a lane, Wx in shared memory, one column a thread); S and g are
-// read from device memory.
-__global__ void __launch_bounds__(kThreads)
-lunif_bwd_kernel(const float* __restrict__ x, const float* __restrict__ norms,
-                 const float* __restrict__ s_ptr, const float* __restrict__ g_ptr, int N, int D,
-                 float t, float* __restrict__ dx) {
-  extern __shared__ float smem[];
-  float* a_s = smem;                             // kRows x kSd
-  float* b_s = a_s + kRows * kSd;                // kColTile x kSd
-  float* w_s = b_s + kColTile * kSd;             // kRows x (kColTile + 1)
-  float* acc_s = w_s + kRows * (kColTile + 1);   // kRows x D: (Wx) rows
-  __shared__ float r_s[kRows];
+// First pass of the backward: block (bi, s, z) walks the j-tiles of split s
+// against i-tile bi. For each it computes the 64 rows' norms and the Gram
+// tile over the same staged chunks, W into shared memory, r's share (one
+// thread a row of the i-tile, z = 0 only) and W.x's share for column slice
+// z, added to share[s] (s, N, D). r_share[s] (s, N) gets the split's r.
+__global__ void __launch_bounds__(pair::kThreads)
+lunif_bwd_kernel(const float* __restrict__ x, int N, int D, float t, int z_cols, bool vec,
+                 float* __restrict__ share, float* __restrict__ r_share) {
+  __shared__ pair::Smem sm;
+  __shared__ float norm_s[2][pair::kTile];  // [0: i rows, 1: j rows]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * kRows;
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) acc_s[i] = 0.f;
-
-  float ni[kRowsPerWarp], r_part[kRowsPerWarp], g[kRowsPerWarp];
+  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
+  const int i0 = blockIdx.x * pair::kTile, s = blockIdx.y;
+  const int c_begin = blockIdx.z * z_cols, c_end = min(D, c_begin + z_cols);
+  // warp w takes the norms of staged rows 8w..8w+7: warps 0-3 the i rows,
+  // warps 4-7 the j rows
+  const int side = warp / 4, r_base = (warp % 4) * 8;
+  int jt_begin, jt_end;
+  pair::split_range(gridDim.x, gridDim.y, s, &jt_begin, &jt_end);
+  float r = 0.f;  // thread `lane` of warp 0: row i0 + lane
+  for (int jt = jt_begin; jt < jt_end; ++jt) {
+    const int j0 = jt * pair::kTile;
+    float part[8] = {};
+    const auto norms = [&](const auto& buf, int c0) {
 #pragma unroll
-  for (int n = 0; n < kRowsPerWarp; ++n) {
-    const int r = r0 + warp * kRowsPerWarp + n;
-    ni[n] = r < N ? norms[r] : 0.f;
-    r_part[n] = 0.f;
-  }
-  for (int j0 = 0; j0 < N; j0 += kColTile) {
-    tile_gram(x, N, D, r0, j0, a_s, b_s, g);
-    const int j = j0 + lane;
-    const float nj = j < N ? norms[j] : 0.f;
+      for (int h = 0; h < pair::kChunk; h += 32) {
+        if (c0 + h + lane >= D) break;
 #pragma unroll
-    for (int n = 0; n < kRowsPerWarp; ++n) {
-      const int rl = warp * kRowsPerWarp + n;
-      const int r = r0 + rl;
-      const float w = pair_weight(ni[n], nj, g[n], t, r < N && j < N && r != j);
-      r_part[n] += w;
-      w_s[rl * (kColTile + 1) + lane] = w;
-    }
-    // acc += W_tile . x_tile, one column a thread, chunk by chunk
-    const int n_cols = min(kColTile, N - j0);
-    for (int c0 = 0; c0 < D; c0 += kChunk) {
-      __syncthreads();  // w_s is written; the last b_s chunk is consumed
-      stage(b_s, x, kColTile, j0, c0, N, D);
-      __syncthreads();
-      const int col = c0 + threadIdx.x;
-      if (col < D) {
-        for (int rl = 0; rl < kRows; ++rl) {
-          float acc = acc_s[rl * D + col];
-          for (int jj = 0; jj < n_cols; ++jj)
-            acc = fmaf(w_s[rl * (kColTile + 1) + jj], b_s[jj * kSd + threadIdx.x], acc);
-          acc_s[rl * D + col] = acc;
+        for (int n = 0; n < 8; ++n) {
+          const float v = buf[side][r_base + n][h + lane];
+          part[n] = fmaf(v, v, part[n]);
         }
       }
-    }
-  }
+    };
+    const auto weights = [&](const float (&g)[2][2]) {
 #pragma unroll
-  for (int n = 0; n < kRowsPerWarp; ++n) {
-    const float r = warp_sum(r_part[n]);
-    if (lane == 0) r_s[warp * kRowsPerWarp + n] = r;
+      for (int n = 0; n < 8; ++n) {
+        const float v = warp_sum(part[n]);
+        if (lane == 0) norm_s[side][r_base + n] = v;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int il = ti + 16 * u, jl = tj + 16 * v;
+          const int i = i0 + il, j = j0 + jl;
+          sm.wt[jl][il] =
+              pair_weight(norm_s[0][il], norm_s[1][jl], g[u][v], t, i < N && j < N && i != j);
+        }
+      __syncthreads();
+      if (blockIdx.z == 0 && warp == 0)
+        for (int jl = 0; jl < pair::kTile; ++jl) r += sm.wt[jl][lane];
+    };
+    pair::pair_tile(sm, x, x, N, D, i0, j0, c_begin, c_end, share + (size_t)s * N * D,
+                    jt == jt_begin, vec, norms, weights);
   }
-  __syncthreads();
+  if (blockIdx.z == 0 && warp == 0 && i0 + lane < N) r_share[(size_t)s * N + i0 + lane] = r;
+}
+
+// Second pass: r and Wx as the splits' shares added in ascending order, then
+// dx = g ((-4 t / S) (r x - Wx)); a thread takes 4 consecutive columns of a
+// row.
+__global__ void lunif_bwd_finish_kernel(const float* __restrict__ x,
+                                        const float* __restrict__ share,
+                                        const float* __restrict__ r_share, int splits,
+                                        const float* __restrict__ s_ptr,
+                                        const float* __restrict__ g_ptr, int N, int D, float t,
+                                        bool vec, float* __restrict__ dx) {
+  const int quads = (D + 3) / 4;
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= (int64_t)N * quads) return;
+  const int i = (int)(k / quads), c = (int)(k % quads) * 4;
+  const size_t plane = (size_t)N * D, at = (size_t)i * D + c;
+  float r = 0.f;
+  for (int s = 0; s < splits; ++s) r += r_share[(size_t)s * N + i];
   const float coef = (-4.f * t) / *s_ptr;
   const float gin = *g_ptr;
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int rl = i / D;
-    const int r = r0 + rl;
-    if (r < N) {
-      const int64_t at = (int64_t)r * D + (i - rl * D);
-      dx[at] = gin * (coef * (x[at] * r_s[rl] - acc_s[i]));
+  if (vec) {
+    float4 wx = *reinterpret_cast<const float4*>(share + at);
+    for (int s = 1; s < splits; ++s) {
+      const float4 v = *reinterpret_cast<const float4*>(share + s * plane + at);
+      wx.x += v.x, wx.y += v.y, wx.z += v.z, wx.w += v.w;
+    }
+    const float4 xv = *reinterpret_cast<const float4*>(x + at);
+    *reinterpret_cast<float4*>(dx + at) =
+        make_float4(gin * (coef * (xv.x * r - wx.x)), gin * (coef * (xv.y * r - wx.y)),
+                    gin * (coef * (xv.z * r - wx.z)), gin * (coef * (xv.w * r - wx.w)));
+  } else {
+    for (int e = 0; e < 4 && c + e < D; ++e) {
+      float wx = share[at + e];
+      for (int s = 1; s < splits; ++s) wx += share[s * plane + at + e];
+      dx[at + e] = gin * (coef * (x[at + e] * r - wx));
     }
   }
 }
@@ -245,22 +276,19 @@ int col_tiles(int n) { return (n + kColTile - 1) / kColTile; }
 
 bool bad_shape(int n, int d) { return n < 2 || d <= 0 || d > kMaxD; }
 
-cudaError_t launch_norms(const float* x, int n, int d, float* norms, cudaStream_t s) {
-  lunif_norms_kernel<<<(n + kNormWarps - 1) / kNormWarps, kNormWarps * 32, 0, s>>>(x, n, d,
-                                                                                   norms);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // C entry points, bound with ctypes. Each launches on `stream` and returns
 // the first CUDA error (0 on success). Scratch is allocated by the wrapper:
-// norms, N floats; partial, ceil(N / 16) * ceil(N / 32) floats.
+// for the forward, norms, N floats, and partial, ceil(N / 16) * ceil(N / 32)
+// floats; for the backward, sparsify_lunif_bwd_scratch(N, D) floats.
 extern "C" int sparsify_lunif_fwd(const float* x, int n, int d, float t, float* norms,
                                   float* partial, float* s_out, float* loss, void* stream) {
   if (bad_shape(n, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_norms(x, n, d, norms, s);
+  lunif_norms_kernel<<<(n + kNormWarps - 1) / kNormWarps, kNormWarps * 32, 0, s>>>(x, n, d,
+                                                                                   norms);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   lunif_fwd_kernel<<<dim3(row_blocks(n), col_tiles(n)), kThreads, 0, s>>>(x, norms, n, d, t,
                                                                            partial);
@@ -270,18 +298,27 @@ extern "C" int sparsify_lunif_fwd(const float* x, int n, int d, float t, float* 
   return (int)cudaGetLastError();
 }
 
+// The backward's scratch in floats: W.x's shares (splits, N, D), then r's
+// (splits, N); 0 for a shape the kernels refuse.
+extern "C" long long sparsify_lunif_bwd_scratch(int n, int d) {
+  if (bad_shape(n, d)) return 0;
+  const pair::Plan p = pair::plan(n, d);
+  return (long long)p.share_floats(n, d) + (long long)p.splits * n;
+}
+
 extern "C" int sparsify_lunif_bwd(const float* x, const float* s_ptr, const float* g_ptr, int n,
-                                  int d, float t, float* norms, float* dx, void* stream) {
+                                  int d, float t, float* scratch, float* dx, void* stream) {
   if (bad_shape(n, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_norms(x, n, d, norms, s);
+  const pair::Plan p = pair::plan(n, d);
+  const bool vec = pair::vec_ok(d, x, scratch, dx);
+  float* r_share = scratch + p.share_floats(n, d);
+  lunif_bwd_kernel<<<p.grid(), pair::kThreads, 0, s>>>(x, n, d, t, p.z_cols, vec, scratch,
+                                                        r_share);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem =
-      (kRows * kSd + kColTile * kSd + kRows * (kColTile + 1) + (size_t)kRows * d) * sizeof(float);
-  // above 48 KB a block's dynamic shared memory must be asked for
-  err = cudaFuncSetAttribute(lunif_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  lunif_bwd_kernel<<<row_blocks(n), kThreads, smem, s>>>(x, norms, s_ptr, g_ptr, n, d, t, dx);
+  const long long threads = (long long)n * ((d + 3) / 4);
+  lunif_bwd_finish_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+      x, scratch, r_share, p.splits, s_ptr, g_ptr, n, d, t, vec, dx);
   return (int)cudaGetLastError();
 }

@@ -32,8 +32,7 @@ import torch
 
 from sparsify_clip_tpu_torch.ops import _build
 
-MAX_DIM = 2048  # the backward keeps a block's 16 gradient rows in shared memory
-_ROWS_PER_BLOCK = 16
+MAX_DIM = 2048  # the kernels refuse wider rows; the JAX package's callers stay below
 _count_lock = threading.Lock()
 
 
@@ -123,8 +122,11 @@ def _count(fn) -> None:
         fn.launches += 1
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _bwd_scratch(lib, n: int, d: int, device: torch.device) -> torch.Tensor:
+    """The backward's scratch: its tiles' shares of the gradient rows (and
+    of dT), which the kernel's second pass adds in a fixed order."""
+    return torch.empty(lib.sparsify_infonce_bwd_scratch(n, d), dtype=torch.float32,
+                       device=device)
 
 
 def infonce_fwd(
@@ -138,12 +140,11 @@ def infonce_fwd(
     temperature = temperature.contiguous()
     loss = torch.empty((), dtype=torch.float32, device=img.device)
     row_lse, col_lse, diag = torch.empty((3, n), dtype=torch.float32, device=img.device)
-    with torch.cuda.device(img.device):
-        err = _build.library().sparsify_infonce_fwd(
-            img.data_ptr(), txt.data_ptr(), temperature.data_ptr(), n, d,
-            loss.data_ptr(), row_lse.data_ptr(), col_lse.data_ptr(), diag.data_ptr(),
-            _stream(img),
-        )
+    err = _build.launch(
+        _build.library().sparsify_infonce_fwd, img.device, img.data_ptr(), txt.data_ptr(),
+        temperature.data_ptr(), n, d, loss.data_ptr(), row_lse.data_ptr(), col_lse.data_ptr(),
+        diag.data_ptr(),
+    )
     if err:
         raise RuntimeError(f"infonce_fwd kernel launch failed with CUDA error {err}")
     _count(infonce_fwd)
@@ -160,16 +161,15 @@ def infonce_bwd_dimg(
     if img.device.type == "cpu":
         return infonce_bwd_dimg_reference(img, txt, temperature, row_lse, col_lse, g)
     temperature, g, row_lse, col_lse = (t.contiguous() for t in (temperature, g, row_lse, col_lse))
+    lib = _build.library()
     d_img = torch.empty_like(img)
     d_temp = torch.empty((), dtype=torch.float32, device=img.device)
-    partial = torch.empty((n + _ROWS_PER_BLOCK - 1) // _ROWS_PER_BLOCK, dtype=torch.float32,
-                          device=img.device)
-    with torch.cuda.device(img.device):
-        err = _build.library().sparsify_infonce_bwd_dimg(
-            img.data_ptr(), txt.data_ptr(), temperature.data_ptr(), g.data_ptr(),
-            row_lse.data_ptr(), col_lse.data_ptr(), n, d, d_img.data_ptr(), partial.data_ptr(),
-            d_temp.data_ptr(), _stream(img),
-        )
+    scratch = _bwd_scratch(lib, n, d, img.device)
+    err = _build.launch(
+        lib.sparsify_infonce_bwd_dimg, img.device, img.data_ptr(), txt.data_ptr(),
+        temperature.data_ptr(), g.data_ptr(), row_lse.data_ptr(), col_lse.data_ptr(), n, d,
+        d_img.data_ptr(), scratch.data_ptr(), d_temp.data_ptr(),
+    )
     if err:
         raise RuntimeError(f"infonce_bwd_dimg kernel launch failed with CUDA error {err}")
     _count(infonce_bwd_dimg)
@@ -186,12 +186,14 @@ def infonce_bwd_dtxt(
     if img.device.type == "cpu":
         return infonce_bwd_dtxt_reference(img, txt, temperature, row_lse, col_lse, g)
     temperature, g, row_lse, col_lse = (t.contiguous() for t in (temperature, g, row_lse, col_lse))
+    lib = _build.library()
     d_txt = torch.empty_like(txt)
-    with torch.cuda.device(img.device):
-        err = _build.library().sparsify_infonce_bwd_dtxt(
-            img.data_ptr(), txt.data_ptr(), temperature.data_ptr(), g.data_ptr(),
-            row_lse.data_ptr(), col_lse.data_ptr(), n, d, d_txt.data_ptr(), _stream(img),
-        )
+    scratch = _bwd_scratch(lib, n, d, img.device)
+    err = _build.launch(
+        lib.sparsify_infonce_bwd_dtxt, img.device, img.data_ptr(), txt.data_ptr(),
+        temperature.data_ptr(), g.data_ptr(), row_lse.data_ptr(), col_lse.data_ptr(), n, d,
+        d_txt.data_ptr(), scratch.data_ptr(),
+    )
     if err:
         raise RuntimeError(f"infonce_bwd_dtxt kernel launch failed with CUDA error {err}")
     _count(infonce_bwd_dtxt)

@@ -24,9 +24,12 @@ index before the sum.
 
 What bounds the kernels, and what their design does about it, is in the
 source's head note: at the train step's (256, 512) both are far below
-the card's arithmetic and memory limits and bound by launch latency and
-by one block's FMA chain.  S and the incoming gradient stay on the
-device, so a step never waits on a host read.  The multi-device ``ring``
+the card's arithmetic and memory limits.  The forward is bound by launch
+latency; the backward spreads 32 × 32 tiles of W over the card, is bound
+by shared memory's bandwidth inside each block and by its two launches,
+and adds the tiles' shares in a fixed order in the second.  S and the
+incoming gradient stay on the device, so a step never waits on a host
+read.  The multi-device ``ring``
 route of ``fused.py`` waits for the multi-GPU work (ROADMAP Queue 1
 item 11).
 """
@@ -42,7 +45,7 @@ from sparsify_clip_tpu_torch.losses.unif import pairwise_sq_dists
 from sparsify_clip_tpu_torch.ops import _build
 from sparsify_clip_tpu_torch.utils.numerics import fp32_matmul
 
-MAX_DIM = 2048  # the backward keeps a block's 16 (Wx) rows in shared memory
+MAX_DIM = 2048  # the kernels refuse wider rows; the JAX package's callers stay below
 _ROWS_PER_BLOCK = 16
 _COL_TILE = 32
 _count_lock = threading.Lock()
@@ -96,10 +99,6 @@ def _count(fn) -> None:
         fn.launches += 1
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def lunif_fwd(x: torch.Tensor, t: float = 2.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: the CUDA kernel for a CUDA tensor, the plain version for a
     CPU tensor → (S, loss)."""
@@ -109,11 +108,10 @@ def lunif_fwd(x: torch.Tensor, t: float = 2.0) -> Tuple[torch.Tensor, torch.Tens
     blocks = -(-n // _ROWS_PER_BLOCK) * -(-n // _COL_TILE)
     scratch = torch.empty(n + blocks, dtype=torch.float32, device=x.device)
     s, loss = torch.empty(2, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _build.library().sparsify_lunif_fwd(
-            x.data_ptr(), n, d, float(t), scratch.data_ptr(), scratch[n:].data_ptr(),
-            s.data_ptr(), loss.data_ptr(), _stream(x),
-        )
+    err = _build.launch(
+        _build.library().sparsify_lunif_fwd, x.device, x.data_ptr(), n, d, float(t),
+        scratch.data_ptr(), scratch[n:].data_ptr(), s.data_ptr(), loss.data_ptr(),
+    )
     if err:
         raise RuntimeError(f"lunif_fwd kernel launch failed with CUDA error {err}")
     _count(lunif_fwd)
@@ -127,13 +125,14 @@ def lunif_bwd(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, t: float = 2.0)
     if x.device.type == "cpu":
         return lunif_bwd_reference(x, s, g, t)
     s, g = s.contiguous(), g.contiguous()
-    norms = torch.empty(n, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    scratch = torch.empty(lib.sparsify_lunif_bwd_scratch(n, d), dtype=torch.float32,
+                          device=x.device)
     dx = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _build.library().sparsify_lunif_bwd(
-            x.data_ptr(), s.data_ptr(), g.data_ptr(), n, d, float(t), norms.data_ptr(),
-            dx.data_ptr(), _stream(x),
-        )
+    err = _build.launch(
+        lib.sparsify_lunif_bwd, x.device, x.data_ptr(), s.data_ptr(), g.data_ptr(), n, d,
+        float(t), scratch.data_ptr(), dx.data_ptr(),
+    )
     if err:
         raise RuntimeError(f"lunif_bwd kernel launch failed with CUDA error {err}")
     _count(lunif_bwd)

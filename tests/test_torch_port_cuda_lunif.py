@@ -48,8 +48,10 @@ def _check_dx(got, want):
     torch.testing.assert_close(got, want, rtol=DX_TOL[0], atol=DX_TOL[1] * scale)
 
 
-@pytest.mark.parametrize("n", [2, 200, 256, 1000])
-@pytest.mark.parametrize("d,scale", [(16, None), (512, None), (512, 0.05)])
+# N: the 32-row tiles' edges (31, 33), ViT-L-14-336's batch (64) and the
+# ragged or large ones; D: ViT-B-32's 512 and ViT-L-14-336's 768 embeddings
+@pytest.mark.parametrize("n", [2, 31, 33, 64, 200, 256, 1000])
+@pytest.mark.parametrize("d,scale", [(16, None), (512, None), (512, 0.05), (768, None)])
 def test_lunif_kernels_match_plain_versions(device, n, d, scale):
     x = _rows(n, d, device, n + d, scale)
     s, loss = lunif_fwd(x)
@@ -61,6 +63,23 @@ def test_lunif_kernels_match_plain_versions(device, n, d, scale):
     torch.cuda.synchronize()
     assert dx.shape == x.shape and dx.dtype == torch.float32
     _check_dx(dx, lunif_bwd_reference(x, want_s, g))
+
+
+@pytest.mark.parametrize("layout", ["odd_width", "misaligned"])
+def test_lunif_bwd_takes_rows_the_16_byte_path_cannot(device, layout):
+    """D = 37 (no 16-byte quads) and rows starting one float into their
+    storage take the kernel's 4-byte copies and scalar stores."""
+    n, d = 70, 37 if layout == "odd_width" else 64
+    x = _rows(n, d, device, 5)
+    if layout == "misaligned":
+        flat = torch.zeros(n * d + 1, device=device)
+        x = flat[1:].view(n, d).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    s, _ = lunif_fwd_reference(x)
+    g = torch.tensor(0.9, device=device)
+    dx = lunif_bwd(x, s, g)
+    torch.cuda.synchronize()
+    _check_dx(dx, lunif_bwd_reference(x, s, g))
 
 
 def test_lunif_kernels_are_deterministic(device):

@@ -180,8 +180,10 @@ def _embeddings(n, d, device, seed):
     return x / x.norm(dim=-1, keepdim=True)
 
 
-@pytest.mark.parametrize("n", [1, 2, 256, 1000])
-@pytest.mark.parametrize("d", [16, 512])
+# N: the backward's 32-row tiles' edges (31, 33), ViT-L-14-336's batch (64)
+# and the ragged or large ones; D: ViT-B-32's 512, ViT-L-14-336's 768
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 64, 256, 1000])
+@pytest.mark.parametrize("d", [16, 512, 768])
 def test_infonce_kernels_match_plain_versions(device, n, d):
     img, txt = _embeddings(n, d, device, 0), _embeddings(n, d, device, 1)
     temp = torch.tensor(0.07, device=device)
@@ -198,6 +200,41 @@ def test_infonce_kernels_match_plain_versions(device, n, d):
     # the size of dZ.txt / T's terms before they cancel: g / (N T); at N = 1
     # the exact gradient is 0 and only the rounding of the terms is left
     scale = max(want_img.abs().max().item(), want_txt.abs().max().item(), 1.3 / (n * 0.07))
+    torch.testing.assert_close(d_img, want_img, rtol=1e-4, atol=1e-5 * scale)
+    torch.testing.assert_close(d_txt, want_txt, rtol=1e-4, atol=1e-5 * scale)
+    torch.testing.assert_close(d_temp, want_temp, rtol=1e-4, atol=1e-5 * max(abs(want_temp.item()), 1.0))
+
+
+def test_infonce_backward_two_runs_are_bit_identical(device):
+    """No atomics: the tiles' shares of each gradient row and of dT are
+    added in a fixed order, so a rerun gives the same bits."""
+    img, txt = _embeddings(300, 512, device, 6), _embeddings(300, 512, device, 7)
+    temp, g = torch.tensor(0.07, device=device), torch.tensor(1.0, device=device)
+    _, row_lse, col_lse = infonce_fwd(img, txt, temp)
+    args = (img, txt, temp, row_lse, col_lse, g)
+    runs = [(*infonce_bwd_dimg(*args), infonce_bwd_dtxt(*args)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("layout", ["odd_width", "misaligned"])
+def test_infonce_backward_takes_rows_the_16_byte_path_cannot(device, layout):
+    """D = 37 (no 16-byte quads) and rows starting one float into their
+    storage take the kernel's 4-byte copies and scalar stores."""
+    n, d = 70, 37 if layout == "odd_width" else 64
+    img, txt = _embeddings(n, d, device, 8), _embeddings(n, d, device, 9)
+    if layout == "misaligned":
+        flat = torch.zeros(n * d + 1, device=device)
+        img = flat[1:].view(n, d).copy_(img)
+        assert img.is_contiguous() and img.data_ptr() % 16
+    temp, g = torch.tensor(0.07, device=device), torch.tensor(1.3, device=device)
+    _, row_lse, col_lse = infonce_fwd_reference(img, txt, temp)
+    args = (img, txt, temp, row_lse, col_lse, g)
+    d_img, d_temp = infonce_bwd_dimg(*args)
+    d_txt = infonce_bwd_dtxt(*args)
+    want_img, want_txt, want_temp = infonce_bwd_reference(*args)
+    torch.cuda.synchronize()
+    scale = max(want_img.abs().max().item(), want_txt.abs().max().item())
     torch.testing.assert_close(d_img, want_img, rtol=1e-4, atol=1e-5 * scale)
     torch.testing.assert_close(d_txt, want_txt, rtol=1e-4, atol=1e-5 * scale)
     torch.testing.assert_close(d_temp, want_temp, rtol=1e-4, atol=1e-5 * max(abs(want_temp.item()), 1.0))
