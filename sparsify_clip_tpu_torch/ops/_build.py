@@ -203,10 +203,12 @@ def library() -> ctypes.CDLL:
             lib.sparsify_infonce_fwd.argtypes = [
                 p, p, p,        # img, txt, temperature (device scalar)
                 i, i,           # n, d
-                p, p, p, p,     # loss, row_lse, col_lse, diag scratch
+                p, p, p, p,     # loss, row_lse, col_lse, scratch
                 p,              # cudaStream_t
             ]
             lib.sparsify_infonce_fwd.restype = i
+            lib.sparsify_infonce_fwd_scratch.argtypes = [i, i]  # n, d
+            lib.sparsify_infonce_fwd_scratch.restype = ctypes.c_longlong
             lib.sparsify_infonce_bwd_dimg.argtypes = [
                 p, p, p, p,     # img, txt, temperature, g (device scalars)
                 p, p,           # row_lse, col_lse
@@ -227,11 +229,13 @@ def library() -> ctypes.CDLL:
             lib.sparsify_infonce_bwd_scratch.restype = ctypes.c_longlong
             lib.sparsify_lunif_fwd.argtypes = [
                 p, i, i, f,     # x, n, d, t
-                p, p,           # norms, partial sums scratch
+                p,              # scratch (partial sums)
                 p, p,           # S, loss (device scalars)
                 p,              # cudaStream_t
             ]
             lib.sparsify_lunif_fwd.restype = i
+            lib.sparsify_lunif_fwd_scratch.argtypes = [i, i]  # n, d
+            lib.sparsify_lunif_fwd_scratch.restype = ctypes.c_longlong
             lib.sparsify_lunif_bwd.argtypes = [
                 p, p, p,        # x, S, g (device scalars)
                 i, i, f,        # n, d, t

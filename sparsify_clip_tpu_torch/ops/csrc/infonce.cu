@@ -19,16 +19,19 @@
 // against N, so any N works, and D is walked in chunks; the entry points
 // and their wrappers refuse D > 2048.
 //
-// One kernel body serves both directions of each pass: the column LSE of Z
-// is the row LSE of Z^T = txt.img^T / T, and d_txt is the d_img of the
-// transposed problem with the two LSE vectors swapped. Every logit is one
-// fmaf chain over d = 0..D-1 in ascending order, divided by T, in the
-// forward (`tile_logits`) and in the backward (`pair::dot_chunk`), in either
-// direction, so the forward's LSE and the backward's dZ see the same Z.
+// Every logit is one fmaf chain over d = 0..D-1 in ascending order, divided
+// by T, in the forward and in the backward, in either direction
+// (`pair::dot_chunk`; fmaf(a, b, c) = fmaf(b, a, c)), so the forward's LSE
+// and the backward's dZ see the same Z: at N = 1 the LSE is Z_11 and every
+// gradient exactly 0.
 //
-// Forward: a block takes 16 rows of its side (4 a warp) and walks the other
-// side in tiles of 32 rows, one a lane; the row LSE is an online max/sum
-// across the tiles, and a one-block pass sums the loss in a fixed order.
+// Forward, on `pair_tiles.cuh`: a grid of 16 x 16 tiles of Z (256 blocks
+// at N = 256, 16 at N = 64). A block computes its tile of Z once and takes both directions
+// from it: each of its rows' and each of its columns' (max, sum of exp)
+// over the tile go to scratch, and a diagonal tile writes Z_ii. A one-block
+// second pass merges each row's and each column's partials in ascending
+// tile order (m = max m_k, l = sum l_k exp(m_k - m), LSE = m + log l) and
+// sums the loss in a fixed order.
 //
 // Backward, on `pair_tiles.cuh`: a grid of (i-tile, j-split, column split)
 // blocks over 32 x 32 tiles of Z, 64 of them at N = 256 and 128 once D's
@@ -36,15 +39,20 @@
 // and dZ, and writes its share of dZ.b for its columns (and, for d_img, of
 // sum(dZ o Z)) to scratch; a second kernel adds the j-splits' shares in
 // ascending order, divides by T and, for d_img, sums dT's shares in a fixed
-// order. Two launches a direction; no atomics, so two runs agree bit for
-// bit.
+// order. One kernel body serves both directions: d_txt is the d_img of the
+// transposed problem, Z^T = txt.img^T / T, with the two LSE vectors swapped.
 //
-// What bounds it on an H100: at N = 256, D = 512 the forward is 2 x 67 MFLOP
-// and each backward direction 2 x 67 MFLOP over 1 MB of embeddings: about 2
-// us at 67 TFLOP/s of fp32, below the two launches. The forward's 16 blocks
-// a direction at N = 256 are bound by the latency of one block's FMA chain;
-// the backward's blocks by shared memory's bandwidth into registers
-// (`pair_tiles.cuh`), its calls by that and their two launches (PERF.md).
+// Two launches a call, forward or backward direction; no atomics, so two
+// runs agree bit for bit.
+//
+// What bounds it on an H100: at N = 256, D = 512 the forward is 67 MFLOP and
+// each backward direction 2 x 67 MFLOP over 1 MB of embeddings: about 1 and
+// 2 us at 67 TFLOP/s of fp32, below the two launches. No split of D (it
+// would change Z's rounding), so a block's floor is its D-long FMA chain and
+// its staging; the forward's 16 x 16 tiles put a block on every SM at N =
+// 256, and the backward's blocks are bound by shared memory's bandwidth
+// into registers (`pair_tiles.cuh`); each call by that and its two
+// launches (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,130 +62,140 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRows = kWarps * kRowsPerWarp;  // rows of its own side a block owns
-constexpr int kColTile = 32;                  // rows of the other side a tile: one per lane
-constexpr int kChunk = 128;                   // D columns staged at a time
-constexpr int kSd = kChunk + 1;               // odd row stride: lane-indexed rows hit distinct banks
 constexpr int kMaxD = 2048;
+constexpr int kFinishThreads = 512;
 using pair::kFullMask;
 using pair::warp_sum;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));
-  return x;
-}
-
-// rows [r0, r0 + rows) and columns [c0, c0 + kChunk) of x (N, D) into dst
-// with row stride kSd; zero outside x
-__device__ void stage(float* dst, const float* __restrict__ x, int rows, int r0, int c0, int N,
-                      int D) {
-  for (int i = threadIdx.x; i < rows * kChunk; i += kThreads) {
-    const int r = i / kChunk, c = i - r * kChunk;
-    const int row = r0 + r, col = c0 + c;
-    dst[r * kSd + c] = row < N && col < D ? x[(int64_t)row * D + col] : 0.f;
-  }
-}
-
-// z[n] = (a_{r0 + warp*4 + n} . b_{j0 + lane}) / T for the block's rows
-// against one tile of the other side. Ends with a barrier-free read of the
-// staged tiles; the caller syncs before restaging them.
-__device__ void tile_logits(const float* __restrict__ a, const float* __restrict__ b, int N,
-                            int D, int r0, int j0, float T, float* a_s, float* b_s,
-                            float (&z)[kRowsPerWarp]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int n = 0; n < kRowsPerWarp; ++n) z[n] = 0.f;
-  for (int c0 = 0; c0 < D; c0 += kChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    stage(a_s, a, kRows, r0, c0, N, D);
-    stage(b_s, b, kColTile, j0, c0, N, D);
-    __syncthreads();
-    const int w = min(kChunk, D - c0);
-    const float* bl = b_s + lane * kSd;
-    for (int d = 0; d < w; ++d) {
-      const float bv = bl[d];
-#pragma unroll
-      for (int n = 0; n < kRowsPerWarp; ++n)
-        z[n] = fmaf(a_s[(warp * kRowsPerWarp + n) * kSd + d], bv, z[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < kRowsPerWarp; ++n) z[n] /= T;
-}
-
-// Row LSE of a.b^T / T; blockIdx.y picks the direction: 0 gives row_lse
-// (a = img) and the diagonal logits, 1 gives col_lse (a = txt).
-__global__ void __launch_bounds__(kThreads)
-infonce_lse_kernel(const float* __restrict__ img, const float* __restrict__ txt,
-                   const float* __restrict__ temp, int N, int D, float* __restrict__ row_lse,
-                   float* __restrict__ col_lse, float* __restrict__ diag) {
-  __shared__ float a_s[kRows * kSd];
-  __shared__ float b_s[kColTile * kSd];
-  const bool rows = blockIdx.y == 0;
-  const float* a = rows ? img : txt;
-  const float* b = rows ? txt : img;
-  float* out = rows ? row_lse : col_lse;
+// Forward, first pass: block (x, y) takes the K x K tile of Z at j-tile x,
+// i-tile y, computes it once and takes both directions from it: for each
+// of its rows i the tile's (max, sum of exp) over its columns, written to
+// row_part[x][i], and for each of its columns j the same over its rows, to
+// col_part[y][j] ((tiles, N) pairs each); a diagonal tile writes Z_ii to
+// diag. The 2K lines (rows, then columns) take K/8 consecutive threads
+// each, 8 entries a thread, and a fixed xor tree.
+__global__ void __launch_bounds__(pair::kFwdThreads)
+infonce_fwd_kernel(const float* __restrict__ img, const float* __restrict__ txt,
+                   const float* __restrict__ temp, int N, int D, bool vec,
+                   float2* __restrict__ row_part, float2* __restrict__ col_part,
+                   float* __restrict__ diag) {
+  constexpr int K = pair::kFwdTile, kHalf = K / 2, kPer = K / 8;  // kPer: threads a line
+  __shared__ pair::FwdRing ring;
+  __shared__ float zs[K][K + 1];
   const float T = *temp;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * kRows;
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], z[kRowsPerWarp];
+  const int i0 = blockIdx.y * K, j0 = blockIdx.x * K;
+  float p[2][2] = {};
+  pair::dot_tile(ring, img, txt, N, D, i0, j0, vec, [](const auto&, int) {}, p);
+  const int ti = threadIdx.x / kHalf, tj = threadIdx.x % kHalf;
 #pragma unroll
-  for (int n = 0; n < kRowsPerWarp; ++n) {
-    m[n] = -INFINITY;
-    l[n] = 0.f;
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int il = ti + kHalf * u, jl = tj + kHalf * v;
+      const float z = p[u][v] / T;
+      zs[il][jl] = z;
+      if (i0 == j0 && il == jl && i0 + il < N) diag[i0 + il] = z;
+    }
+  __syncthreads();
+  const int line = threadIdx.x / kPer, part = threadIdx.x % kPer;
+  const bool is_row = line < K;
+  const int l = is_row ? line : line - K;
+  const int along0 = is_row ? j0 : i0;  // the first index along the line
+  float z[8];
+  float m = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int e = part * 8 + q;
+    z[q] = along0 + e < N ? (is_row ? zs[l][e] : zs[e][l]) : -INFINITY;
+    m = fmaxf(m, z[q]);
   }
-  for (int j0 = 0; j0 < N; j0 += kColTile) {
-    tile_logits(a, b, N, D, r0, j0, T, a_s, b_s, z);
-    const int j = j0 + lane;
 #pragma unroll
-    for (int n = 0; n < kRowsPerWarp; ++n) {
-      const int r = r0 + warp * kRowsPerWarp + n;
-      if (rows && r == j && r < N) diag[r] = z[n];
-      const float zz = j < N ? z[n] : -INFINITY;
-      const float m_new = fmaxf(m[n], warp_max(zz));  // finite: column j0 < N is valid
-      l[n] = l[n] * expf(m[n] - m_new) + warp_sum(j < N ? expf(zz - m_new) : 0.f);
-      m[n] = m_new;
+  for (int o = kPer / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFullMask, m, o));
+  float sum = 0.f;  // m is finite: entry along0 < N is in every line
+#pragma unroll
+  for (int q = 0; q < 8; ++q) sum += along0 + part * 8 + q < N ? expf(z[q] - m) : 0.f;
+#pragma unroll
+  for (int o = kPer / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(kFullMask, sum, o);
+  const int idx = (is_row ? i0 : j0) + l;
+  if (part == 0 && idx < N)
+    (is_row ? row_part[(size_t)blockIdx.x * N + idx] : col_part[(size_t)blockIdx.y * N + idx]) =
+        make_float2(m, sum);
+}
+
+// LSE of line i from its tiles' partials part[k][i] = (m_k, l_k): m = max
+// m_k, then l = sum l_k exp(m_k - m) with k ascending, LSE = m + log l. The
+// loads go out kBatch at a time (a warp's lanes on consecutive lines), and
+// the first batch stays in registers, so up to kBatch tiles a thread waits
+// on one round trip. A missing tile reads (-inf, 0) and adds +0 to l > 0.
+__device__ __forceinline__ float merge_lse(const float2* __restrict__ part, int tiles, int N,
+                                           int i) {
+  constexpr int kBatch = 16;
+  const auto load = [&](float2 (&v)[kBatch], int k0) {
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q)
+      v[q] = k0 + q < tiles ? part[(size_t)(k0 + q) * N + i] : make_float2(-INFINITY, 0.f);
+  };
+  float2 first[kBatch], v[kBatch];
+  load(first, 0);
+  float m = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) m = fmaxf(m, first[q].x);
+  for (int k0 = kBatch; k0 < tiles; k0 += kBatch) {
+    load(v, k0);
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) m = fmaxf(m, v[q].x);
+  }
+  float l = 0.f;
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) l += first[q].y * expf(first[q].x - m);
+  for (int k0 = kBatch; k0 < tiles; k0 += kBatch) {
+    load(v, k0);
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) l += v[q].y * expf(v[q].x - m);
+  }
+  return m + logf(l);
+}
+
+// Forward, second pass, one block: the 2N lines' LSEs (rows, then
+// columns, a thread a line) from the partials, then loss = ((sum row_lse -
+// sum diag) / N + (sum col_lse - sum diag) / N) / 2, each sum a thread's
+// lines in order, a warp's xor tree, then the warps in order.
+__global__ void __launch_bounds__(kFinishThreads)
+infonce_fwd_finish_kernel(const float2* __restrict__ row_part, const float2* __restrict__ col_part,
+                          const float* __restrict__ diag, int tiles, int N,
+                          float* __restrict__ row_lse, float* __restrict__ col_lse,
+                          float* __restrict__ loss) {
+  constexpr int kWarps = kFinishThreads / 32;
+  __shared__ float red[3][kWarps];
+  float sums[3] = {};  // row LSEs, column LSEs, the diagonal
+  for (int line = threadIdx.x; line < 2 * N; line += kFinishThreads) {
+    const bool is_row = line < N;
+    const int i = is_row ? line : line - N;
+    const float lse = merge_lse(is_row ? row_part : col_part, tiles, N, i);
+    if (is_row) {
+      row_lse[i] = lse;
+      sums[0] += lse;
+      sums[2] += diag[i];
+    } else {
+      col_lse[i] = lse;
+      sums[1] += lse;
     }
   }
-#pragma unroll
-  for (int n = 0; n < kRowsPerWarp; ++n) {
-    const int r = r0 + warp * kRowsPerWarp + n;
-    if (r < N && lane == 0) out[r] = m[n] + logf(l[n]);
-  }
-}
-
-// Block-wide sum in a fixed order (the caller passes each thread's share).
-__device__ float block_sum(float x, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  x = warp_sum(x);
-  __syncthreads();
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float total = 0.f;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += red[w];
-  return total;
-}
-
-__global__ void infonce_loss_kernel(const float* __restrict__ row_lse,
-                                    const float* __restrict__ col_lse,
-                                    const float* __restrict__ diag, int N,
-                                    float* __restrict__ loss) {
-  __shared__ float red[32];
-  float r = 0.f, c = 0.f, d = 0.f;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    r += row_lse[i];
-    c += col_lse[i];
-    d += diag[i];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float v = warp_sum(sums[k]);
+    if (lane == 0) red[k][warp] = v;
   }
-  r = block_sum(r, red);
-  c = block_sum(c, red);
-  d = block_sum(d, red);
-  if (threadIdx.x == 0) loss[0] = ((r - d) / N + (c - d) / N) / 2.f;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total[3] = {};
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) total[k] += red[k][w];
+    loss[0] = ((total[0] - total[2]) / N + (total[1] - total[2]) / N) / 2.f;
+  }
 }
 
 // First pass of the backward, d_a = dZ.b / T, where a.b^T / T is Z in this
@@ -276,8 +294,6 @@ __global__ void infonce_bwd_finish_kernel(const float* __restrict__ share, int s
   }
 }
 
-int n_blocks(int n) { return (n + kRows - 1) / kRows; }
-
 // Both passes of one direction's backward; dt_share and d_temp null for d_txt.
 int launch_bwd(const float* a, const float* b, const float* temp, const float* g,
                const float* lse_a, const float* lse_b, int n, int d, float* d_a, float* scratch,
@@ -297,23 +313,46 @@ int launch_bwd(const float* a, const float* b, const float* temp, const float* g
 
 bool bad_shape(int n, int d) { return n <= 0 || d <= 0 || d > kMaxD; }
 
+// Tiles a side of the forward's grid.
+int fwd_tiles(int n) { return (n + pair::kFwdTile - 1) / pair::kFwdTile; }
+
+int launch_fwd(const float* img, const float* txt, const float* temp, int n, int d, float* loss,
+               float* row_lse, float* col_lse, float* scratch, cudaStream_t stream) {
+  const int tiles = fwd_tiles(n);
+  float2* row_part = reinterpret_cast<float2*>(scratch);  // 8-byte aligned: the buffer's start
+  float2* col_part = row_part + (size_t)tiles * n;
+  float* diag = reinterpret_cast<float*>(col_part + (size_t)tiles * n);
+  const bool vec = pair::vec_ok(d, img, txt, img);
+  infonce_fwd_kernel<<<dim3(tiles, tiles), pair::kFwdThreads, 0, stream>>>(
+      img, txt, temp, n, d, vec, row_part, col_part, diag);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  infonce_fwd_finish_kernel<<<1, kFinishThreads, 0, stream>>>(row_part, col_part, diag, tiles, n,
+                                                               row_lse, col_lse, loss);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes. Each launches on `stream` and returns
 // the first CUDA error (0 on success). Scratch is allocated by the wrapper:
-// for the forward, diag, N floats; for either backward,
-// sparsify_infonce_bwd_scratch(N, D) floats.
+// sparsify_infonce_fwd_scratch(N, D) floats for the forward, 8-byte
+// aligned, sparsify_infonce_bwd_scratch(N, D) for either backward.
+
+// The forward's scratch in floats: the row and the column partials,
+// (tiles, N) pairs each, then the diagonal (N); 0 for a shape the kernels
+// refuse.
+extern "C" long long sparsify_infonce_fwd_scratch(int n, int d) {
+  if (bad_shape(n, d)) return 0;
+  return 4LL * fwd_tiles(n) * n + n;
+}
+
 extern "C" int sparsify_infonce_fwd(const float* img, const float* txt, const float* temp, int n,
                                     int d, float* loss, float* row_lse, float* col_lse,
-                                    float* diag, void* stream) {
+                                    float* scratch, void* stream) {
   if (bad_shape(n, d)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  infonce_lse_kernel<<<dim3(n_blocks(n), 2), kThreads, 0, s>>>(img, txt, temp, n, d, row_lse,
-                                                               col_lse, diag);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  infonce_loss_kernel<<<1, 256, 0, s>>>(row_lse, col_lse, diag, n, loss);
-  return (int)cudaGetLastError();
+  return launch_fwd(img, txt, temp, n, d, loss, row_lse, col_lse, scratch,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // The backward's scratch in floats: dZ.b's shares (splits, N, D), then the

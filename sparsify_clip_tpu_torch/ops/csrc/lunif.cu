@@ -19,34 +19,36 @@
 // Precision.HIGHEST). The entry points and their wrappers refuse D > 2048.
 //
 // On the TPU one SMEM accumulator is carried across a sequential grid. Here
-// blocks run in no order: each forward block sums its 16 x 32 tile of W and
-// writes the partial, and a second one-block pass adds the partials in a
-// fixed order and takes the log on the device, so S and the loss never need
-// a host read and do not change from run to run.
+// blocks run in no order, and both passes run on `pair_tiles.cuh`, two
+// launches each; no atomics, so two runs agree bit for bit.
 //
-// The backward runs on `pair_tiles.cuh`: a grid of (i-tile, j-split,
-// column split) blocks over 32 x 32 tiles of W, 64 of them at N = 256 and
-// 128 once D's columns are split (48 at N = 64, D = 768). A block computes
-// its tile's norms and Gram, W, its share of r (one thread a row, j
-// ascending) and its share of W.x for its columns, and writes both to
-// scratch; a second kernel adds the j-splits' shares in ascending order and
-// writes dx. No atomics: two runs agree bit for bit. Two launches a call, as
-// before (the norms pass is folded into the first).
+// The forward: a grid of 16 x 16 tiles of W (256 blocks at N = 256, 16 at
+// N = 64). A block computes its rows' norms and the Gram tile over the same
+// staged chunks and writes the tile's sum of W; a one-block second pass
+// adds the partials in a fixed order and takes the log on the device, so S
+// and the loss never need a host read.
+//
+// The backward: a grid of (i-tile, j-split, column split) blocks over 32 x
+// 32 tiles of W, 64 of them at N = 256 and 128 once D's columns are split
+// (48 at N = 64, D = 768). A block computes its tile's norms and Gram, W,
+// its share of r (one thread a row, j ascending) and its share of W.x for
+// its columns, and writes both to scratch; a second kernel adds the
+// j-splits' shares in ascending order and writes dx.
 //
 // Forward and backward see the same W: n_i is the same lane-strided fmaf sum
-// and xor tree in both (the forward's norms kernel; the backward's first
-// pass over its staged chunks, lane l taking columns l, l + 32, ... in
-// order), G_ij is one fmaf chain over d = 0..D-1 in ascending order in both
-// (`tile_gram`, `pair::dot_chunk`), and `pair_weight` turns them into W.
+// and xor tree in both (`TileNorms`, lane l taking columns l, l + 32, ...
+// in order from the staged chunks), G_ij is one fmaf chain over d =
+// 0..D-1 in ascending order in both (`pair::dot_chunk`), and `pair_weight`
+// turns them into W.
 //
 // What bounds it on an H100: at N = 256, D = 512 the forward needs the i<j
-// half of the symmetric Gram, N (N-1) D = 33 MFLOP (these kernels compute
-// both halves, 2 N^2 D), and the backward adds 2 N^2 D = 67 MFLOP for W.x,
-// over 0.5 MB of input: about 0.5 us and 1.5 us at 67 TFLOP/s of fp32, far
-// below launch latency. The forward spreads the N^2 tiles over (N/16) x
-// (N/32) = 128 blocks. The backward's blocks are bound by shared memory's
-// bandwidth into registers (`pair_tiles.cuh`), its call by that and its two
-// launches (PERF.md).
+// half of the symmetric Gram, N (N-1) D = 33 MFLOP (it computes the whole
+// Gram, 2 N^2 D), and the backward adds 2 N^2 D = 67 MFLOP for W.x, over
+// 0.5 MB of input: about 0.5 us and 1.5 us at 67 TFLOP/s of fp32, far
+// below launch latency. No split of D, so a block's
+// floor is its D-long FMA chain and its staging. The backward's blocks are
+// bound by shared memory's bandwidth into registers (`pair_tiles.cuh`),
+// each call by that and its two launches (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,64 +60,44 @@ namespace {
 
 using pair::warp_sum;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRows = kWarps * kRowsPerWarp;  // rows i a block owns
-constexpr int kColTile = 32;                  // rows j a tile: one a lane
-constexpr int kChunk = 128;                   // D columns staged at a time (= kThreads)
-constexpr int kSd = kChunk + 1;               // odd row stride: lane-indexed rows hit distinct banks
 constexpr int kMaxD = 2048;
-constexpr int kNormWarps = 8;
+constexpr int kSumThreads = 256;
 
-// n_i = sum_d x_id^2: one warp a row, lane-strided partial sums and a fixed
-// xor tree.
-__global__ void lunif_norms_kernel(const float* __restrict__ x, int N, int D,
-                                   float* __restrict__ norms) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kNormWarps + (threadIdx.x >> 5);
-  if (row >= N) return;  // warp-uniform: the whole warp leaves together
-  const float* xr = x + (int64_t)row * D;
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s = fmaf(xr[d], xr[d], s);
-  s = warp_sum(s);
-  if (lane == 0) norms[row] = s;
-}
-
-// rows [r0, r0 + rows) and columns [c0, c0 + kChunk) of x (N, D) into dst
-// with row stride kSd; zero outside x
-__device__ void stage(float* dst, const float* __restrict__ x, int rows, int r0, int c0, int N,
-                      int D) {
-  for (int i = threadIdx.x; i < rows * kChunk; i += kThreads) {
-    const int r = i / kChunk, c = i - r * kChunk;
-    const int row = r0 + r, col = c0 + c;
-    dst[r * kSd + c] = row < N && col < D ? x[(int64_t)row * D + col] : 0.f;
-  }
-}
-
-// g[n] = x_{r0 + warp*4 + n} . x_{j0 + lane} for the block's rows against
-// one tile of 32 rows. Ends with a barrier-free read of the staged tiles;
-// the caller syncs before restaging them.
-__device__ void tile_gram(const float* __restrict__ x, int N, int D, int r0, int j0, float* a_s,
-                          float* b_s, float (&g)[kRowsPerWarp]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// n_i = sum_d x_id^2 of a K x K tile's 2K rows, from the chunks its ring
+// stages: the first half of the warps takes the i rows, the second the j
+// rows, kRows a warp; lane l sums columns l, l + 32, ... in ascending order
+// (`add`, a chunk at a time), then a fixed xor tree (`store`). The forward
+// and the backward fold the same sum into their first passes.
+template <int K>
+struct TileNorms {
+  static constexpr int kWarps = pair::kThreadsOf<K> / 32;
+  static constexpr int kRows = 2 * K / kWarps;  // 8 at K = 32, 16 at K = 16
+  float part[kRows] = {};
+  template <class Buf>
+  __device__ __forceinline__ void add(const Buf& buf, int c0, int D) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int side = warp / (kWarps / 2), r_base = (warp % (kWarps / 2)) * kRows;
 #pragma unroll
-  for (int n = 0; n < kRowsPerWarp; ++n) g[n] = 0.f;
-  for (int c0 = 0; c0 < D; c0 += kChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    stage(a_s, x, kRows, r0, c0, N, D);
-    stage(b_s, x, kColTile, j0, c0, N, D);
-    __syncthreads();
-    const int w = min(kChunk, D - c0);
-    const float* bl = b_s + lane * kSd;
-    for (int d = 0; d < w; ++d) {
-      const float bv = bl[d];
+    for (int h = 0; h < pair::kChunk; h += 32) {
+      if (c0 + h + lane >= D) break;
 #pragma unroll
-      for (int n = 0; n < kRowsPerWarp; ++n)
-        g[n] = fmaf(a_s[(warp * kRowsPerWarp + n) * kSd + d], bv, g[n]);
+      for (int n = 0; n < kRows; ++n) {
+        const float v = buf[side][r_base + n][h + lane];
+        part[n] = fmaf(v, v, part[n]);
+      }
     }
   }
-}
+  // norm_s[0][r]: row i0 + r, norm_s[1][r]: row j0 + r; the caller syncs
+  __device__ __forceinline__ void store(float (&norm_s)[2][K]) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int side = warp / (kWarps / 2), r_base = (warp % (kWarps / 2)) * kRows;
+#pragma unroll
+    for (int n = 0; n < kRows; ++n) {
+      const float v = warp_sum(part[n]);
+      if (lane == 0) norm_s[side][r_base + n] = v;
+    }
+  }
+};
 
 // W_ij from the norms and the Gram entry, 0 where the pair is masked. The
 // FMA is written out so that no contraction choice of the compiler can make
@@ -125,41 +107,51 @@ __device__ __forceinline__ float pair_weight(float ni, float nj, float g, float 
   return keep ? expf(-t * d2) : 0.f;
 }
 
-// One 16 x 32 tile of W a block (blockIdx.x: rows i, blockIdx.y: rows j);
-// writes the tile's sum to partial[blockIdx.y * gridDim.x + blockIdx.x].
-__global__ void __launch_bounds__(kThreads)
-lunif_fwd_kernel(const float* __restrict__ x, const float* __restrict__ norms, int N, int D,
-                 float t, float* __restrict__ partial) {
-  __shared__ float a_s[kRows * kSd];
-  __shared__ float b_s[kColTile * kSd];
-  __shared__ float red[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * kRows, j0 = blockIdx.y * kColTile;
-  float g[kRowsPerWarp];
-  tile_gram(x, N, D, r0, j0, a_s, b_s, g);
-  const int j = j0 + lane;
-  const float nj = j < N ? norms[j] : 0.f;
+// Forward, first pass: block (x, y) takes the K x K tile of W at j-tile x,
+// i-tile y, over a tile of the Gram with the rows' norms folded in, and
+// writes the tile's sum (each thread's 4 entries, a warp's xor tree, the
+// warps ascending) to partial[y][x].
+__global__ void __launch_bounds__(pair::kFwdThreads)
+lunif_fwd_kernel(const float* __restrict__ x, int N, int D, float t, bool vec,
+                 float* __restrict__ partial) {
+  constexpr int K = pair::kFwdTile, kHalf = K / 2;
+  __shared__ pair::FwdRing ring;
+  __shared__ float norm_s[2][K];
+  __shared__ float red[TileNorms<K>::kWarps];
+  const int i0 = blockIdx.y * K, j0 = blockIdx.x * K;
+  TileNorms<K> norms;
+  float g[2][2] = {};
+  pair::dot_tile(ring, x, x, N, D, i0, j0, vec,
+                    [&](const auto& buf, int c0) { norms.add(buf, c0, D); }, g);
+  norms.store(norm_s);
+  __syncthreads();
+  const int ti = threadIdx.x / kHalf, tj = threadIdx.x % kHalf;
   float s = 0.f;
 #pragma unroll
-  for (int n = 0; n < kRowsPerWarp; ++n) {
-    const int r = r0 + warp * kRowsPerWarp + n;
-    const float ni = r < N ? norms[r] : 0.f;
-    s += pair_weight(ni, nj, g[n], t, r < N && j < N && r != j);
-  }
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int il = ti + kHalf * u, jl = tj + kHalf * v;
+      const int i = i0 + il, j = j0 + jl;
+      s += pair_weight(norm_s[0][il], norm_s[1][jl], g[u][v], t, i < N && j < N && i != j);
+    }
   s = warp_sum(s);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) red[warp] = s;
   __syncthreads();
   if (threadIdx.x == 0) {
     float total = 0.f;
-    for (int w = 0; w < kWarps; ++w) total += red[w];
+    for (int w = 0; w < TileNorms<K>::kWarps; ++w) total += red[w];
     partial[blockIdx.y * gridDim.x + blockIdx.x] = total;
   }
 }
 
-// S = sum of the partials in a fixed order; loss = log(S / (N (N - 1))).
-__global__ void lunif_sum_kernel(const float* __restrict__ partial, int n_partial, int N,
-                                 float* __restrict__ s_out, float* __restrict__ loss) {
-  __shared__ float red[32];
+// Forward, second pass: S = sum of the partials in a fixed order; loss =
+// log(S / (N (N - 1))).
+__global__ void __launch_bounds__(kSumThreads)
+lunif_sum_kernel(const float* __restrict__ partial, int n_partial, int N,
+                 float* __restrict__ s_out, float* __restrict__ loss) {
+  __shared__ float red[kSumThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float s = 0.f;
   for (int i = threadIdx.x; i < n_partial; i += blockDim.x) s += partial[i];
@@ -168,7 +160,7 @@ __global__ void lunif_sum_kernel(const float* __restrict__ partial, int n_partia
   __syncthreads();
   if (threadIdx.x == 0) {
     float total = 0.f;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += red[w];
+    for (int w = 0; w < kSumThreads / 32; ++w) total += red[w];
     s_out[0] = total;
     loss[0] = logf(total / (float)((long long)N * (N - 1)));
   }
@@ -188,32 +180,14 @@ lunif_bwd_kernel(const float* __restrict__ x, int N, int D, float t, int z_cols,
   const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
   const int i0 = blockIdx.x * pair::kTile, s = blockIdx.y;
   const int c_begin = blockIdx.z * z_cols, c_end = min(D, c_begin + z_cols);
-  // warp w takes the norms of staged rows 8w..8w+7: warps 0-3 the i rows,
-  // warps 4-7 the j rows
-  const int side = warp / 4, r_base = (warp % 4) * 8;
   int jt_begin, jt_end;
   pair::split_range(gridDim.x, gridDim.y, s, &jt_begin, &jt_end);
   float r = 0.f;  // thread `lane` of warp 0: row i0 + lane
   for (int jt = jt_begin; jt < jt_end; ++jt) {
     const int j0 = jt * pair::kTile;
-    float part[8] = {};
-    const auto norms = [&](const auto& buf, int c0) {
-#pragma unroll
-      for (int h = 0; h < pair::kChunk; h += 32) {
-        if (c0 + h + lane >= D) break;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const float v = buf[side][r_base + n][h + lane];
-          part[n] = fmaf(v, v, part[n]);
-        }
-      }
-    };
+    TileNorms<pair::kTile> norms;
     const auto weights = [&](const float (&g)[2][2]) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float v = warp_sum(part[n]);
-        if (lane == 0) norm_s[side][r_base + n] = v;
-      }
+      norms.store(norm_s);
       __syncthreads();
 #pragma unroll
       for (int u = 0; u < 2; ++u)
@@ -229,7 +203,8 @@ lunif_bwd_kernel(const float* __restrict__ x, int N, int D, float t, int z_cols,
         for (int jl = 0; jl < pair::kTile; ++jl) r += sm.wt[jl][lane];
     };
     pair::pair_tile(sm, x, x, N, D, i0, j0, c_begin, c_end, share + (size_t)s * N * D,
-                    jt == jt_begin, vec, norms, weights);
+                    jt == jt_begin, vec,
+                    [&](const auto& buf, int c0) { norms.add(buf, c0, D); }, weights);
   }
   if (blockIdx.z == 0 && warp == 0 && i0 + lane < N) r_share[(size_t)s * N + i0 + lane] = r;
 }
@@ -271,30 +246,36 @@ __global__ void lunif_bwd_finish_kernel(const float* __restrict__ x,
   }
 }
 
-int row_blocks(int n) { return (n + kRows - 1) / kRows; }
-int col_tiles(int n) { return (n + kColTile - 1) / kColTile; }
-
 bool bad_shape(int n, int d) { return n < 2 || d <= 0 || d > kMaxD; }
+
+// Tiles a side of the forward's grid.
+int fwd_tiles(int n) { return (n + pair::kFwdTile - 1) / pair::kFwdTile; }
 
 }  // namespace
 
 // C entry points, bound with ctypes. Each launches on `stream` and returns
 // the first CUDA error (0 on success). Scratch is allocated by the wrapper:
-// for the forward, norms, N floats, and partial, ceil(N / 16) * ceil(N / 32)
-// floats; for the backward, sparsify_lunif_bwd_scratch(N, D) floats.
-extern "C" int sparsify_lunif_fwd(const float* x, int n, int d, float t, float* norms,
-                                  float* partial, float* s_out, float* loss, void* stream) {
+// sparsify_lunif_fwd_scratch(N, D) floats for the forward,
+// sparsify_lunif_bwd_scratch(N, D) for the backward.
+
+// The forward's scratch in floats: one partial sum a tile; 0 for a shape
+// the kernels refuse.
+extern "C" long long sparsify_lunif_fwd_scratch(int n, int d) {
+  if (bad_shape(n, d)) return 0;
+  const long long tiles = fwd_tiles(n);
+  return tiles * tiles;
+}
+
+extern "C" int sparsify_lunif_fwd(const float* x, int n, int d, float t, float* scratch,
+                                  float* s_out, float* loss, void* stream) {
   if (bad_shape(n, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  lunif_norms_kernel<<<(n + kNormWarps - 1) / kNormWarps, kNormWarps * 32, 0, s>>>(x, n, d,
-                                                                                   norms);
+  const int tiles = fwd_tiles(n);
+  lunif_fwd_kernel<<<dim3(tiles, tiles), pair::kFwdThreads, 0, s>>>(
+      x, n, d, t, pair::vec_ok(d, x, x, x), scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  lunif_fwd_kernel<<<dim3(row_blocks(n), col_tiles(n)), kThreads, 0, s>>>(x, norms, n, d, t,
-                                                                           partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  lunif_sum_kernel<<<1, 256, 0, s>>>(partial, row_blocks(n) * col_tiles(n), n, s_out, loss);
+  lunif_sum_kernel<<<1, kSumThreads, 0, s>>>(scratch, tiles * tiles, n, s_out, loss);
   return (int)cudaGetLastError();
 }
 

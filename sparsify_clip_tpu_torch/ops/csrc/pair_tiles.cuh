@@ -1,32 +1,43 @@
-// The tiles of an N x N pair block shared by the two loss backwards, the
-// uniformity backward (`lunif.cu`) and the InfoNCE backward (`infonce.cu`).
-// Both compute, for rows a (N, D) and b (N, D),
-//   P_ij = a_i . b_j               (the Gram entry or the raw logit),
-//   W_ij = f(P_ij, i, j)           (the pair weight, or dZ),
-//   out_i = sum_j W_ij b_j         (Wx, or dZ.b),
-// and finish out row by row. One block owns a 32 x 32 tile (i-tile, j-tile)
-// of the pair block, so the card fills from both sides of it:
+// The tiles of an N x N pair block shared by the four loss kernels, the
+// uniformity forward and backward (`lunif.cu`) and the InfoNCE forward and
+// backward (`infonce.cu`). For rows a (N, D) and b (N, D) every one of them
+// computes P_ij = a_i . b_j (the Gram entry or the raw logit), one block a
+// tile (i-tile, j-tile) of the pair block, so the card fills from both
+// sides of it, and a thread a 2 x 2 register micro-tile of P: every entry
+// one fmaf chain over d = 0..D-1 in ascending order (`dot_chunk`), so the
+// forwards and the backwards see the same P bit for bit.
+//
+// The backwards go on to W_ij = f(P_ij, i, j) (the pair weight, or dZ) and
+// out_i = sum_j W_ij b_j (Wx, or dZ.b), on 32 x 32 tiles (`pair_tile`):
 //
 //   grid (i-tiles, j-splits, column splits), 256 threads a block;
 //   block (bi, s, z) walks the j-tiles of split s in ascending order, and
-//   for each computes P (a 2 x 2 register micro-tile a thread, every entry
-//   one fmaf chain over d = 0..D-1 in ascending order, as the forwards
-//   compute it), then W into shared memory, then the tile's share W.b_J of
-//   its column slice z (2 rows x 4 columns a thread, in registers), added
-//   to the split's running share in `share[s]` (s, N, D); a second pass
-//   adds the splits' shares in ascending s and finishes.
+//   for each computes P, then W into shared memory, then the tile's share
+//   W.b_J of its column slice z (2 rows x 4 columns a thread, in
+//   registers), added to the split's running share in `share[s]` (s, N, D);
+//   a second pass adds the splits' shares in ascending s and finishes.
 //
-// Staging: one cp.async ring carries first D's chunks of 64 columns of the
-// tile's i rows of a and j rows of b, then the chunks of b's j rows in the
-// column slice, so W.b's first loads are in flight while P finishes;
-// 16-byte copies where D % 4 == 0 and the rows are 16-byte aligned, 4-byte
-// copies otherwise; zero outside the rows and columns.
+// The forwards need P alone (`dot_tile`): 16 x 16 tiles with 64 threads
+// (256 tiles at N = 256, 16 at N = 64); each block reduces its tile to
+// partials and a second pass adds them in a fixed order.
 //
-// What bounds a block on an H100 is shared memory's 128 bytes a cycle into
-// registers: P reads 4 floats a thread for 4 FMAs a column, W.b 6 for 8.
-// Measured on the card (PERF.md): a ring deeper than 2 stages, a
-// 64-thread block of 4 x 4 micro-tiles (too few warps to hide latency) and
-// register-staged d-major copies (load latency a chunk) were all slower.
+// Staging: a cp.async ring (2 stages for the backwards, 4 for the forwards)
+// of chunks of 64 columns of the tile's i rows of a and j rows of b (the
+// backward's ring then carries the chunks of b's j rows in the column
+// slice, so W.b's first loads are in flight while P finishes); 16-byte
+// copies where D % 4 == 0 and the rows are 16-byte aligned, 4-byte copies
+// otherwise; zero outside the rows and columns.
+//
+// What bounds a block on an H100 is shared memory's bandwidth into
+// registers: P reads 4 floats a thread for 4 FMAs a column, W.b 6 for 8,
+// and a warp's 16-byte read seems to hold the pipe about 4 cycles whatever
+// its broadcast (the rate of the forwards' FMA loop run alone, staging left
+// out; PERF.md). Measured on the card (PERF.md): for the backwards a ring
+// deeper than 2 stages, a 64-thread block of 4 x 4 micro-tiles (too few
+// warps to hide latency) and register-staged d-major copies (load latency
+// a chunk) were all slower; for the forwards 16 x 16 tiles beat 32 x 32 at
+// N = 256 and at N = 64, and staging and the FMA loop each take about half
+// the first pass.
 //
 // No atomics: every sum, across threads, tiles or blocks, runs in an order
 // fixed by the shapes, so two runs agree bit for bit.
@@ -41,7 +52,7 @@
 namespace {
 namespace pair {
 
-constexpr int kTile = 32;          // rows i and rows j of a tile
+constexpr int kTile = 32;          // rows i and rows j of a backward tile
 constexpr int kThreads = 256;      // a 16 x 16 thread grid over the tile, 2 x 2 entries each
 constexpr int kChunk = 64;         // D columns a stage
 constexpr int kStages = 2;         // the cp.async ring's depth
@@ -52,7 +63,13 @@ constexpr int kMaxSplits = 8;      // at most 8 shares a row for the second pass
 constexpr int kFillBlocks = 128;   // split D's columns until about this many blocks run
 constexpr unsigned kFullMask = 0xffffffffu;
 
-using Stage = float[2][kTile][kLd];  // [0: i rows of a, 1: j rows of b][row][column]
+template <int K>
+using StageOf = float[2][K][kLd];  // [0: i rows of a, 1: j rows of b][row][column]
+using Stage = StageOf<kTile>;
+
+// threads of a K x K tile: a (K/2) x (K/2) grid, 2 x 2 entries each
+template <int K>
+constexpr int kThreadsOf = K * K / 4;
 
 struct __align__(16) Smem {
   Stage stage[kStages];
@@ -93,19 +110,20 @@ __device__ __forceinline__ void split_range(int tiles, int splits, int s, int* b
   *end = (s + 1) * tiles / splits;
 }
 
-// Rows [row0, row0 + kTile) and columns [c0, c0 + kChunk) of x (N, D) into
-// dst by cp.async, zero outside x; the caller commits.
+// Rows [row0, row0 + K) and columns [c0, c0 + kChunk) of x (N, D) into dst
+// by cp.async, zero outside x; the caller commits.
+template <int K = kTile>
 __device__ __forceinline__ void stage(float (*dst)[kLd], const float* __restrict__ x, int row0,
                                       int c0, int N, int D, bool vec) {
   if (vec) {
-    for (unsigned k = threadIdx.x; k < kTile * kQuads; k += kThreads) {
+    for (unsigned k = threadIdx.x; k < K * kQuads; k += kThreadsOf<K>) {
       const int r = k / kQuads, c = 4 * (k % kQuads);
       const int row = row0 + r, col = c0 + c;
       const bool full = row < N && col < D;  // D % 4 == 0: a quad is whole or out
       cp_async16(&dst[r][c], full ? x + (int64_t)row * D + col : x, full);
     }
   } else {
-    for (unsigned k = threadIdx.x; k < kTile * kChunk; k += kThreads) {
+    for (unsigned k = threadIdx.x; k < K * kChunk; k += kThreadsOf<K>) {
       const int r = k / kChunk, c = k % kChunk;
       const int row = row0 + r, col = c0 + c;
       const bool full = row < N && col < D;
@@ -115,14 +133,16 @@ __device__ __forceinline__ void stage(float (*dst)[kLd], const float* __restrict
 }
 
 // p[u][v] += a_i . b_j over one staged chunk of w columns, d ascending,
-// for i = ti + 16u, j = tj + 16v of the tile (ti = tid / 16, tj = tid % 16).
-__device__ __forceinline__ void dot_chunk(const Stage& buf, int w, bool vec,
+// for i = ti + (K/2) u, j = tj + (K/2) v of the tile (ti = tid / (K/2),
+// tj = tid % (K/2)).
+template <int K = kTile>
+__device__ __forceinline__ void dot_chunk(const StageOf<K>& buf, int w, bool vec,
                                           float (&p)[2][2]) {
-  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
+  const int ti = threadIdx.x / (K / 2), tj = threadIdx.x % (K / 2);
   const float* a0 = buf[0][ti];
-  const float* a1 = buf[0][ti + 16];
+  const float* a1 = buf[0][ti + K / 2];
   const float* b0 = buf[1][tj];
-  const float* b1 = buf[1][tj + 16];
+  const float* b1 = buf[1][tj + K / 2];
   if (vec) {  // w % 4 == 0
 #pragma unroll 4
     for (int d = 0; d < w; d += 4) {
@@ -268,6 +288,50 @@ __device__ __forceinline__ void pair_tile(Smem& sm, const float* __restrict__ a,
   for (int k = n_dot; k < total; ++k) {
     product_chunk(sm.wt, advance(k)[1], N, D, i0, c_begin + (k - n_dot) * kChunk, share, first,
                   vec);
+  }
+  __syncthreads();
+}
+
+// The forwards' tiles: 16 x 16, 64 threads a block (256 blocks at N = 256,
+// 16 at N = 64), over a 4-stage cp.async ring of 34.8 KB.
+constexpr int kFwdTile = 16;
+constexpr int kFwdThreads = kThreadsOf<kFwdTile>;
+constexpr int kFwdStages = 4;
+
+using FwdStage = StageOf<kFwdTile>;
+
+struct __align__(16) FwdRing {
+  FwdStage stage[kFwdStages];
+};
+
+// p[u][v] = a_i . b_j for i = i0 + ti + 8 u, j = j0 + tj + 8 v (as
+// `dot_chunk`), each one fmaf chain over d = 0..D-1 in ascending order from
+// p = 0, the chain `pair_tile` computes; `on_chunk(buf, c0)` sees each
+// staged chunk first. Ends with a barrier: the ring is free again.
+template <class OnChunk>
+__device__ __forceinline__ void dot_tile(FwdRing& ring, const float* __restrict__ a,
+                                         const float* __restrict__ b, int N, int D, int i0,
+                                         int j0, bool vec, OnChunk on_chunk, float (&p)[2][2]) {
+  const int total = (D + kChunk - 1) / kChunk;
+  const auto issue = [&](int k) {
+    if (k >= total) return;
+    auto& buf = ring.stage[k % kFwdStages];
+    stage<kFwdTile>(buf[0], a, i0, k * kChunk, N, D, vec);
+    stage<kFwdTile>(buf[1], b, j0, k * kChunk, N, D, vec);
+  };
+#pragma unroll
+  for (int k = 0; k < kFwdStages - 1; ++k) {
+    issue(k);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
+  for (int k = 0; k < total; ++k) {
+    cp_async_wait<kFwdStages - 2>();
+    __syncthreads();  // chunk k has landed for every thread, chunk k - 1 is consumed
+    issue(k + kFwdStages - 1);
+    cp_async_commit();
+    const FwdStage& buf = ring.stage[k % kFwdStages];
+    on_chunk(buf, k * kChunk);
+    dot_chunk<kFwdTile>(buf, min(kChunk, D - k * kChunk), vec, p);
   }
   __syncthreads();
 }

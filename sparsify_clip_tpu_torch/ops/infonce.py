@@ -133,22 +133,32 @@ def infonce_fwd(
     img: torch.Tensor, txt: torch.Tensor, temperature: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors → (loss, row LSE, column LSE)."""
+    CPU tensors → (loss, row LSE, column LSE).
+
+    On the card the three are views into the call's one buffer, which also
+    holds the kernel's scratch (4·tiles·N + N floats, 16-row tiles): the
+    LSEs that :class:`InfoNCEFunction` saves keep that buffer alive until
+    the backward, and the loss it returns is a view made inside a custom
+    Function, so an in-place op on it raises."""
     n, d = _check(img, txt, temperature)
     if img.device.type == "cpu":
         return infonce_fwd_reference(img, txt, temperature)
     temperature = temperature.contiguous()
-    loss = torch.empty((), dtype=torch.float32, device=img.device)
-    row_lse, col_lse, diag = torch.empty((3, n), dtype=torch.float32, device=img.device)
+    lib = _build.library()
+    # one allocation: the kernel's scratch first (it takes 8-byte pairs), then
+    # row LSE, column LSE and the loss
+    at = lib.sparsify_infonce_fwd_scratch(n, d)
+    buf = torch.empty(at + 2 * n + 1, dtype=torch.float32, device=img.device)
+    base = buf.data_ptr()
     err = _build.launch(
-        _build.library().sparsify_infonce_fwd, img.device, img.data_ptr(), txt.data_ptr(),
-        temperature.data_ptr(), n, d, loss.data_ptr(), row_lse.data_ptr(), col_lse.data_ptr(),
-        diag.data_ptr(),
+        lib.sparsify_infonce_fwd, img.device, img.data_ptr(), txt.data_ptr(),
+        temperature.data_ptr(), n, d, base + 4 * (at + 2 * n), base + 4 * at,
+        base + 4 * (at + n), base,
     )
     if err:
         raise RuntimeError(f"infonce_fwd kernel launch failed with CUDA error {err}")
     _count(infonce_fwd)
-    return loss, row_lse, col_lse
+    return buf[at + 2 * n], buf[at:at + n], buf[at + n:at + 2 * n]
 
 
 def infonce_bwd_dimg(

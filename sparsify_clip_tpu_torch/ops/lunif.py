@@ -24,14 +24,15 @@ index before the sum.
 
 What bounds the kernels, and what their design does about it, is in the
 source's head note: at the train step's (256, 512) both are far below
-the card's arithmetic and memory limits.  The forward is bound by launch
-latency; the backward spreads 32 × 32 tiles of W over the card, is bound
-by shared memory's bandwidth inside each block and by its two launches,
-and adds the tiles' shares in a fixed order in the second.  S and the
-incoming gradient stay on the device, so a step never waits on a host
-read.  The multi-device ``ring``
-route of ``fused.py`` waits for the multi-GPU work (ROADMAP Queue 1
-item 11).
+the card's arithmetic and memory limits.  Both spread tiles of the pair
+block over the card (``csrc/pair_tiles.cuh``) and add the tiles' partial
+sums in a fixed order in a second launch: the forward takes 16 × 16
+tiles of W, with the norms folded into its first pass; the backward
+takes 32 × 32 tiles, is bound by shared memory's bandwidth inside each
+block and by its two launches.  S
+and the incoming gradient stay on the device, so a step never waits on
+a host read.  The multi-device ``ring`` route of ``fused.py`` waits for
+the multi-GPU work (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -46,8 +47,6 @@ from sparsify_clip_tpu_torch.ops import _build
 from sparsify_clip_tpu_torch.utils.numerics import fp32_matmul
 
 MAX_DIM = 2048  # the kernels refuse wider rows; the JAX package's callers stay below
-_ROWS_PER_BLOCK = 16
-_COL_TILE = 32
 _count_lock = threading.Lock()
 
 
@@ -101,21 +100,28 @@ def _count(fn) -> None:
 
 def lunif_fwd(x: torch.Tensor, t: float = 2.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward: the CUDA kernel for a CUDA tensor, the plain version for a
-    CPU tensor → (S, loss)."""
+    CPU tensor → (S, loss).
+
+    On the card S and the loss are views into the call's one buffer, which
+    also holds the kernel's scratch (a float a 16 × 16 tile): a saved S
+    keeps that buffer alive, and the loss that :class:`LunifFunction`
+    returns is a view made inside a custom Function, so an in-place op on
+    it raises."""
     n, d = _check(x)
     if x.device.type == "cpu":
         return lunif_fwd_reference(x, t)
-    blocks = -(-n // _ROWS_PER_BLOCK) * -(-n // _COL_TILE)
-    scratch = torch.empty(n + blocks, dtype=torch.float32, device=x.device)
-    s, loss = torch.empty(2, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    # one allocation: S, the loss, then the kernel's scratch (its blocks' partial sums)
+    buf = torch.empty(2 + lib.sparsify_lunif_fwd_scratch(n, d), dtype=torch.float32,
+                      device=x.device)
+    base = buf.data_ptr()
     err = _build.launch(
-        _build.library().sparsify_lunif_fwd, x.device, x.data_ptr(), n, d, float(t),
-        scratch.data_ptr(), scratch[n:].data_ptr(), s.data_ptr(), loss.data_ptr(),
+        lib.sparsify_lunif_fwd, x.device, x.data_ptr(), n, d, float(t), base + 8, base, base + 4,
     )
     if err:
         raise RuntimeError(f"lunif_fwd kernel launch failed with CUDA error {err}")
     _count(lunif_fwd)
-    return s, loss
+    return buf[0], buf[1]
 
 
 def lunif_bwd(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor, t: float = 2.0) -> torch.Tensor:

@@ -48,9 +48,11 @@ def _check_dx(got, want):
     torch.testing.assert_close(got, want, rtol=DX_TOL[0], atol=DX_TOL[1] * scale)
 
 
-# N: the 32-row tiles' edges (31, 33), ViT-L-14-336's batch (64) and the
-# ragged or large ones; D: ViT-B-32's 512 and ViT-L-14-336's 768 embeddings
-@pytest.mark.parametrize("n", [2, 31, 33, 64, 200, 256, 1000])
+# N: the forward's 16-row tiles' edges (15, 17), the backward's 32-row
+# tiles' edges (31, 33), ViT-L-14-336's batch (64) and the ragged or large
+# ones (1000: 63 x 63 forward tiles); D: ViT-B-32's 512 and
+# ViT-L-14-336's 768 embeddings
+@pytest.mark.parametrize("n", [2, 15, 16, 17, 31, 33, 64, 200, 256, 1000])
 @pytest.mark.parametrize("d,scale", [(16, None), (512, None), (512, 0.05), (768, None)])
 def test_lunif_kernels_match_plain_versions(device, n, d, scale):
     x = _rows(n, d, device, n + d, scale)
@@ -80,6 +82,24 @@ def test_lunif_bwd_takes_rows_the_16_byte_path_cannot(device, layout):
     dx = lunif_bwd(x, s, g)
     torch.cuda.synchronize()
     _check_dx(dx, lunif_bwd_reference(x, s, g))
+
+
+@pytest.mark.parametrize("n", [15, 17, 70])
+@pytest.mark.parametrize("layout", ["odd_width", "misaligned"])
+def test_lunif_fwd_takes_rows_the_16_byte_path_cannot(device, layout, n):
+    """D = 37 and rows starting one float into their storage take the
+    forward's 4-byte copies, at and past the edges of its 16-row tiles."""
+    d = 37 if layout == "odd_width" else 64
+    x = _rows(n, d, device, 6)
+    if layout == "misaligned":
+        flat = torch.zeros(n * d + 1, device=device)
+        x = flat[1:].view(n, d).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    s, loss = lunif_fwd(x)
+    want_s, want_loss = lunif_fwd_reference(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, want_s, rtol=S_RTOL, atol=0)
+    torch.testing.assert_close(loss, want_loss, rtol=0, atol=LOSS_ATOL)
 
 
 def test_lunif_kernels_are_deterministic(device):

@@ -180,9 +180,11 @@ def _embeddings(n, d, device, seed):
     return x / x.norm(dim=-1, keepdim=True)
 
 
-# N: the backward's 32-row tiles' edges (31, 33), ViT-L-14-336's batch (64)
-# and the ragged or large ones; D: ViT-B-32's 512, ViT-L-14-336's 768
-@pytest.mark.parametrize("n", [1, 2, 31, 33, 64, 256, 1000])
+# N: the forward's 16-row tiles' edges (15, 17), the backward's 32-row
+# tiles' edges (31, 33), ViT-L-14-336's batch (64) and the ragged or large
+# ones (1000: 63 x 63 forward tiles); D: ViT-B-32's 512,
+# ViT-L-14-336's 768
+@pytest.mark.parametrize("n", [1, 2, 15, 16, 17, 31, 33, 64, 256, 1000])
 @pytest.mark.parametrize("d", [16, 512, 768])
 def test_infonce_kernels_match_plain_versions(device, n, d):
     img, txt = _embeddings(n, d, device, 0), _embeddings(n, d, device, 1)
@@ -203,6 +205,31 @@ def test_infonce_kernels_match_plain_versions(device, n, d):
     torch.testing.assert_close(d_img, want_img, rtol=1e-4, atol=1e-5 * scale)
     torch.testing.assert_close(d_txt, want_txt, rtol=1e-4, atol=1e-5 * scale)
     torch.testing.assert_close(d_temp, want_temp, rtol=1e-4, atol=1e-5 * max(abs(want_temp.item()), 1.0))
+
+
+@pytest.mark.parametrize("d", [16, 37, 512, 768])
+def test_infonce_forward_and_backward_see_the_same_logits(device, d):
+    """At N = 1 both LSEs are Z_11 and the loss is 0; the gradients are then
+    exactly 0, which holds only if the backward's Z_11 equals the forward's
+    bit for bit (one fmaf chain over d ascending, then / T, in both)."""
+    img, txt = _embeddings(1, d, device, 10), _embeddings(1, d, device, 11)
+    temp, g = torch.tensor(0.07, device=device), torch.tensor(1.3, device=device)
+    loss, row_lse, col_lse = infonce_fwd(img, txt, temp)
+    d_img, d_temp = infonce_bwd_dimg(img, txt, temp, row_lse, col_lse, g)
+    d_txt = infonce_bwd_dtxt(img, txt, temp, row_lse, col_lse, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(row_lse, (img * txt).sum(-1) / temp, **NCE_TOL)
+    assert torch.equal(row_lse, col_lse) and loss.item() == 0.0
+    assert not d_img.any() and not d_txt.any() and d_temp.item() == 0.0
+
+
+def test_infonce_forward_two_runs_are_bit_identical(device):
+    """No atomics: the tiles' partials are merged in a fixed order."""
+    img, txt = _embeddings(300, 512, device, 12), _embeddings(300, 512, device, 13)
+    temp = torch.tensor(0.07, device=device)
+    runs = [infonce_fwd(img, txt, temp) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_infonce_backward_two_runs_are_bit_identical(device):
@@ -238,6 +265,25 @@ def test_infonce_backward_takes_rows_the_16_byte_path_cannot(device, layout):
     torch.testing.assert_close(d_img, want_img, rtol=1e-4, atol=1e-5 * scale)
     torch.testing.assert_close(d_txt, want_txt, rtol=1e-4, atol=1e-5 * scale)
     torch.testing.assert_close(d_temp, want_temp, rtol=1e-4, atol=1e-5 * max(abs(want_temp.item()), 1.0))
+
+
+@pytest.mark.parametrize("n", [15, 17, 70])
+@pytest.mark.parametrize("layout", ["odd_width", "misaligned"])
+def test_infonce_forward_takes_rows_the_16_byte_path_cannot(device, layout, n):
+    """D = 37 and rows starting one float into their storage take the
+    forward's 4-byte copies, at and past the edges of its 16-row tiles."""
+    d = 37 if layout == "odd_width" else 64
+    img, txt = _embeddings(n, d, device, 14), _embeddings(n, d, device, 15)
+    if layout == "misaligned":
+        flat = torch.zeros(n * d + 1, device=device)
+        txt = flat[1:].view(n, d).copy_(txt)
+        assert txt.is_contiguous() and txt.data_ptr() % 16
+    temp = torch.tensor(0.07, device=device)
+    got = infonce_fwd(img, txt, temp)
+    want = infonce_fwd_reference(img, txt, temp)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **NCE_TOL)
 
 
 def test_infonce_loss_gradients_match_autograd_of_the_plain_loss(device):
