@@ -105,12 +105,35 @@ Phases, one line each; any failure exits nonzero before the final line:
    step on the unfused blocks (kernels and all, no ``ln_qkv_fwd`` or
    ``ln_fast_bwd``);
 17. the eval inside that run, as phase 14, plus 36 fp32 ``ln_qkv_fwd`` a
-   batch and no ``ln_fast_bwd``.
+   batch and no ``ln_fast_bwd``;
+18. run the port's CLI (``sparsify_clip_tpu_torch.cli``) on
+   ``configs/smoke_tiny.yaml`` with ``--smoke`` in a temporary directory:
+   the JSONL records in the JAX CLI's order, three finite 13-metric evals,
+   the epoch and final npz and the full-state checkpoint, and the launches
+   of each step (4 ``mha_fwd``, 4 ``mha_bwd``, one of each InfoNCE kernel)
+   and of each eval (4 ``mha_fwd``);
+19. the CLI on a YAML written to a temporary directory: full-width
+   ViT-B-32 under exp 6 at batch 256, 2048 synthetic pairs (8 steps an
+   epoch), 512 eval pairs, one warm and one main epoch, a checkpoint
+   each epoch.  One train record a step, finite evals before training,
+   after each epoch and at the end, an npz each epoch, a final npz and
+   the full-state directory, and the launches of phase 9 in each warm
+   and each main step.  Then the host's loader alone (ms a batch), the
+   host→device copy of a batch, the CLI's step ms and pairs/s from its
+   meter, phase 9's step on a device-resident batch, and a
+   ``torch.profiler`` account of four CLI steps (kernel-busy ms, copy ms,
+   idle share), beside the card.  Last, the same CLI in a child process,
+   sent SIGTERM after its third train record (it must exit 0 with a
+   full-state save), then rerun with ``resume_checkpoint: "auto"``: its
+   final npz is compared with the uninterrupted run's (bit-identical or
+   not, printed) and held within phase 9's bf16 step tolerance.
 
 Depth cuts of the ViT-L-14-336 phases: 2 epochs of 4 steps (the
 reference trains 100); the eval set is 256 pairs in 4 batches of 64
 (the reference's 512), evaluated 3 times (before training and after
-each epoch).  The earlier phases run as they did.
+each epoch).  Phase 19 trains 2 epochs of 8 steps on 2048 synthetic
+pairs (the reference trains 100 epochs on COCO) and evaluates 512
+pairs 4 times.  The earlier phases run as they did.
 
 The last lines are a JSON object of per-kernel results (time, plain time,
 library time, the card's least time for the work, launches on the main
@@ -124,6 +147,7 @@ repository beside it, the script fails.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -207,6 +231,11 @@ HG_BWD_FP32_TOL = (1e-4, 1e-5)  # rtol, atol relative to the largest entry
 LN_BWD_STEP = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -23}
 LN_BWD_CANCEL = 1e-5            # of the largest entry, y and dx
 LN_BWD_GRAD_TOL = (1e-4, 1e-5)  # dscale, dbias: rtol, atol relative to the largest entry
+# the CLI phases (18-19): exp 6 from a YAML, 8 steps an epoch at batch 256
+CLI_TRAIN_SAMPLES = 2048
+CLI_PROFILE_STEPS = 4           # main-phase steps under torch.profiler
+CLI_PROCESS_TIMEOUT = 300       # seconds, each child CLI run
+REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1235,6 +1264,365 @@ def phase_ln_qkv_kernels(smi: str):
     return results
 
 
+def _jsonl(path: str) -> list:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def _check_evals(records: list, expected: int, what: str) -> list:
+    """The 13-metric eval records: ``expected`` of them, all finite."""
+    evals = [r for r in records if "forward_r1" in r]
+    metric_keys = [sorted(k for k in r if not k.startswith("_")) for r in evals]
+    if len(evals) != expected or any(len(k) != 13 for k in metric_keys) or not all(
+            np.isfinite([r[k] for k in keys]).all() for r, keys in zip(evals, metric_keys)):
+        raise AssertionError(f"{what}: expected {expected} finite 13-metric evals, got {evals}")
+    return evals
+
+
+class _PerStepCounts:
+    """Record the kernel launches of every train step and every eval the
+    CLI runs in this process (deltas of the wrappers' counts; the counts
+    themselves keep running)."""
+
+    def __init__(self):
+        from sparsify_clip_tpu_torch import eval as port_eval
+        from sparsify_clip_tpu_torch.train import TrainStep
+
+        self.steps, self.evals = [], []
+        step_call, evaluate = TrainStep.__call__, port_eval.evaluate_model
+
+        def counted_step(step_self, state, batch):
+            before, at = read_counts(), state.step
+            out = step_call(step_self, state, batch)
+            self.steps.append((at, _delta(before, read_counts())))
+            return out
+
+        def counted_eval(*args, **kwargs):
+            before = read_counts()
+            out = evaluate(*args, **kwargs)
+            self.evals.append(_delta(before, read_counts()))
+            return out
+
+        TrainStep.__call__, port_eval.evaluate_model = counted_step, counted_eval
+        self._restore = lambda: (setattr(TrainStep, "__call__", step_call),
+                                 setattr(port_eval, "evaluate_model", evaluate))
+
+    def close(self):
+        self._restore()
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _expect_launches(got, want, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, expected {want}")
+
+
+def _run_cli(argv, cwd: Optional[str] = None):
+    """The port's CLI in this process (cwd changed for the run)."""
+    import os
+
+    from sparsify_clip_tpu_torch import cli
+
+    here = os.getcwd()
+    try:
+        if cwd is not None:
+            os.chdir(cwd)
+        cli.cli(argv)
+    finally:
+        os.chdir(here)
+
+
+def phase_cli_smoke(smi: str):
+    """Phase 18: ``sparsify_clip_tpu_torch.cli`` on configs/smoke_tiny.yaml
+    with ``--smoke`` in a temporary directory."""
+    import os
+    import tempfile
+
+    from sparsify_clip_tpu_torch.models.clip import MODEL_REGISTRY
+
+    config_path = os.path.join(REPO, "configs", "smoke_tiny.yaml")
+    cfg = MODEL_REGISTRY["tiny-test"]
+    depth = cfg.vision_layers[0] + cfg.text_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        counter = _PerStepCounts()
+        t = time.perf_counter()
+        try:
+            reset_counts()
+            _run_cli(["--config", config_path, "--smoke"], cwd=tmp)
+            launches = read_counts()
+        finally:
+            counter.close()
+        seconds = time.perf_counter() - t
+        records = _jsonl(os.path.join(tmp, "logs", "smoke-tiny", "smoke-tiny-smoke.jsonl"))
+        files = sorted(os.listdir(os.path.join(tmp, "models", "smoke-tiny")))
+        full = sorted(os.listdir(os.path.join(tmp, "models", "smoke-tiny", "smoke-tiny-smoke")))
+    kinds = [r.get("event") or ("train" if "train_loss" in r else "eval" if "forward_r1" in r
+                                else "rate" if "step_time_ms" in r else next(
+                                    k for k in r if not k.startswith("_"))) for r in records]
+    expected_kinds = ["run_start", "eval", "train", "train", "rate", "eval", "train_time_s",
+                      "eval", "artifact", "run_end"]
+    if kinds != expected_kinds:
+        raise AssertionError(f"smoke_tiny records {kinds}, expected {expected_kinds}")
+    evals = _check_evals(records, 3, "smoke_tiny")
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"smoke_tiny losses {losses}")
+    if files != ["smoke-tiny-smoke", "smoke-tiny-smoke.npz", "smoke-tiny-smoke_epoch_1.npz"] \
+            or full != ["step_2.pt"]:
+        raise AssertionError(f"smoke_tiny files {files} {full}")
+    zero = dict.fromkeys(KERNELS, 0)
+    per_step = dict(zero, mha_fwd=depth, mha_bwd=depth, infonce_fwd=1, infonce_bwd_dimg=1,
+                    infonce_bwd_dtxt=1)
+    per_eval = dict(zero, mha_fwd=depth)  # one batch of 64 an eval
+    _expect_launches([c for _, c in counter.steps], [per_step] * 2, "smoke_tiny's steps")
+    _expect_launches(counter.evals, [per_eval] * 3, "smoke_tiny's evals")
+    _expect_launches(launches, {k: 2 * per_step[k] + 3 * per_eval[k] for k in KERNELS},
+                     "smoke_tiny")
+    log("phase 18 cli", ok=True, config="configs/smoke_tiny.yaml --smoke", records=len(records),
+        kinds=json.dumps(kinds), losses=json.dumps(losses),
+        eval_last=json.dumps(evals[-1]), launches=json.dumps(launches),
+        seconds=f"{seconds:.3f}", card=json.dumps(smi))
+    return dict(launches=launches)
+
+
+def _write_exp6_yaml(directory: str, **fields) -> str:
+    import os
+
+    config = dict(EXP6, run_name="exp6-vitb32", project_name="chip_smoke",
+                  num_train_samples=CLI_TRAIN_SAMPLES, num_test_samples=EVAL_PAIRS,
+                  epochs=EXP6_EPOCHS, save_checkpoint_every_n_epochs=1, dataset="synthetic",
+                  log_backend="jsonl", plot_embeddings=False,
+                  log_dir=os.path.join(directory, "logs"),
+                  checkpoint_dir=os.path.join(directory, "models"), **fields)
+    path = os.path.join(directory, "exp6.yaml")
+    with open(path, "w") as fh:  # flat key: value lines, as configs/*.yaml
+        for key, value in config.items():
+            fh.write(f"{key}: {json.dumps(value)}\n")
+    return path
+
+
+def _cli_process(yaml_path: str, log_path: Optional[str] = None, stop_after: int = 0):
+    """Run ``python3 -m sparsify_clip_tpu_torch.cli`` in a child process;
+    with ``stop_after``, send it SIGTERM once ``log_path`` holds that many
+    train records.  Returns (exit code, seconds, train records seen at the
+    signal)."""
+    import os
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=REPO, WANDB_MODE="disabled")
+    t = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "sparsify_clip_tpu_torch.cli", "--config",
+                             yaml_path], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    seen = None
+    output = []
+    reader = threading.Thread(target=lambda: output.extend(proc.stdout), daemon=True)
+    reader.start()
+    try:
+        while stop_after and proc.poll() is None:
+            n = 0
+            if os.path.exists(log_path):
+                n = sum(1 for r in _jsonl(log_path) if "train_loss" in r)
+            if n >= stop_after:
+                proc.send_signal(signal.SIGTERM)
+                seen = n
+                break
+            time.sleep(0.02)
+        rc = proc.wait(timeout=CLI_PROCESS_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    if rc != 0:
+        print("".join(output[-60:]), file=sys.stderr)
+    return rc, time.perf_counter() - t, seen
+
+
+def _profile_cli_steps(config, steps: int):
+    """The card's own account of the CLI's train loop: ``run_training``
+    fed by the CLI's loader (threads, host transforms, tokenizer, the
+    host→device copy) over ``steps`` steps under ``torch.profiler`` →
+    kernel-busy ms, host→device copy ms and window ms a step."""
+    import dataclasses
+    import itertools
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparsify_clip_tpu_torch.data import dataset_loader
+    from sparsify_clip_tpu_torch.train import create_train_setup, run_training
+
+    config = dataclasses.replace(config, epochs=1)
+    train_loader, _ = dataset_loader(config, image_size=224)
+    setup = create_train_setup(config, steps_per_epoch=len(train_loader), device="cuda")
+    setup.state.step = len(train_loader) * config.only_lunif_epochs  # a main-phase step
+    warm = list(itertools.islice(train_loader.epoch(1), 2))
+    run_training(setup, lambda epoch: iter(warm), log_fn=lambda m: None)  # cuBLAS, allocator
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run_training(setup, lambda epoch: itertools.islice(train_loader.epoch(2), steps),
+                     log_fn=lambda m: None)
+        wall = time.perf_counter() - t
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith("Optimizer.")
+              and not getattr(e, "is_user_annotation", False)]
+    copies = [e for e in events if "Memcpy HtoD" in e.name]
+    kernels = [e for e in events if "Memcpy" not in e.name and "Memset" not in e.name]
+
+    def union_us(evs):
+        spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+        if not spans:
+            return 0.0
+        busy, (cur_s, cur_e) = 0.0, spans[0]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        return busy + cur_e - cur_s
+
+    return dict(kernel_ms=union_us(kernels) / 1e3 / steps, copy_ms=union_us(copies) / 1e3 / steps,
+                busy_ms=union_us(kernels + copies) / 1e3 / steps, wall_ms=wall * 1e3 / steps,
+                copies=len(copies) / steps)
+
+
+def phase_cli_exp6(smi: str, device_resident: dict):
+    """Phase 19: the CLI on a YAML of full-width ViT-B-32 under exp 6 at
+    batch 256, then SIGTERM and ``resume_checkpoint: "auto"`` in child
+    processes, and where the time of the CLI step goes."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from sparsify_clip_tpu_torch.checkpoints import collect_host_arrays
+    from sparsify_clip_tpu_torch.config import load_config
+    from sparsify_clip_tpu_torch.data import dataset_loader
+    from sparsify_clip_tpu_torch.models.clip import create_model
+    from sparsify_clip_tpu_torch.train import batch_to_device
+
+    spe = CLI_TRAIN_SAMPLES // EXP6["batch_size"]
+    run = "exp6-vitb32"
+    with tempfile.TemporaryDirectory() as tmp:
+        main_dir, stop_dir = os.path.join(tmp, "main"), os.path.join(tmp, "stopped")
+        os.makedirs(main_dir)
+        os.makedirs(stop_dir)
+        yaml_path = _write_exp6_yaml(main_dir)
+        config = load_config(yaml_path)
+
+        # the loader alone: decode, crop, resize, flip, normalize and
+        # tokenize 256 pairs at 224 px, four threads, as the CLI builds it
+        train_loader, _ = dataset_loader(config, image_size=224)
+        t = time.perf_counter()
+        batches = list(train_loader.epoch(0))
+        loader_ms = (time.perf_counter() - t) / len(batches) * 1e3
+        one = batches[0]
+        copy_ms = cuda_ms(lambda: batch_to_device(one, torch.device("cuda")), iters=10, warmup=2)
+        del batches
+
+        # the uninterrupted run, in this process
+        counter = _PerStepCounts()
+        t = time.perf_counter()
+        try:
+            reset_counts()
+            _run_cli(["--config", yaml_path])
+            launches = read_counts()
+        finally:
+            counter.close()
+        cli_seconds = time.perf_counter() - t
+        records = _jsonl(os.path.join(main_dir, "logs", f"{run}.jsonl"))
+        step_records = [r for r in records if "train_loss" in r]
+        if len(step_records) != EXP6_EPOCHS * spe or not np.isfinite(
+                [r["train_loss"] for r in step_records]).all():
+            raise AssertionError(f"expected {EXP6_EPOCHS * spe} finite train records, "
+                                 f"got {step_records}")
+        evals = _check_evals(records, EXP6_EPOCHS + 2, "exp 6")  # before, each epoch, final
+        models = os.path.join(main_dir, "models")
+        want_files = sorted([run, f"{run}.npz"] + [f"{run}_epoch_{e + 1}.npz"
+                                                   for e in range(EXP6_EPOCHS)])
+        full_steps = sorted(os.listdir(os.path.join(models, run)))
+        if sorted(os.listdir(models)) != want_files or full_steps != sorted(
+                f"step_{spe * (e + 1)}.pt" for e in range(EXP6_EPOCHS)):
+            raise AssertionError(f"files {sorted(os.listdir(models))} {full_steps}")
+        zero = dict.fromkeys(KERNELS, 0)
+        warm = dict(zero, mha_fwd=24, mha_bwd=24, lunif_fwd=2, lunif_bwd=2)
+        main = dict(zero, mha_fwd=24, mha_bwd=24, infonce_fwd=1, infonce_bwd_dimg=1,
+                    infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
+        want_steps = [(k, warm if k < spe else main) for k in range(EXP6_EPOCHS * spe)]
+        per_eval = dict(zero, mha_fwd=24 * (EVAL_PAIRS // EXP6["batch_size"]))
+        _expect_launches(counter.steps, want_steps, "the exp-6 CLI's steps")
+        _expect_launches(counter.evals, [per_eval] * (EXP6_EPOCHS + 2), "the exp-6 CLI's evals")
+        total = {k: spe * (warm[k] + main[k]) + (EXP6_EPOCHS + 2) * per_eval[k] for k in KERNELS}
+        _expect_launches(launches, total, "the exp-6 CLI")
+        rates = [r for r in records if "step_time_ms" in r]
+        log("phase 19 cli", ok=True, model=config.model, loss_type=config.loss_type,
+            batch=config.batch_size, steps=len(step_records), evals=len(evals),
+            losses=json.dumps([r["train_loss"] for r in step_records]),
+            eval_first=json.dumps(evals[0]), eval_last=json.dumps(evals[-1]),
+            files=json.dumps(want_files), full_state=json.dumps(full_steps),
+            launches_warm_step=json.dumps(warm), launches_main_step=json.dumps(main),
+            launches=json.dumps(launches), seconds=f"{cli_seconds:.3f}")
+
+        # where the time of the CLI step goes, from the card's own readings
+        prof = _profile_cli_steps(config, CLI_PROFILE_STEPS)
+        main_rate = rates[-1]
+        idle = 1 - prof["busy_ms"] / main_rate["step_time_ms"]
+        log("phase 19 rate", loader_ms_per_batch=f"{loader_ms:.3f}",
+            host_to_device_ms=f"{copy_ms:.3f}",
+            cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in rates]),
+            cli_pairs_per_s=json.dumps([round(r["pairs_per_sec"], 1) for r in rates]),
+            device_resident_step_ms=json.dumps({k: round(v["step_ms"], 3)
+                                                for k, v in device_resident.items()}),
+            profiled_kernel_ms=f"{prof['kernel_ms']:.3f}",
+            profiled_copy_ms=f"{prof['copy_ms']:.3f}", profiled_busy_ms=f"{prof['busy_ms']:.3f}",
+            profiled_wall_ms=f"{prof['wall_ms']:.3f}", copies_per_step=prof["copies"],
+            idle_share_profiled=f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}",
+            idle_share_vs_cli_step=f"{idle:.4f}", card=json.dumps(smi))
+
+        # SIGTERM after the third train record, then "auto" resume
+        stop_yaml = _write_exp6_yaml(stop_dir)
+        stop_log = os.path.join(stop_dir, "logs", f"{run}.jsonl")
+        rc, stop_seconds, seen = _cli_process(stop_yaml, stop_log, stop_after=3)
+        stopped = _jsonl(stop_log)
+        saved = sorted(os.listdir(os.path.join(stop_dir, "models", run)))
+        if rc != 0 or not any(r.get("preempted") for r in stopped) or len(saved) != 1:
+            raise AssertionError(f"the SIGTERM run exited {rc} with {saved}")
+        stopped_at = len([r for r in stopped if "train_loss" in r])
+        resume_yaml = _write_exp6_yaml(stop_dir, resume_checkpoint="auto")
+        rc, resume_seconds, _ = _cli_process(resume_yaml)
+        resumed = [r for r in _jsonl(stop_log) if "train_loss" in r]
+        if rc != 0 or len(resumed) != EXP6_EPOCHS * spe:
+            raise AssertionError(f"the resumed run exited {rc} with {len(resumed)} train records")
+        with np.load(os.path.join(models, f"{run}.npz")) as a, \
+                np.load(os.path.join(stop_dir, "models", f"{run}.npz")) as b:
+            full, after = {k: a[k] for k in a.files}, {k: b[k] for k in b.files}
+    init = collect_host_arrays(create_model(config.model, dtype=torch.bfloat16, device="cuda",
+                                            seed=config.seed, param_dtype=torch.float32))
+    identical = full.keys() == after.keys() and all(np.array_equal(full[k], after[k]) for k in full)
+    # the bf16 step tolerance of phase 9: each tensor's update over the run
+    # in the same direction, and the last losses within TRAIN_LOSS_RTOL
+    cosines = {}
+    for key in full:
+        u, v = (full[key] - init[key]).ravel(), (after[key] - init[key]).ravel()
+        denom = float(np.linalg.norm(u) * np.linalg.norm(v))
+        cosines[key] = 1.0 if denom == 0 else float(u @ v) / denom
+    worst = min(cosines, key=cosines.get)
+    loss_gap = _rel_gap(resumed[-1]["train_loss"], step_records[-1]["train_loss"])
+    log("phase 19 resume", sigterm_after_records=seen, stopped_at_step=stopped_at,
+        full_state=json.dumps(saved), stop_run_s=f"{stop_seconds:.3f}",
+        resume_run_s=f"{resume_seconds:.3f}", bit_identical=identical,
+        min_update_cosine=cosines[worst], min_at=worst, min_cosine=TRAIN_MIN_GRAD_COSINE,
+        last_loss_rel_gap=loss_gap, rtol=TRAIN_LOSS_RTOL)
+    if cosines[worst] < TRAIN_MIN_GRAD_COSINE or loss_gap > TRAIN_LOSS_RTOL:
+        raise AssertionError("the resumed run and the uninterrupted run disagree")
+    return dict(launches=launches, loader_ms=loader_ms, copy_ms=copy_ms, rates=rates,
+                profile=prof)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -1319,6 +1707,10 @@ def main() -> int:
                        lunif_fwd=1, lunif_bwd=1),
         per_eval_batch=dict(mha_fwd_head_group=24, mha_fwd=12, ln_qkv_fwd=36),
         overrides=dict(fused_ln_qkv=True))
+    torch.cuda.empty_cache()
+
+    cli_smoke = phase_cli_smoke(smi)
+    cli_exp6 = phase_cli_exp6(smi, exp6["rates"])
 
     sources = {
         "mha_fwd": ("ops/csrc/mha_fwd.cu", "sparsify_clip_tpu/ops/pallas_attention.py:67",
@@ -1370,6 +1762,8 @@ def main() -> int:
             "serve_l336": serve_l336["launches"][counter],
             "train_exp6_l336_fused": sum(c[counter] for c in exp6_fused["train"]),
             "eval_l336_fused": sum(c[counter] for c in exp6_fused["eval"]),
+            "cli_smoke": cli_smoke["launches"][counter],
+            "cli_exp6": cli_exp6["launches"][counter],
         }
         by_path = {path: count for path, count in by_path.items() if on_path(path)}
         entries.append({

@@ -8,7 +8,9 @@ schedules, the uniformity/alignment/centroid losses, loss dispatch with
 the warm phase, AdamW step, epoch loop) and the per-epoch eval (13
 metrics over an fp32 twin), with hand-written CUDA kernels for the
 attention forward and backward, the fused InfoNCE and the fused
-uniformity loss.  See README.md ("PyTorch port").
+uniformity loss; and the training CLI (tokenizer, data loaders, JSONL
+logging, checkpoints, exact resume, preemption).  See README.md
+("PyTorch port").
 """
 
 from sparsify_clip_tpu_torch.checkpoints import load_jax_params, load_weights

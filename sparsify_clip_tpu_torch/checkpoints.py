@@ -1,4 +1,5 @@
-"""Weight bridge: JAX-trained weights into the port's modules.
+"""Checkpoints: the weight bridge to and from the JAX package, and the
+port's full train state for exact resume.
 
 The JAX package writes weights as a flat ``{slash/path: ndarray}`` dict
 (``checkpoints.collect_host_arrays`` / ``save_weights``, an ``.npz``),
@@ -16,12 +17,21 @@ maps each path onto the port's open_clip parameter name and layout:
 A missing key, an extra key or a wrong shape raises before any weight
 is written, so a partial load cannot happen.  Each array is cast to its
 parameter's type on the way in (the compute type for serving weights).
+:func:`save_weights` writes the inverse: an ``.npz`` under the JAX flat
+keys, in the JAX layouts, which the JAX ``load_weights`` reads.
+
+The full state (:func:`save_full`, :func:`restore_full`) keeps the JAX
+names and the ``<checkpoint_dir>/<run_name>/step_<N>`` layout, in the
+port's own format: one ``torch.save`` a step (``step_<N>.pt``) of the
+model's parameters, the AdamW state, the temperature, the step and the
+config, written under a temporary name and then renamed.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Mapping, Tuple
+import threading
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,3 +104,172 @@ def load_weights(model: nn.Module, path: str) -> nn.Module:
         path += ".npz"
     with np.load(path) as data:
         return load_jax_params(model, {k: data[k] for k in data.files})
+
+
+def _dense_inv(a: np.ndarray) -> np.ndarray:
+    return a.T
+
+
+def _conv_inv(a: np.ndarray) -> np.ndarray:
+    return a.transpose(2, 3, 1, 0)  # OIHW → HWIO
+
+
+def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, Callable[[np.ndarray], np.ndarray]]]:
+    """Port parameter name → (JAX flat path, array layout transform): the
+    inverse of :func:`torch_name`, by module type."""
+    from sparsify_clip_tpu_torch.models.layers import LayerNorm
+
+    out = {}
+    for mod_name, module in model.named_modules():
+        for p_name, _ in module.named_parameters(recurse=False):
+            parts = [p for p in mod_name.split(".") if p]
+            fn = _identity
+            if isinstance(module, LayerNorm):
+                parts += ["ln", "scale" if p_name == "weight" else p_name]
+            elif p_name == "in_proj_weight":
+                parts, fn = parts + ["in_proj", "kernel"], _dense_inv
+            elif p_name == "in_proj_bias":
+                parts += ["in_proj", "bias"]
+            elif isinstance(module, nn.Conv2d) and p_name == "weight":
+                parts, fn = parts + ["kernel"], _conv_inv
+            elif isinstance(module, nn.Linear) and p_name == "weight":
+                parts, fn = parts + ["kernel"], _dense_inv
+            elif not isinstance(module, nn.Embedding):  # token_embedding: the table itself
+                parts.append(p_name)
+            path = "/".join(parts).replace("resblocks/", "resblock_")
+            name = f"{mod_name}.{p_name}" if mod_name else p_name
+            if torch_name(path)[0] != name:
+                raise AssertionError(f"no JAX path for {name}: {path} maps back to "
+                                     f"{torch_name(path)[0]}")
+            out[name] = (path, fn)
+    return out
+
+
+def collect_host_arrays(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The model's parameters as the JAX flat dict ``{slash/path: fp32
+    ndarray}``, in the JAX layouts."""
+    params = dict(model.named_parameters())
+    return {path: np.ascontiguousarray(fn(params[name].detach().float().cpu().numpy()))
+            for name, (path, fn) in jax_paths(model).items()}
+
+
+def save_weights(model: nn.Module, path: str) -> str:
+    """Weights-only ``.npz`` under the JAX flat keys (the reference's
+    periodic ``torch.save(model.state_dict())``), readable by the JAX
+    ``load_weights`` and by :func:`load_weights`."""
+    path = os.path.abspath(os.path.expanduser(path))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **collect_host_arrays(model))
+    return path
+
+
+# ---------------------------------------------------------------- full state
+
+
+def _to_host(obj: Any) -> Any:
+    """A copy of ``obj`` with every tensor detached and copied to host memory."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _snapshot(state, config: Optional[Any] = None) -> Dict[str, Any]:
+    return {
+        "step": int(state.step),
+        "model": _to_host(state.model.state_dict()),
+        "optimizer": _to_host(state.optimizer.state_dict()),
+        "temperature": _to_host(state.temperature),
+        "config": config.to_dict() if config is not None else None,
+    }
+
+
+def _step_path(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(os.path.expanduser(directory)), f"step_{step}.pt")
+
+
+def _write(payload: Dict[str, Any], path: str) -> str:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def save_full(state, directory: str, config: Optional[Any] = None) -> str:
+    """Save the full TrainState (model, AdamW, temperature, step) and the
+    config as ``directory/step_<N>.pt``."""
+    return _write(_snapshot(state, config), _step_path(directory, int(state.step)))
+
+
+_async_saves: List[threading.Thread] = []
+_async_errors: List[BaseException] = []
+
+
+def save_full_async(state, directory: str, config: Optional[Any] = None) -> str:
+    """Non-blocking :func:`save_full`: the state is copied to host memory
+    now, and a thread writes the file, so the train loop keeps stepping.
+    Call :func:`wait_for_async_saves` before reading the files or exiting."""
+    payload = _snapshot(state, config)
+    path = _step_path(directory, payload["step"])
+
+    def write():
+        try:
+            _write(payload, path)
+        except BaseException as exc:  # re-raised by wait_for_async_saves
+            _async_errors.append(exc)
+
+    thread = threading.Thread(target=write, name="checkpoint-writer", daemon=True)
+    thread.start()
+    _async_saves.append(thread)
+    return path
+
+
+def wait_for_async_saves() -> None:
+    """Block until every :func:`save_full_async` has written its file;
+    re-raise the first error of one that failed."""
+    while _async_saves:
+        _async_saves.pop(0).join()
+    if _async_errors:
+        exc = _async_errors[0]
+        _async_errors.clear()
+        raise RuntimeError("an asynchronous checkpoint failed") from exc
+
+
+def _steps(directory: str) -> List[Tuple[int, str]]:
+    path = os.path.abspath(os.path.expanduser(directory))
+    if not os.path.isdir(path):
+        return []
+    found = []
+    for name in os.listdir(path):
+        stem, ext = os.path.splitext(name)
+        if ext == ".pt" and stem.startswith("step_") and stem[5:].isdigit():
+            found.append((int(stem[5:]), os.path.join(path, name)))
+    return sorted(found)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = _steps(directory)
+    return steps[-1][0] if steps else None
+
+
+def restore_full(directory_or_path: str, state):
+    """Restore a :func:`save_full` checkpoint into ``state`` (a TrainState
+    of the same model and optimizer, e.g. a fresh one) in place, and
+    return it.  A directory restores its latest step."""
+    path = os.path.abspath(os.path.expanduser(directory_or_path))
+    if os.path.isdir(path):
+        steps = _steps(path)
+        if not steps:
+            raise FileNotFoundError(f"no step_*.pt checkpoints under {path}")
+        path = steps[-1][1]
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    with torch.no_grad():
+        state.temperature.copy_(payload["temperature"])
+    state.step = int(payload["step"])
+    return state

@@ -10,8 +10,8 @@ The reference's 13-metric dict, with its keys and 4-decimal rounding
 Ranks are strictly-greater counts against the ground-truth score, as on
 the JAX side (the reference sorts; the two agree for distinct scores),
 over the similarity ``txt @ img.T`` in fp32 (TF32 off).  Evaluation runs
-on one device; the JAX ``mesh``/multi-host eval waits for ROADMAP Queue 1
-item 11.
+on one device; the JAX ``mesh``/multi-host eval waits for ROADMAP Queue 1,
+'Multi-GPU'.
 """
 
 from __future__ import annotations

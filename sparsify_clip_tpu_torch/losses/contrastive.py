@@ -8,7 +8,8 @@ learnable it is an unconstrained parameter initialised at 0.1.
 This is the plain version, differentiated by autograd: the numerics
 golden of the fused kernel (:mod:`sparsify_clip_tpu_torch.ops.infonce`)
 and the loss of the plain comparison step of ``chip_smoke.py``.  The soft-target
-variant (``contrastive_loss_roberta``) waits for ROADMAP Queue 1 item 2.
+variant (``contrastive_loss_roberta``) waits for ROADMAP Queue 1,
+'Rest of the losses, and the step knobs'.
 """
 
 from __future__ import annotations

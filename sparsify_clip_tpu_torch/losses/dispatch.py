@@ -5,7 +5,8 @@ The table keeps every ``loss_type`` string of the reference
 (sparsify_clip.py:778-930) and of the JAX package, spelled exactly.
 Every string runs except ``anchor-roberta`` (the soft-target loss) and
 ``siglip``, which raise :class:`NotImplementedError` naming what they
-wait for (ROADMAP Queue 1 item 2).
+wait for (ROADMAP Queue 1, 'Rest of the losses, and the step
+knobs').
 
 **Dead-elif semantics preserved** (SURVEY.md §2.6): the reference tests
 the identical string ``"only_lunif_n_then_anchor+lalign+BETA*lunif(centroids)"``
@@ -161,7 +162,8 @@ def _anchor_plus_lunif(img, txt, ctx: LossContext):
 _DISPATCH: Dict[str, Union[Tuple[LossFn, bool], str]] = {
     "anchor": (_anchor_only, False),
     "anchor-roberta": "the soft-target loss contrastive_loss_roberta and the host "
-                      "soft-target provider (ROADMAP Queue 1 item 2)",
+                      "soft-target provider "
+                      "(ROADMAP Queue 1, 'Rest of the losses, and the step knobs')",
     "only_lunif_n_then_anchor+lalign+lunif(text)+lunif(img)": (
         _anchor_lalign_lunif_modality, True),
     "only_lunif_n_then_anchor+lalign+lunif(centroids)": (_anchor_lalign_lunif_centroids, True),
@@ -179,7 +181,8 @@ _DISPATCH: Dict[str, Union[Tuple[LossFn, bool], str]] = {
     "__dead__anchor+lalign+BETA*lunif(centroids)": (
         _anchor_lalign_beta_lunif_centroids_dead, True),
     "lunif": (_warm_lunif, False),
-    "siglip": "losses/sigmoid.py (ROADMAP Queue 1 item 2)",
+    "siglip": "losses/sigmoid.py "
+              "(ROADMAP Queue 1, 'Rest of the losses, and the step knobs')",
     "anchor+lunif": (_anchor_plus_lunif, False),
 }
 

@@ -193,6 +193,7 @@ def create_model(
     seed: int = 0,
     param_dtype: Optional[torch.dtype] = None,
     fused_ln_qkv: bool = False,
+    image_size: Optional[int] = None,
 ) -> CLIP:
     """Build a registry model with fresh weights, in eval mode, on
     ``device`` (the card unless the caller asks for the CPU).
@@ -207,6 +208,8 @@ def create_model(
     ``dtype`` where they are used, as on the JAX side.  ``fused_ln_qkv``
     fuses every block's ln_1 into its in_proj (the JAX ``create_model``'s
     knob, clip.py:267); the parameters are the same either way.
+    ``image_size`` overrides the registry's input resolution (the vision
+    tower's positional embedding follows it), as the JAX ``create_model``'s.
     """
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model {name!r}. Known: {sorted(MODEL_REGISTRY)}")
@@ -217,7 +220,10 @@ def create_model(
             "is available; pass device='cpu' to build it on the CPU"
         )
     with torch.device("meta"):
-        model = CLIP(MODEL_REGISTRY[name], dtype=dtype, fused_ln_qkv=fused_ln_qkv)
+        cfg = MODEL_REGISTRY[name]
+        if image_size is not None:
+            cfg = dataclasses.replace(cfg, image_size=image_size)
+        model = CLIP(cfg, dtype=dtype, fused_ln_qkv=fused_ln_qkv)
     model.to_empty(device="cpu")
     model.reset_parameters(torch.Generator().manual_seed(seed))
     for module in model.modules():

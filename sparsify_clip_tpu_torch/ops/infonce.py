@@ -20,7 +20,7 @@ Z = img·txtᵀ / T with the raw temperature T as the divisor.
 The temperature and the incoming gradient stay on the device: the
 kernels read them through pointers, so a step never waits on a host read.
 The multi-device ``ring`` and ``replicate`` routes of ``fused.py`` wait
-for the multi-GPU work (ROADMAP Queue 1 item 11).
+for the multi-GPU work (ROADMAP Queue 1, 'Multi-GPU').
 """
 
 from __future__ import annotations

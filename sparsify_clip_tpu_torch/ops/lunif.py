@@ -32,7 +32,7 @@ takes 32 × 32 tiles, is bound by shared memory's bandwidth inside each
 block and by its two launches.  S
 and the incoming gradient stay on the device, so a step never waits on
 a host read.  The multi-device ``ring`` route of ``fused.py`` waits for
-the multi-GPU work (ROADMAP Queue 1 item 11).
+the multi-GPU work (ROADMAP Queue 1, 'Multi-GPU').
 """
 
 from __future__ import annotations

@@ -37,7 +37,7 @@ import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,17 +52,18 @@ __all__ = [
 ]
 
 
-def replicate_clip_encoder(model, devices=None):
+def replicate_clip_encoder(model, tokenizer=None, devices=None):
     """One :class:`~sparsify_clip_tpu_torch.inference.CLIPEncoder` per
-    device, each over its own copy of the model.  ``devices`` defaults
-    to every CUDA device; with none, it raises."""
+    device, each over its own copy of the model and sharing
+    ``tokenizer``.  ``devices`` defaults to every CUDA device; with none,
+    it raises."""
     from sparsify_clip_tpu_torch.inference import CLIPEncoder
 
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     if not devices:
         raise RuntimeError("no CUDA device to replicate onto; pass devices=")
-    return [CLIPEncoder(copy.deepcopy(model).to(dev)) for dev in devices]
+    return [CLIPEncoder(copy.deepcopy(model).to(dev), tokenizer) for dev in devices]
 
 
 def bucket_ladder(max_batch: int) -> List[int]:
@@ -104,8 +105,11 @@ class BatchingEncoderServer:
     ``encode_images((B,H,W,3) np) -> (B,D) tensor`` and
     ``encode_tokens((B,T) int np) -> (B,D) tensor``; a ``device``
     attribute names the device its runner thread selects.  Raw strings
-    wait for the tokenizer's port, and the raw-uint8 image path of the
-    JAX server for the port of ``ops/image.py`` (ROADMAP).
+    (:meth:`submit_text`) are tokenized on the submitting thread by
+    ``tokenizer``, or by the first encoder's ``tokenizer`` attribute, so
+    the dispatcher only moves fixed-shape arrays.  The raw-uint8 image
+    path of the JAX server waits for the port of ``ops/image.py``
+    (ROADMAP Queue 1, 'Rest of inference, serving and export').
 
     One dispatcher thread serves both modalities, always working the
     queue whose head request has waited longest.  Formed batches land
@@ -115,6 +119,7 @@ class BatchingEncoderServer:
     def __init__(
         self,
         encoder: Any,
+        tokenizer: Optional[Callable[[List[str]], np.ndarray]] = None,
         max_batch: int = 256,
         max_wait_ms: float = 5.0,
         buckets: Optional[Sequence[int]] = None,
@@ -128,6 +133,9 @@ class BatchingEncoderServer:
             {"image": enc.encode_images, "tokens": enc.encode_tokens} for enc in encoders
         ]
         self._devices = [getattr(enc, "device", None) for enc in encoders]
+        self.tokenizer = tokenizer if tokenizer is not None else getattr(
+            encoders[0], "tokenizer", None
+        )
         # expected request shapes: one wrong-sized payload must fail ITS
         # request at submit time, not every co-batched request at np.stack
         cfg = getattr(getattr(encoders[0], "model", None), "cfg", None)
@@ -196,6 +204,13 @@ class BatchingEncoderServer:
                 f"{tokens.shape}: pad/truncate to the model's context length"
             )
         return self._submit("tokens", tokens)
+
+    def submit_text(self, text: str) -> Future:
+        """Tokenize on the calling thread, then queue the token row."""
+        if self.tokenizer is None:
+            raise ValueError("pass a tokenizer to submit raw strings")
+        row = np.asarray(self.tokenizer([text]))[0]
+        return self._submit("tokens", row.astype(np.int32))
 
     def warmup(self, image_shape: Sequence[int], context_length: int) -> None:
         """Run one dummy batch per (modality, bucket, replica), so the

@@ -18,7 +18,7 @@ step returns the same state object, so the JAX call shape
 ``state, metrics = train_step(state, batch)`` carries over.
 
 One device: the mesh, sharding, multi-host and pipeline paths wait for
-ROADMAP Queue 1 item 11, and every config knob the step does not support
+ROADMAP Queue 1, 'Multi-GPU', and every config knob the step does not support
 yet raises (see ``_NOT_PORTED``).  Entry points run on the card unless the
 caller asks for the CPU.
 """
@@ -44,21 +44,25 @@ Metrics = Dict[str, Union[torch.Tensor, float]]
 # Config knobs the port's step does not run yet → what they wait for.
 _NOT_PORTED: List[Tuple[Callable[[ExperimentConfig], bool], str]] = [
     (lambda c: c.grad_accum_steps > 1,
-     "grad_accum_steps > 1 (GradCache accumulation, ROADMAP Queue 1 item 3)"),
+     "grad_accum_steps > 1 (GradCache accumulation, "
+     "ROADMAP Queue 1, 'Rest of the losses, and the step knobs')"),
     (lambda c: c.adam_mu_dtype != "float32",
-     "adam_mu_dtype: bfloat16 (ROADMAP Queue 1 item 3)"),
-    (lambda c: c.device_augment, "device_augment (ops/image.py, ROADMAP Queue 1 item 9)"),
+     "adam_mu_dtype: bfloat16 (ROADMAP Queue 1, 'Rest of the losses, and the step knobs')"),
+    (lambda c: c.device_augment,
+     "device_augment (ops/image.py, ROADMAP Queue 1, 'Rest of inference, serving and export')"),
     (lambda c: c.sparse_projection != "none",
-     "sparse_projection (ops/sparsify.py, ROADMAP Queue 1 item 13)"),
-    (lambda c: c.remat, "remat (ROADMAP Queue 1 item 13)"),
-    (lambda c: c.onehot_embed, "onehot_embed (ROADMAP Queue 1 item 13)"),
-    (lambda c: not c.ln_fp32, "ln_fp32: false (ROADMAP Queue 1 item 13)"),
-    (lambda c: c.pipeline, "pipeline (parallel/pipeline.py, ROADMAP Queue 1 item 11)"),
-    (lambda c: c.fsdp, "fsdp (ROADMAP Queue 1 item 11)"),
-    (lambda c: c.mesh_model > 1, "mesh_model > 1 (tensor parallelism, ROADMAP Queue 1 item 11)"),
-    (lambda c: c.multihost, "multihost (ROADMAP Queue 1 item 11)"),
+     "sparse_projection (ops/sparsify.py, ROADMAP Queue 1, 'Extensions and knobs')"),
+    (lambda c: c.remat, "remat (ROADMAP Queue 1, 'Extensions and knobs')"),
+    (lambda c: c.onehot_embed, "onehot_embed (ROADMAP Queue 1, 'Extensions and knobs')"),
+    (lambda c: not c.ln_fp32, "ln_fp32: false (ROADMAP Queue 1, 'Extensions and knobs')"),
+    (lambda c: c.pipeline, "pipeline (parallel/pipeline.py, ROADMAP Queue 1, 'Multi-GPU')"),
+    (lambda c: c.fsdp, "fsdp (ROADMAP Queue 1, 'Multi-GPU')"),
+    (lambda c: c.mesh_model > 1,
+     "mesh_model > 1 (tensor parallelism, ROADMAP Queue 1, 'Multi-GPU')"),
+    (lambda c: c.multihost, "multihost (ROADMAP Queue 1, 'Multi-GPU')"),
     (lambda c: bool(c.soft_targets_provider),
-     "soft_targets_provider (anchor-roberta, ROADMAP Queue 1 item 2)"),
+     "soft_targets_provider (anchor-roberta, "
+     "ROADMAP Queue 1, 'Rest of the losses, and the step knobs')"),
 ]
 
 
@@ -147,6 +151,8 @@ class TrainStep:
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         loss, aux, beta, alpha = self.loss_and_grads(state, batch)
+        if self.config.debug_nans:
+            check_finite(state, loss)
         state.optimizer.step()
         state.step += 1
         # device scalars stay on the device: reading them is the caller's
@@ -161,6 +167,18 @@ class TrainStep:
             **{k: v.detach() for k, v in aux.items()},
         }
         return state, metrics
+
+
+def check_finite(state: TrainState, loss: torch.Tensor) -> None:
+    """``debug_nans``: raise :class:`FloatingPointError` on a non-finite
+    loss or gradient, before the optimizer applies it (the JAX package
+    sets ``jax_debug_nans``).  Reads the device, so it costs a sync a step."""
+    if not torch.isfinite(loss).item():
+        raise FloatingPointError(f"non-finite loss {loss.item()} at step {state.step}")
+    named = list(state.model.named_parameters()) + [("temperature", state.temperature)]
+    for name, p in named:
+        if p.grad is not None and not torch.isfinite(p.grad).all().item():
+            raise FloatingPointError(f"non-finite gradient of {name} at step {state.step}")
 
 
 @dataclasses.dataclass
@@ -184,6 +202,7 @@ def create_train_setup(
     config: ExperimentConfig,
     steps_per_epoch: int,
     device: Union[str, torch.device] = "cuda",
+    image_size: Optional[int] = None,
 ) -> TrainSetup:
     """Assemble model, state and step on ``device`` (the card unless the
     caller asks for the CPU; without a card the default raises).
@@ -194,7 +213,8 @@ def create_train_setup(
     ``steps_per_epoch`` comes from the data pipeline (len(train_loader)
     in the reference, sparsify_clip.py:734).  Weights are drawn from
     ``config.seed`` by :func:`create_model`, in fp32, with bf16 compute
-    when ``config.fp16``.
+    when ``config.fp16``; ``image_size`` overrides the model's input
+    resolution.
     """
     device = torch.device(device)
     if device.type == "cuda" and not config.use_pallas:
@@ -211,7 +231,8 @@ def create_train_setup(
     train_step = TrainStep(config, steps_per_epoch, total_steps, schedule)  # refuses early
     dtype = torch.bfloat16 if config.fp16 else torch.float32
     model = create_model(config.model, dtype=dtype, device=device, seed=config.seed,
-                         param_dtype=torch.float32, fused_ln_qkv=config.fused_ln_qkv).train()
+                         param_dtype=torch.float32, fused_ln_qkv=config.fused_ln_qkv,
+                         image_size=image_size).train()
     temperature = torch.tensor(config.anchor_temperature, dtype=torch.float32, device=device)
     temperature.requires_grad_(config.anchor_temperature_learnable)
     # the trainables: the model's parameters, then the temperature when
@@ -279,30 +300,47 @@ def run_training(
     eval_fn: Optional[Callable[[TrainState], Dict[str, float]]] = None,
     log_fn: Optional[Callable[[Dict[str, float]], None]] = None,
     checkpoint_fn: Optional[Callable[[TrainState, int], None]] = None,
+    start_epoch: int = 0,
     stop_fn: Optional[Callable[[], bool]] = None,
+    skip_steps: int = 0,
+    end_epoch: Optional[int] = None,
 ) -> TrainState:
     """The epoch loop (train.py:648-797; reference sparsify_clip.py:739-986).
 
     ``train_batches(epoch)`` yields host batches (dicts of arrays);
     ``eval_fn`` runs before training and after every epoch (and every
     ``eval_every_n_steps``); ``checkpoint_fn(state, epoch)`` fires every
-    ``save_checkpoint_every_n_epochs`` and when ``stop_fn`` ends the run
-    early; ``log_fn`` gets each step's metrics as floats, read every
-    ``log_every_n_steps`` steps.  Evaluation, logging and checkpoints
-    themselves are later ports: here they are the caller's callables;
-    resuming (the JAX loop's ``start_epoch``/``skip_steps``) comes with
-    checkpoints.
+    ``save_checkpoint_every_n_epochs``; ``log_fn`` gets each step's
+    metrics as floats, read every ``log_every_n_steps`` steps.
+
+    ``stop_fn`` is polled after every step (graceful preemption, see
+    :mod:`sparsify_clip_tpu_torch.utils.preemption`): when it turns true
+    the loop writes a full checkpoint through ``checkpoint_fn`` (tagged
+    with the interrupted epoch's 1-based index) and returns early.
+
+    ``skip_steps`` consumes that many batches of the first epoch on the
+    host without training them: with the loaders' per-(seed, epoch)
+    streams the restarted run sees exactly the batches the stopped one
+    never trained.  ``end_epoch`` (exclusive) overrides the default
+    ``start_epoch + config.epochs``; a full-state resume passes
+    ``config.epochs`` so the run completes the original schedule, whose
+    position comes from the restored step.
     """
     config = setup.config
     state = setup.state
     if eval_fn is not None:
         eval_fn(state)  # pre-training eval (sparsify_clip.py:740)
 
-    def device_batches(epoch: int):
+    def device_batches(epoch: int, skip: int = 0):
         """One-step lookahead: the next batch's host→device copy is
-        queued before the current step runs."""
+        queued before the current step runs.  ``skip`` drops leading
+        batches on the host, before any copy."""
         pending = None
-        for batch in train_batches(epoch):
+        it = iter(train_batches(epoch))
+        for _ in range(skip):
+            if next(it, None) is None:
+                break
+        for batch in it:
             nxt = batch_to_device(batch, setup.device)
             if pending is not None:
                 yield pending
@@ -322,9 +360,10 @@ def run_training(
             log_fn({k: float(v) for k, v in m.items()})
         pending_metrics.clear()
 
-    for epoch in range(config.epochs):
+    last_epoch = (start_epoch + config.epochs) if end_epoch is None else end_epoch
+    for epoch in range(start_epoch, last_epoch):
         meter.start()
-        for batch in device_batches(epoch):
+        for batch in device_batches(epoch, skip_steps if epoch == start_epoch else 0):
             state, metrics = setup.train_step(state, batch)
             if log_fn is not None:
                 pending_metrics.append(metrics)
