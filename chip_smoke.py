@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths once on one
-NVIDIA GPU, RN50 (the reference's default tower) last.
+NVIDIA GPU: RN50 (the reference's default tower), then SigLIP, GradCache
+and the soft-target loss last.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -147,10 +148,42 @@ Phases, one line each; any failure exits nonzero before the final line:
    steps on synthetic pairs, 256 eval pairs, a checkpoint each epoch; the
    launches of phase 21 a step and 12 ``mha_fwd`` an eval; the final npz
    holds the JAX RN50 parameter keys and no statistics, and the newest
-   ``step_<N>.pt`` holds running statistics equal to the model's.
+   ``step_<N>.pt`` holds running statistics equal to the model's;
+24. train full-width ViT-B-32 at batch 256 with configs/siglip_vitb32.yaml's
+   loss fields (``siglip``, scale 10 and bias -10 learned, temperature
+   fixed) as phase 9 does, over two epochs of 4 steps with the eval on
+   512 pairs: one step on the kernels held against the plain versions
+   (loss, both scalars' gradients by phase 7's temperature tolerance
+   against the sum of their terms' magnitudes, every parameter's gradient
+   direction), exactly 24 ``mha_fwd`` and 24
+   ``mha_bwd`` a step and no loss kernel (the sigmoid loss is plain
+   PyTorch, as the JAX side's is XLA); ``siglip_scale`` and
+   ``siglip_bias`` must move from their inits;
+25. full-width ViT-B-32 under exp 6 at batch 256 with ``grad_accum_steps:
+   4`` (GradCache) against the one-shot step from the same seed on the
+   same batch: a warm and a main step's loss and gradient directions
+   within phase 9's tolerances, 192 ``mha_fwd`` and 96 ``mha_bwd`` a step
+   (pass 1 and pass 2 each encode the 4 microbatches), the loss kernels
+   once a step at the full batch, and the accumulated step's peak memory
+   below the one-shot step's; then two main steps of each, timed;
+26. full-width ViT-L-14-336 under exp 6 at the reference's batch 256
+   through GradCache (4 microbatches of 64, phase 13's batch; the
+   one-shot step would not fit the card), as phase 13 does over one warm
+   and one main epoch of 2 steps, with the fp32 eval twin on 256 pairs
+   in one batch: 192 ``mha_fwd_head_group``, 96 ``mha_bwd_head_group``,
+   96 ``mha_fwd`` and 48 ``mha_bwd`` a step, the loss kernels at (256,
+   768) once a step; the kernel-vs-plain steps at batch 8 (microbatch 2);
+   the peak under the card's memory;
+27. the CLI on two YAMLs of full-width ViT-B-32 at batch 256, 2 epochs of
+   2 steps, one eval batch: ``anchor-roberta`` with the in-repo provider
+   ``_stub_roberta:soft_targets`` and ``adam_mu_dtype: bfloat16`` (its
+   full state holds bf16 first and fp32 second moments), and ``siglip``
+   (its records carry ``siglip_scale`` / ``siglip_bias``, its full state
+   ``loss_scalars``); 24 ``mha_fwd`` and 24 ``mha_bwd`` a step, 24
+   ``mha_fwd`` an eval.
 
 Phases 6 and 8 also hold the loss kernels at RN50's (256, 1024), the
-main path's shape.  The kernels line reports each kernel at the case its
+main path's shape, and at ViT-L-14-336's (256, 768) of phase 26.  The kernels line reports each kernel at the case its
 ``case`` key names: the RN50 path's shape where that path runs the
 kernel (the loss rows at (256, 1024); ``mha_fwd`` and ``mha_bwd`` at the
 causal text shape (256, 77, 1536) bf16), else ViT-B-32's vision shape.
@@ -162,7 +195,10 @@ each epoch).  Phase 19 trains 2 epochs of 8 steps on 2048 synthetic
 pairs (the reference trains 100 epochs on COCO) and evaluates 512
 pairs 4 times.  RN50 runs at full depth; phases 21-22 train 2 epochs of
 8 steps (the reference trains 100 on COCO), phase 23 2 of 2 on 512
-synthetic pairs.  The earlier phases run as they did.
+synthetic pairs.  Phases 24-27 cut the depth of a run alone: SigLIP 2
+epochs of 4 steps, the GradCache ViT-L-14-336 run 2 of 2 (eval 256 pairs,
+not 512), the two CLIs 2 of 2 with one eval batch of 256.  The earlier
+phases run as they did.
 
 The last lines are a JSON object of per-kernel results (time, plain time,
 library time, the card's least time for the work, launches on the main
@@ -205,8 +241,8 @@ BWD_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 2e-5)}  # (rtol, atol)
 # the loss kernels' shapes (phases 6 and 8): ViT-B-32's batch 256 and 512-wide
 # embeddings, N = 200 (no multiple of any tile), ViT-L-14-336's batch 64 and
 # 768-wide embeddings, RN50's batch 256 and 1024-wide embeddings (the main
-# path's, phases 21-23)
-LOSS_SHAPES = ((256, 512), (200, 512), (64, 768), (256, 1024))
+# path's, phases 21-23), ViT-L-14-336's batch 256 through GradCache (phase 26)
+LOSS_SHAPES = ((256, 512), (200, 512), (64, 768), (256, 1024), (256, 768))
 MAIN_LOSS_SHAPE = "256x1024"
 # InfoNCE kernels vs plain versions, all fp32: other summation orders over
 # D <= 1024 and N <= 256; gradients against their largest entry
@@ -269,6 +305,19 @@ CLI_PROCESS_TIMEOUT = 300       # seconds, each child CLI run
 # RN50 through the CLI (phase 23): 2 steps an epoch, one eval batch
 RN50_CLI_STEPS = 2
 RN50_CLI_EVAL_PAIRS = 256
+# SigLIP (phase 24): configs/siglip_vitb32.yaml's loss fields on ViT-B-32 at
+# batch 256, 2 epochs of 4 steps
+SIGLIP_FIELDS = ("loss_type", "siglip_logit_scale_init", "siglip_logit_bias_init",
+                 "only_lunif_epochs", "anchor_temperature", "anchor_temperature_learnable")
+SIGLIP_STEPS_PER_EPOCH = 4
+# GradCache (phases 25-26): 4 microbatches; ViT-L-14-336 at the reference's
+# batch 256 (microbatch 64, phase 13's batch), 2 epochs of 2 steps
+GRADCACHE_STEPS = 4
+L336_GRADCACHE_BATCH = 256
+L336_GRADCACHE_STEPS_PER_EPOCH = 2
+# the two loss CLIs (phase 27): 2 steps an epoch, one eval batch
+CLI_LOSS_STEPS = 2
+CLI_LOSS_EVAL_PAIRS = 256
 REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
@@ -742,14 +791,14 @@ def _worst(names, cosines) -> int:
                key=cosines.__getitem__)
 
 
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    denom = (a.norm() * b.norm()).item()
+    return 1.0 if denom == 0 else (a.flatten() @ b.flatten()).item() / denom
+
+
 def _grad_cosines(params, grads_a) -> list:
     """Each parameter's cosine between ``grads_a`` and its current .grad."""
-    cosines = []
-    for p, ga in zip(params, grads_a):
-        gb = p.grad.detach()
-        denom = (ga.norm() * gb.norm()).item()
-        cosines.append(1.0 if denom == 0 else (ga.flatten() @ gb.flatten()).item() / denom)
-    return cosines
+    return [_cosine(ga, p.grad.detach()) for p, ga in zip(params, grads_a)]
 
 
 def phase_train():
@@ -897,17 +946,50 @@ def _rel_gap(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-12)
 
 
+def _scalar_trainables(state) -> dict:
+    """The step's trainable scalars: a learnable temperature and SigLIP's
+    log-scale and bias."""
+    scalars = dict(state.loss_scalars or {})
+    if state.temperature.requires_grad:
+        scalars["temperature"] = state.temperature
+    return scalars
+
+
+def _scalar_grad_scales(state, batch) -> dict:
+    """SigLIP's scalar gradients are sums over the B² pairs whose terms
+    cancel (the true pairs against the rest), so each is compared against
+    the sum of its terms' magnitudes on this batch: with w = σ(−z·l) the
+    weight of a pair's logit l = s·cos + b, Σw/B for the bias and
+    Σ w·|s·cos|/B for the log-scale (its gradient's terms are w·s·cos)."""
+    from sparsify_clip_tpu_torch.utils.numerics import l2_normalize
+
+    if state.loss_scalars is None:
+        return {}
+    with torch.no_grad():
+        img, txt = state.model(batch["images"], batch["tokens"])
+        cos = l2_normalize(img) @ l2_normalize(txt).T
+        scale = torch.exp(state.loss_scalars["logit_scale"])
+        z = 2 * torch.eye(cos.shape[0], device=cos.device) - 1
+        w = torch.sigmoid(-z * (scale * cos + state.loss_scalars["logit_bias"]))
+        n = cos.shape[0]
+        return {"logit_scale": ((w * (scale * cos).abs()).sum() / n).item(),
+                "logit_bias": (w.sum() / n).item()}
+
+
 def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
                steps_per_epoch: int, eval_pairs: int, warm_step: dict, main_step: dict,
                per_eval_batch: dict, overrides: Optional[dict] = None):
-    """Phases 9 and 10 (13 and 14, 16 and 17): the exp-6 step of a
-    full-width model at ``batch_size`` over one warm and one main epoch of
-    ``steps_per_epoch``, with the per-epoch eval over ``eval_pairs`` in
-    batches of ``batch_size``.  A warm and a main step at ``check_batch``
-    are held against the plain versions first and, with ``fused_ln_qkv``
-    among the config ``overrides``, against the same step on the unfused
-    blocks.  ``warm_step``, ``main_step`` and ``per_eval_batch`` are the
-    launches of each kernel (the rest 0)."""
+    """Phases 9 and 10 (13 and 14, 16 and 17, 21 and 22, 24, 26): the step
+    of a full-width model at ``batch_size`` over two epochs of
+    ``steps_per_epoch``, under exp 6 (one warm and one main epoch) or the
+    config ``overrides`` (SigLIP: two main epochs; ``grad_accum_steps``),
+    with the per-epoch eval over ``eval_pairs`` in batches of
+    ``batch_size``.  A warm (where the loss has one) and a main step at
+    ``check_batch`` are held against the plain versions first, the
+    gradients of the trainable scalars (temperature, SigLIP's two) with
+    them, and, with ``fused_ln_qkv`` among the ``overrides``, against the
+    same step on the unfused blocks.  ``warm_step``, ``main_step`` and
+    ``per_eval_batch`` are the launches of each kernel (the rest 0)."""
     from sparsify_clip_tpu_torch.config import ExperimentConfig
     from sparsify_clip_tpu_torch.data import synthetic_batch
     from sparsify_clip_tpu_torch.eval import (
@@ -936,9 +1018,11 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
     names = [n for n, _ in state.model.named_parameters()]
     zero = dict.fromkeys(KERNELS, 0)
     warm_step, main_step = dict(zero, **warm_step), dict(zero, **main_step)
+    warm_epochs = config.only_lunif_epochs
     log(f"{train_phase} setup", name=cfg.name, loss_type=config.loss_type,
         only_lunif_epochs=config.only_lunif_epochs, temperature=config.anchor_temperature,
         learnable=config.anchor_temperature_learnable, batch=batch_size, check_batch=check_batch,
+        grad_accum_steps=config.grad_accum_steps,
         steps_per_epoch=spe, epochs=config.epochs, fused_ln_qkv=config.fused_ln_qkv,
         params=sum(p.numel() for p in params), seconds=f"{setup_seconds:.3f}")
 
@@ -948,7 +1032,8 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
     # ResNet tower's BatchNorm running statistics: they are put back after
     # the checks, so the run below starts from fresh statistics
     running_stats = {n: b.clone() for n, b in setup.model.named_buffers()}
-    for phase, step, expected in (("warm", 0, warm_step), ("main", spe, main_step)):
+    checks = [("warm", 0, warm_step)] if warm_epochs else []
+    for phase, step, expected in checks + [("main", spe, main_step)]:
         state.step = step
         reset_counts()
         loss_k, aux_k, _, _ = setup.train_step.loss_and_grads(state, check)
@@ -957,6 +1042,8 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
         if counts != expected:
             raise AssertionError(f"{phase} kernel step launched {counts}, expected {expected}")
         grads_k = [p.grad.detach().clone() for p in params]
+        scalars_k = {n: t.grad.item() for n, t in _scalar_trainables(state).items()}
+        scalar_scales = _scalar_grad_scales(state, check)
         if config.fused_ln_qkv:
             # the same step on the unfused blocks: the card's version of the
             # JAX test_block_fused_path_matches_unfused.  The fused path
@@ -995,15 +1082,24 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
         cosines = _grad_cosines(params, grads_k)
         gaps = {k: _rel_gap(aux_k[k].item(), aux_p[k].item()) for k in aux_k}
         gaps["loss"] = _rel_gap(loss_k.item(), loss_p.item())
+        # the scalars' gradients by phase 7's temperature tolerance, each
+        # against its own size or, for SigLIP's, the size of its terms
+        scalar_gaps = {n: abs(g - t.grad.item()) / max(abs(t.grad.item()),
+                                                       scalar_scales.get(n, 0.0), 1e-12)
+                       for (n, t), g in zip(_scalar_trainables(state).items(), scalars_k.values())}
         worst = _worst(names, cosines)
         unchecked = {n: c for n, c in zip(names, cosines) if n in ZERO_GRADIENT}
         log(f"{train_phase} plain", loss_phase=phase, step=step, batch=check_batch,
             loss_kernel=loss_k.item(), loss_plain=loss_p.item(), components_kernel=json.dumps(
                 {k: v.item() for k, v in aux_k.items()}),
-            rel_gaps=json.dumps(gaps), rtol=TRAIN_LOSS_RTOL, min_grad_cosine=cosines[worst],
+            rel_gaps=json.dumps(gaps), rtol=TRAIN_LOSS_RTOL, scalar_grads_kernel=json.dumps(
+                scalars_k), scalar_grad_term_scales=json.dumps(scalar_scales),
+            scalar_grad_rel_gaps=json.dumps(scalar_gaps),
+            scalar_rtol=TRAIN_DT_RTOL, min_grad_cosine=cosines[worst],
             min_at=names[worst], tensors=len(cosines), unchecked=json.dumps(unchecked),
             lowest_five=json.dumps(sorted(zip(cosines, names))[:5]))
-        if max(gaps.values()) > TRAIN_LOSS_RTOL or cosines[worst] < TRAIN_MIN_GRAD_COSINE:
+        if (max(gaps.values()) > TRAIN_LOSS_RTOL or cosines[worst] < TRAIN_MIN_GRAD_COSINE
+                or max(scalar_gaps.values(), default=0.0) > TRAIN_DT_RTOL):
             raise AssertionError(f"{phase}: kernel step and plain step disagree")
         if phase == "warm" and (aux_k["anchor"].item() != 0 or aux_k["lalign"].item() != 0):
             raise AssertionError(f"the warm step is not uniformity alone: {aux_k}")
@@ -1039,8 +1135,10 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
     peak = torch.cuda.max_memory_allocated()
     train_segments = [c for kind, c in segments if kind == "train"]
     eval_segments = [c for kind, c in segments if kind == "eval"]
-    expected_train = [zero, {k: v * spe for k, v in warm_step.items()},
-                      {k: v * spe for k, v in main_step.items()}, zero]
+    kinds = ["warm" if e < warm_epochs else "main" for e in range(EXP6_EPOCHS)]
+    expected_train = [zero] + [{k: v * spe for k, v in (warm_step if kind == "warm"
+                                                         else main_step).items()}
+                               for kind in kinds] + [zero]
     if train_segments != expected_train:
         raise AssertionError(f"training launched {train_segments}, expected {expected_train}")
     per_eval = dict(zero, **{k: v * len(eval_batches) for k, v in per_eval_batch.items()})
@@ -1051,18 +1149,21 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
     losses = np.array([r["train_loss"] for r in step_records])
     if len(step_records) != EXP6_EPOCHS * spe or not np.isfinite(losses).all():
         raise AssertionError(f"losses not finite: {losses}")
-    warm_records, main_records = step_records[:spe], step_records[spe:]
+    warm_records = step_records[:spe * warm_epochs]
+    main_records = step_records[spe * warm_epochs:]
     if any(r["anchor"] != 0 for r in warm_records) or any(r["anchor"] <= 0 for r in main_records):
         raise AssertionError("the warm/main switch did not follow the epoch")
-    rates = {phase: dict(step_ms=r["step_time_ms"], pairs_per_s=r["pairs_per_sec"])
-             for phase, r in zip(("warm", "main"), epoch_records)}
+    # epochs of one kind are told apart by their index
+    labels = kinds if len(set(kinds)) == len(kinds) else [f"{k}{e}" for e, k in enumerate(kinds)]
+    rates = {label: dict(step_ms=r["step_time_ms"], pairs_per_s=r["pairs_per_sec"])
+             for label, r in zip(labels, epoch_records)}
     log(f"{train_phase} train", steps=len(step_records), losses=json.dumps(losses.tolist()),
         components_last=json.dumps({k: main_records[-1][k] for k in ("anchor", "lalign", "lunif")}),
-        lr_last=step_records[-1]["learning_rate"], launches_warm=json.dumps(train_segments[1]),
-        launches_main=json.dumps(train_segments[2]))
-    for phase in ("warm", "main"):
-        log(f"{train_phase} rate", loss_phase=phase, step_ms=f"{rates[phase]['step_ms']:.3f}",
-            pairs_per_s=f"{rates[phase]['pairs_per_s']:.1f}",
+        lr_last=step_records[-1]["learning_rate"],
+        launches_by_epoch=json.dumps(dict(zip(labels, train_segments[1:-1]))))
+    for label in labels:
+        log(f"{train_phase} rate", loss_phase=label, step_ms=f"{rates[label]['step_ms']:.3f}",
+            pairs_per_s=f"{rates[label]['pairs_per_s']:.1f}",
             max_memory_allocated_gib=f"{peak / 2**30:.3f}", card=json.dumps(smi))
 
     # phase 10: the 13 metrics of every eval, and the last eval against the
@@ -1100,8 +1201,100 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
         ranks_moved=ranks_moved, card=json.dumps(smi))
     if cos < EVAL_MIN_COSINE or geometry_gap > EVAL_GEOMETRY_ATOL or recall_gap > recall_atol:
         raise AssertionError("kernel eval and plain-attention eval disagree")
-    return dict(train=train_segments[1:3], eval=eval_segments, rates=rates, peak=peak,
-                eval_seconds=[e["seconds"] for e in evals])
+    return dict(train=train_segments[1:-1], eval=eval_segments, rates=rates, peak=peak,
+                eval_seconds=[e["seconds"] for e in evals], records=step_records)
+
+
+def phase_gradcache_equality(smi: str):
+    """Phase 25: full-width ViT-B-32 under exp 6 at batch 256 with
+    ``grad_accum_steps`` 4 against the one-shot step (1), from the same
+    seed on the same batch: a warm and a main step's loss and gradient
+    directions, each step's launches, and the peak memory of a step of
+    each (the accumulated one holds a microbatch's activations)."""
+    from sparsify_clip_tpu_torch.config import ExperimentConfig
+    from sparsify_clip_tpu_torch.data import synthetic_batch
+    from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup
+
+    spe = EXP6_STEPS_PER_EPOCH
+    setups = {}
+    for accum in (1, GRADCACHE_STEPS):
+        config = ExperimentConfig.from_dict(dict(EXP6, epochs=EXP6_EPOCHS,
+                                                 grad_accum_steps=accum))
+        setups[accum] = create_train_setup(config, steps_per_epoch=spe, device="cuda")
+    one, acc = setups[1], setups[GRADCACHE_STEPS]
+    cfg = one.model.cfg
+    batch = batch_to_device(synthetic_batch(TRAIN_BATCH, cfg.image_size, cfg.context_length,
+                                            seed=SEED), one.device)
+    names = [n for n, _ in one.model.named_parameters()]
+    for p, q in zip(one.model.parameters(), acc.model.parameters()):
+        if not torch.equal(p, q):
+            raise AssertionError("the two setups do not start from the same weights")
+    zero = dict.fromkeys(KERNELS, 0)
+    depth = cfg.vision_layers[0] + cfg.text_layers
+    attention = dict(mha_fwd=depth, mha_bwd=depth)
+    # pass 1 and pass 2 each run the encoders' forward over every microbatch
+    accumulated = dict(mha_fwd=2 * GRADCACHE_STEPS * depth, mha_bwd=GRADCACHE_STEPS * depth)
+    warm_loss = dict(lunif_fwd=2, lunif_bwd=2)
+    main_loss = dict(infonce_fwd=1, infonce_bwd_dimg=1, infonce_bwd_dtxt=1, lunif_fwd=1,
+                     lunif_bwd=1)
+    expected = {("warm", 1): dict(zero, **attention, **warm_loss),
+                ("main", 1): dict(zero, **attention, **main_loss),
+                ("warm", GRADCACHE_STEPS): dict(zero, **accumulated, **warm_loss),
+                ("main", GRADCACHE_STEPS): dict(zero, **accumulated, **main_loss)}
+    peaks = {}
+    for phase, step in (("warm", 0), ("main", spe)):
+        out, grads = {}, {}
+        for accum, setup in setups.items():
+            setup.state.step = step
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            loss, aux, _, _ = setup.train_step.loss_and_grads(setup.state, batch)
+            torch.cuda.synchronize()
+            peaks[phase, accum] = torch.cuda.max_memory_allocated()
+            _expect_launches(read_counts(), expected[phase, accum],
+                             f"the {phase} step at grad_accum_steps {accum}")
+            out[accum] = loss.item(), {k: v.item() for k, v in aux.items()}
+            # held in host memory, so the other setup's peak does not carry them
+            grads[accum] = [p.grad.detach().cpu() for p in setup.model.parameters()]
+            setup.state.optimizer.zero_grad(set_to_none=True)
+        cosines = [_cosine(a, b) for a, b in zip(grads[GRADCACHE_STEPS], grads[1])]
+        gaps = {k: _rel_gap(out[GRADCACHE_STEPS][1][k], out[1][1][k]) for k in out[1][1]}
+        gaps["loss"] = _rel_gap(out[GRADCACHE_STEPS][0], out[1][0])
+        worst = _worst(names, cosines)
+        log("phase 25 gradcache", loss_phase=phase, step=step, batch=TRAIN_BATCH,
+            grad_accum_steps=GRADCACHE_STEPS, loss_one_shot=out[1][0],
+            loss_accumulated=out[GRADCACHE_STEPS][0], rel_gaps=json.dumps(gaps),
+            rtol=TRAIN_LOSS_RTOL, min_grad_cosine=cosines[worst], min_at=names[worst],
+            min_cosine=TRAIN_MIN_GRAD_COSINE, tensors=len(cosines),
+            launches_accumulated=json.dumps(expected[phase, GRADCACHE_STEPS]),
+            peak_gib_one_shot=f"{peaks[phase, 1] / 2**30:.3f}",
+            peak_gib_accumulated=f"{peaks[phase, GRADCACHE_STEPS] / 2**30:.3f}")
+        if max(gaps.values()) > TRAIN_LOSS_RTOL or cosines[worst] < TRAIN_MIN_GRAD_COSINE:
+            raise AssertionError(f"{phase}: the accumulated step and the one-shot step disagree")
+        if peaks[phase, GRADCACHE_STEPS] >= peaks[phase, 1]:
+            raise AssertionError(f"{phase}: the accumulated step's peak {peaks[phase, GRADCACHE_STEPS]}"
+                                 f" is not below the one-shot step's {peaks[phase, 1]}")
+    # the main path: two main steps of each through train_step, the second timed
+    launches, rates = {}, {}
+    for accum, setup in setups.items():
+        setup.state.step = spe
+        reset_counts()
+        for k in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            setup.state, metrics = setup.train_step(setup.state, batch)
+            float(metrics["train_loss"])
+            rates[accum] = (time.perf_counter() - t) * 1e3
+        launches[accum] = read_counts()
+        _expect_launches(launches[accum], {k: 2 * v for k, v in expected["main", accum].items()},
+                         f"two main steps at grad_accum_steps {accum}")
+    log("phase 25 rate", step_ms_one_shot=f"{rates[1]:.3f}",
+        step_ms_accumulated=f"{rates[GRADCACHE_STEPS]:.3f}",
+        pairs_per_s_one_shot=f"{TRAIN_BATCH / rates[1] * 1e3:.1f}",
+        pairs_per_s_accumulated=f"{TRAIN_BATCH / rates[GRADCACHE_STEPS] * 1e3:.1f}",
+        card=json.dumps(smi))
+    return dict(launches=launches[GRADCACHE_STEPS], peaks=peaks)
 
 
 def phase_head_group_kernels(smi: str):
@@ -1759,10 +1952,96 @@ def phase_cli_rn50(smi: str):
     return dict(launches=launches)
 
 
+def phase_cli_losses(smi: str):
+    """Phase 27: the CLI on two YAMLs of full-width ViT-B-32 at batch 256,
+    each 2 epochs of ``CLI_LOSS_STEPS`` steps on synthetic pairs with one
+    eval batch: ``anchor-roberta`` with the in-repo soft-target provider
+    ``_stub_roberta:soft_targets`` (tests/, put on the import path as the
+    JAX tests put it) and ``adam_mu_dtype: bfloat16``, then ``siglip``
+    with configs/siglip_vitb32.yaml's loss fields.  Each step launches the
+    two towers' attention and no loss kernel (both losses are plain
+    PyTorch, as the JAX side's are XLA)."""
+    import os
+    import tempfile
+
+    from sparsify_clip_tpu_torch.config import load_config
+
+    siglip = load_config(os.path.join(REPO, "configs", "siglip_vitb32.yaml"))
+    runs = {
+        "roberta-vitb32": dict(loss_type="anchor-roberta", only_lunif_epochs=0,
+                               soft_targets_provider="_stub_roberta:soft_targets",
+                               adam_mu_dtype="bfloat16"),
+        "siglip-vitb32": {k: getattr(siglip, k) for k in SIGLIP_FIELDS},
+    }
+    batch = EXP6["batch_size"]
+    zero = dict.fromkeys(KERNELS, 0)
+    per_step = dict(zero, mha_fwd=24, mha_bwd=24)
+    per_eval = dict(zero, mha_fwd=24 * (CLI_LOSS_EVAL_PAIRS // batch))
+    steps = EXP6_EPOCHS * CLI_LOSS_STEPS
+    tests_dir = os.path.join(REPO, "tests")
+    launches, out = dict(zero), {}
+    for run, fields in runs.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            yaml_path = _write_exp6_yaml(tmp, run_name=run, num_train_samples=CLI_LOSS_STEPS * batch,
+                                         num_test_samples=CLI_LOSS_EVAL_PAIRS,
+                                         log_loss_components=True, **fields)
+            counter = _PerStepCounts()
+            sys.path.insert(0, tests_dir)
+            t = time.perf_counter()
+            try:
+                reset_counts()
+                _run_cli(["--config", yaml_path])
+                counts = read_counts()
+            finally:
+                sys.path.remove(tests_dir)
+                counter.close()
+            seconds = time.perf_counter() - t
+            counter.state = None
+            records = _jsonl(os.path.join(tmp, "logs", f"{run}.jsonl"))
+            full_dir = os.path.join(tmp, "models", run)
+            payload = torch.load(os.path.join(full_dir, f"step_{steps}.pt"), map_location="cpu",
+                                 weights_only=True)
+        step_records = [r for r in records if "train_loss" in r]
+        evals = _check_evals(records, EXP6_EPOCHS + 2, run)
+        if len(step_records) != steps or not np.isfinite(
+                [v for r in step_records for k, v in r.items() if not k.startswith("_")]).all():
+            raise AssertionError(f"{run}: train records {step_records}")
+        _expect_launches([c for _, c in counter.steps], [per_step] * steps, f"{run}'s steps")
+        _expect_launches(counter.evals, [per_eval] * (EXP6_EPOCHS + 2), f"{run}'s evals")
+        _expect_launches(counts, {k: steps * per_step[k] + (EXP6_EPOCHS + 2) * per_eval[k]
+                                  for k in KERNELS}, run)
+        moments = list(payload["optimizer"]["state"].values())
+        mu_dtypes = sorted({str(m["exp_avg"].dtype) for m in moments})
+        nu_dtypes = sorted({str(m["exp_avg_sq"].dtype) for m in moments})
+        scalars = {k: float(v) for k, v in (payload.get("loss_scalars") or {}).items()}
+        if run.startswith("roberta"):
+            if mu_dtypes != ["torch.bfloat16"] or nu_dtypes != ["torch.float32"]:
+                raise AssertionError(f"{run}: moments {mu_dtypes} {nu_dtypes}")
+        else:
+            last = step_records[-1]
+            if set(scalars) != {"logit_scale", "logit_bias"} or "siglip_scale" not in last \
+                    or last["siglip_bias"] == siglip.siglip_logit_bias_init \
+                    or last["siglip_scale"] == siglip.siglip_logit_scale_init:
+                raise AssertionError(f"{run}: scalars {scalars}, last record {last}")
+        log("phase 27 cli", ok=True, run=run, model=EXP6["model"], batch=batch,
+            fields=json.dumps(fields), steps=len(step_records), evals=len(evals),
+            losses=json.dumps([r["train_loss"] for r in step_records]),
+            last_record=json.dumps({k: v for k, v in step_records[-1].items()
+                                    if not k.startswith("_")}),
+            eval_last=json.dumps(evals[-1]), exp_avg_dtypes=json.dumps(mu_dtypes),
+            exp_avg_sq_dtypes=json.dumps(nu_dtypes), loss_scalars=json.dumps(scalars),
+            cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in records
+                                    if "step_time_ms" in r]),
+            launches=json.dumps(counts), seconds=f"{seconds:.3f}", card=json.dumps(smi))
+        out[run] = counts
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 1
+    from sparsify_clip_tpu_torch.config import load_config
     from sparsify_clip_tpu_torch.models.clip import create_model
     from sparsify_clip_tpu_torch.models.resnet import BatchNormHalf
 
@@ -1887,6 +2166,54 @@ def main() -> int:
         card=json.dumps(smi))
     torch.cuda.empty_cache()
     cli_rn50 = phase_cli_rn50(smi)
+    torch.cuda.empty_cache()
+
+    # the rest of the losses and the step knobs: SigLIP, GradCache, the CLI
+    siglip_config = load_config(os.path.join(REPO, "configs", "siglip_vitb32.yaml"))
+    siglip_fields = {k: getattr(siglip_config, k) for k in SIGLIP_FIELDS}
+    b32 = dict(mha_fwd=24, mha_bwd=24)
+    siglip = phase_exp6(
+        smi, "ViT-B-32", (24, 24), TRAIN_BATCH, TRAIN_BATCH, SIGLIP_STEPS_PER_EPOCH, EVAL_PAIRS,
+        warm_step=b32, main_step=b32, per_eval_batch=dict(mha_fwd=24), overrides=siglip_fields)
+    first, last = siglip["records"][0], siglip["records"][-1]
+    log("phase 24 siglip", siglip_scale_init=siglip_config.siglip_logit_scale_init,
+        siglip_bias_init=siglip_config.siglip_logit_bias_init,
+        siglip_scale_last=last["siglip_scale"], siglip_bias_last=last["siglip_bias"],
+        loss_first=first["train_loss"], loss_last=last["train_loss"],
+        max_memory_allocated_gib=f"{siglip['peak'] / 2**30:.3f}",
+        eval_seconds=json.dumps([round(x, 3) for x in siglip["eval_seconds"]]),
+        card=json.dumps(smi))
+    if last["siglip_scale"] == siglip_config.siglip_logit_scale_init \
+            or last["siglip_bias"] == siglip_config.siglip_logit_bias_init:
+        raise AssertionError("SigLIP's scale and bias did not move from their inits")
+    torch.cuda.empty_cache()
+    gradcache = phase_gradcache_equality(smi)
+    torch.cuda.empty_cache()
+    # pass 1 and pass 2 each run both towers over the 4 microbatches
+    passes = 2 * GRADCACHE_STEPS
+    attention = dict(mha_fwd_head_group=24 * passes, mha_bwd_head_group=24 * GRADCACHE_STEPS,
+                     mha_fwd=12 * passes, mha_bwd=12 * GRADCACHE_STEPS)
+    gradcache_l336 = phase_exp6(
+        smi, L336, (26, 26), L336_GRADCACHE_BATCH, L336_CHECK_BATCH,
+        L336_GRADCACHE_STEPS_PER_EPOCH, L336_EVAL_PAIRS,
+        warm_step=dict(attention, lunif_fwd=2, lunif_bwd=2),
+        main_step=dict(attention, infonce_fwd=1, infonce_bwd_dimg=1, infonce_bwd_dtxt=1,
+                       lunif_fwd=1, lunif_bwd=1),
+        per_eval_batch=dict(mha_fwd_head_group=24, mha_fwd=12),
+        overrides=dict(grad_accum_steps=GRADCACHE_STEPS))
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    log("phase 26 l336", batch=L336_GRADCACHE_BATCH, grad_accum_steps=GRADCACHE_STEPS,
+        step_ms=json.dumps({k: round(v["step_ms"], 3) for k, v in gradcache_l336["rates"].items()}),
+        pairs_per_s=json.dumps({k: round(v["pairs_per_s"], 1)
+                                for k, v in gradcache_l336["rates"].items()}),
+        max_memory_allocated_gib=f"{gradcache_l336['peak'] / 2**30:.3f}",
+        card_memory_gib=f"{card_bytes / 2**30:.3f}",
+        eval_seconds=json.dumps([round(x, 3) for x in gradcache_l336["eval_seconds"]]),
+        card=json.dumps(smi))
+    if gradcache_l336["peak"] >= card_bytes:
+        raise AssertionError("the ViT-L-14-336 GradCache step does not fit the card")
+    torch.cuda.empty_cache()
+    cli_losses = phase_cli_losses(smi)
 
     # each row's times are at the case named beside it: the RN50 main
     # path's shape where the kernel runs on it (the text tower's causal
@@ -1948,6 +2275,13 @@ def main() -> int:
             "train_exp6_rn50": sum(c[counter] for c in exp6_rn50["train"]),
             "eval_rn50": sum(c[counter] for c in exp6_rn50["eval"]),
             "cli_rn50": cli_rn50["launches"][counter],
+            "train_siglip": sum(c[counter] for c in siglip["train"]),
+            "eval_siglip": sum(c[counter] for c in siglip["eval"]),
+            "train_gradcache_b32": gradcache["launches"][counter],
+            "train_gradcache_l336": sum(c[counter] for c in gradcache_l336["train"]),
+            "eval_gradcache_l336": sum(c[counter] for c in gradcache_l336["eval"]),
+            "cli_roberta": cli_losses["roberta-vitb32"][counter],
+            "cli_siglip": cli_losses["siglip-vitb32"][counter],
         }
         by_path = {path: count for path, count in by_path.items() if on_path(path)}
         entries.append({

@@ -2,10 +2,11 @@
 
 The JAX package ``sparsify_clip_tpu`` is the reference this package is
 held against; this package imports neither JAX nor it.  Ported so far:
-the serving path (ViT towers, encoder, batching server), the training
-step for every loss type but ``anchor-roberta`` and ``siglip`` (config,
-schedules, the uniformity/alignment/centroid losses, loss dispatch with
-the warm phase, AdamW step, epoch loop) and the per-epoch eval (13
+the serving path (ViT and ResNet towers, encoder, batching server), the
+training step for every loss type (config, schedules, the
+uniformity/alignment/centroid losses, the soft-target and sigmoid
+losses, loss dispatch with the warm phase, AdamW with an fp32 or bf16
+first moment, GradCache accumulation, epoch loop) and the per-epoch eval (13
 metrics over an fp32 twin), with hand-written CUDA kernels for the
 attention forward and backward, the fused InfoNCE and the fused
 uniformity loss; and the training CLI (tokenizer, data loaders, JSONL

@@ -242,6 +242,7 @@ def _snapshot(state, config: Optional[Any] = None) -> Dict[str, Any]:
         "model": _to_host(state.model.state_dict()),
         "optimizer": _to_host(state.optimizer.state_dict()),
         "temperature": _to_host(state.temperature),
+        "loss_scalars": _to_host(state.loss_scalars),
         "config": config.to_dict() if config is not None else None,
     }
 
@@ -260,7 +261,8 @@ def _write(payload: Dict[str, Any], path: str) -> str:
 
 def save_full(state, directory: str, config: Optional[Any] = None) -> str:
     """Save the full TrainState (model parameters and running statistics,
-    AdamW, temperature, step) and the config as ``directory/step_<N>.pt``."""
+    AdamW and its moments in their dtypes, temperature, SigLIP's loss
+    scalars, step) and the config as ``directory/step_<N>.pt``."""
     return _write(_snapshot(state, config), _step_path(directory, int(state.step)))
 
 
@@ -330,5 +332,7 @@ def restore_full(directory_or_path: str, state):
     state.optimizer.load_state_dict(payload["optimizer"])
     with torch.no_grad():
         state.temperature.copy_(payload["temperature"])
+        for name, value in (payload.get("loss_scalars") or {}).items():
+            state.loss_scalars[name].copy_(value)
     state.step = int(payload["step"])
     return state

@@ -2,11 +2,10 @@
 :mod:`sparsify_clip_tpu.losses.dispatch`.
 
 The table keeps every ``loss_type`` string of the reference
-(sparsify_clip.py:778-930) and of the JAX package, spelled exactly.
-Every string runs except ``anchor-roberta`` (the soft-target loss) and
-``siglip``, which raise :class:`NotImplementedError` naming what they
-wait for (ROADMAP Queue 1, 'Rest of the losses, and the step
-knobs').
+(sparsify_clip.py:778-930) and of the JAX package, spelled exactly, and
+every string runs.  ``anchor-roberta`` needs the (B, B) soft targets and
+``siglip`` its two scalars in the :class:`LossContext`; without them they
+raise the JAX ``ValueError``s.
 
 **Dead-elif semantics preserved** (SURVEY.md §2.6): the reference tests
 the identical string ``"only_lunif_n_then_anchor+lalign+BETA*lunif(centroids)"``
@@ -24,18 +23,22 @@ InfoNCE always goes through the fused
 through :func:`sparsify_clip_tpu_torch.ops.lunif.lunif_loss`: their CUDA
 kernels for CUDA tensors, their plain versions for CPU tensors.  None is
 routed through a plain version on the card: that would hide a missing
-kernel.
+kernel.  The soft-target loss and the sigmoid loss are plain PyTorch
+everywhere, as the JAX side computes them with XLA under every
+``use_pallas`` (its ``make_loss_fn`` swaps InfoNCE and uniformity alone).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from sparsify_clip_tpu_torch.losses.align import lalign_loss
 from sparsify_clip_tpu_torch.losses.centroids import normalized_centroids
+from sparsify_clip_tpu_torch.losses.contrastive import contrastive_loss_roberta
+from sparsify_clip_tpu_torch.losses.sigmoid import siglip_loss
 from sparsify_clip_tpu_torch.ops.infonce import infonce_loss
 from sparsify_clip_tpu_torch.ops.lunif import lunif_loss
 
@@ -50,14 +53,19 @@ class LossContext:
     ``temperature`` is the raw divisor (a tensor on the embeddings'
     device, learnable or not).  ``beta``/``alpha`` are the schedules at
     the 1-based batch index; ``warm`` is ``epoch < only_lunif_epochs``.
-    The JAX context's ``soft_targets`` and SigLIP scalars belong to loss
-    types that are not ported yet.
+    ``soft_targets`` is the (B, B) row-stochastic matrix of
+    ``anchor-roberta`` (host-computed, shipped with the batch);
+    ``logit_scale`` (the positive ``exp`` of the learnable log-scale) and
+    ``logit_bias`` are SigLIP's.  Each is None for every other loss type.
     """
 
     temperature: Union[torch.Tensor, float]
     beta: float = 0.0
     alpha: float = 0.0
     warm: bool = False
+    soft_targets: Optional[torch.Tensor] = None
+    logit_scale: Optional[torch.Tensor] = None
+    logit_bias: Optional[torch.Tensor] = None
 
 
 # The functions below look ``infonce_loss`` and ``lunif_loss`` up in this
@@ -136,6 +144,35 @@ def _anchor_alpha_lalign_beta_lunif_centroids(img, txt, ctx: LossContext):
     }
 
 
+def _anchor_roberta(img, txt, ctx: LossContext):
+    # The reference selects this surface but its dispatch branch is
+    # commented out (sparsify_clip.py:1196-1202); the JAX package runs it
+    # on host-supplied soft targets, and so does the port.
+    if ctx.soft_targets is None:
+        raise ValueError(
+            "loss_type 'anchor-roberta' needs a (B, B) 'soft_targets' "
+            "matrix in the batch dict (host-computed sentence "
+            "similarities, row-stochastic)."
+        )
+    loss = contrastive_loss_roberta(img, txt, ctx.soft_targets, ctx.temperature)
+    zero = loss.new_zeros(())
+    return loss, {"anchor": loss, "lalign": zero, "lunif": zero}
+
+
+def _siglip(img, txt, ctx: LossContext):
+    # Framework extension (losses/sigmoid.py); the train step threads the
+    # scalars from TrainState.loss_scalars.
+    if ctx.logit_scale is None or ctx.logit_bias is None:
+        raise ValueError(
+            "loss_type 'siglip' needs logit_scale/logit_bias in the "
+            "LossContext (the train loop supplies them from "
+            "TrainState.loss_scalars; direct callers must pass both)."
+        )
+    loss = siglip_loss(img, txt, ctx.logit_scale, ctx.logit_bias)
+    zero = loss.new_zeros(())
+    return loss, {"anchor": loss, "lalign": zero, "lunif": zero}
+
+
 def _anchor_lalign(img, txt, ctx: LossContext):
     # Ablation 1 (sparsify_clip.py:922-927).
     anchor = infonce_loss(img, txt, ctx.temperature)
@@ -156,14 +193,11 @@ def _anchor_plus_lunif(img, txt, ctx: LossContext):
     return anchor + lunif, {"anchor": anchor, "lalign": anchor.new_zeros(()), "lunif": lunif}
 
 
-# loss_type → (main-phase fn, has_warm_phase), or what the string waits
-# for.  Strings are the exact reference spellings, then the JAX package's
-# extras.
-_DISPATCH: Dict[str, Union[Tuple[LossFn, bool], str]] = {
+# loss_type → (main-phase fn, has_warm_phase).  Strings are the exact
+# reference spellings, then the JAX package's extras.
+_DISPATCH: Dict[str, Tuple[LossFn, bool]] = {
     "anchor": (_anchor_only, False),
-    "anchor-roberta": "the soft-target loss contrastive_loss_roberta and the host "
-                      "soft-target provider "
-                      "(ROADMAP Queue 1, 'Rest of the losses, and the step knobs')",
+    "anchor-roberta": (_anchor_roberta, False),
     "only_lunif_n_then_anchor+lalign+lunif(text)+lunif(img)": (
         _anchor_lalign_lunif_modality, True),
     "only_lunif_n_then_anchor+lalign+lunif(centroids)": (_anchor_lalign_lunif_centroids, True),
@@ -181,8 +215,7 @@ _DISPATCH: Dict[str, Union[Tuple[LossFn, bool], str]] = {
     "__dead__anchor+lalign+BETA*lunif(centroids)": (
         _anchor_lalign_beta_lunif_centroids_dead, True),
     "lunif": (_warm_lunif, False),
-    "siglip": "losses/sigmoid.py "
-              "(ROADMAP Queue 1, 'Rest of the losses, and the step knobs')",
+    "siglip": (_siglip, False),
     "anchor+lunif": (_anchor_plus_lunif, False),
 }
 
@@ -198,13 +231,7 @@ def make_loss_fn(loss_type: str) -> LossFn:
     """
     if loss_type not in _DISPATCH:
         raise ValueError(f"Unknown loss_type {loss_type!r}. Known: {sorted(_DISPATCH)}")
-    entry = _DISPATCH[loss_type]
-    if isinstance(entry, str):
-        raise NotImplementedError(
-            f"loss_type {loss_type!r} is not ported to sparsify_clip_tpu_torch yet: "
-            f"it waits for {entry}"
-        )
-    main_fn, has_warm = entry
+    main_fn, has_warm = _DISPATCH[loss_type]
     if not has_warm:
         return main_fn
 

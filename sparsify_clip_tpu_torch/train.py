@@ -8,9 +8,17 @@
   the device beside the model's parameters, not a logit scale.
 * AdamW as the reference configures it: betas (0.9, 0.999), eps 1e-8,
   decoupled weight decay 0.01 on **every** trainable, the temperature
-  included; the LR comes from :func:`schedules.make_lr_schedule`,
-  evaluated at the 0-based optimizer count as optax does.
+  and SigLIP's two scalars included; the LR comes from
+  :func:`schedules.make_lr_schedule`, evaluated at the 0-based optimizer
+  count as optax does.  ``adam_mu_dtype: bfloat16`` stores the first
+  moment in bf16 (:class:`sparsify_clip_tpu_torch.optim.AdamWBf16Mu`).
 * β/α are evaluated at the 1-based batch index (sparsify_clip.py:755).
+* ``grad_accum_steps > 1`` is GradCache (:meth:`TrainStep.gradcache`):
+  the loss and its embedding gradients over the full batch, the encoders
+  over microbatches.
+* ``loss_type: "anchor-roberta"`` takes a (B, B) ``soft_targets`` matrix
+  with each batch, from the config's ``soft_targets_provider`` over the
+  batch's captions (:func:`resolve_soft_targets_provider`).
 
 The JAX step is a pure function of an immutable state.  Here the state
 holds the model and the optimizer, which a step updates in place; a
@@ -26,15 +34,18 @@ caller asks for the CPU.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from sparsify_clip_tpu_torch.config import ExperimentConfig
 from sparsify_clip_tpu_torch.losses import LossContext, make_loss_fn
 from sparsify_clip_tpu_torch.models.clip import CLIP, create_model
+from sparsify_clip_tpu_torch.optim import AdamWBf16Mu
 from sparsify_clip_tpu_torch.schedules import get_alpha, get_beta, make_lr_schedule
 from sparsify_clip_tpu_torch.utils.numerics import l2_normalize
 
@@ -43,11 +54,6 @@ Metrics = Dict[str, Union[torch.Tensor, float]]
 
 # Config knobs the port's step does not run yet → what they wait for.
 _NOT_PORTED: List[Tuple[Callable[[ExperimentConfig], bool], str]] = [
-    (lambda c: c.grad_accum_steps > 1,
-     "grad_accum_steps > 1 (GradCache accumulation, "
-     "ROADMAP Queue 1, 'Rest of the losses, and the step knobs')"),
-    (lambda c: c.adam_mu_dtype != "float32",
-     "adam_mu_dtype: bfloat16 (ROADMAP Queue 1, 'Rest of the losses, and the step knobs')"),
     (lambda c: c.device_augment,
      "device_augment (ops/image.py, ROADMAP Queue 1, 'Rest of inference, serving and export')"),
     (lambda c: c.sparse_projection != "none",
@@ -60,9 +66,6 @@ _NOT_PORTED: List[Tuple[Callable[[ExperimentConfig], bool], str]] = [
     (lambda c: c.mesh_model > 1,
      "mesh_model > 1 (tensor parallelism, ROADMAP Queue 1, 'Multi-GPU')"),
     (lambda c: c.multihost, "multihost (ROADMAP Queue 1, 'Multi-GPU')"),
-    (lambda c: bool(c.soft_targets_provider),
-     "soft_targets_provider (anchor-roberta, "
-     "ROADMAP Queue 1, 'Rest of the losses, and the step knobs')"),
 ]
 
 
@@ -70,8 +73,11 @@ def check_supported(config: ExperimentConfig) -> None:
     """Raise :class:`NotImplementedError` for the first config knob the
     port's step does not run yet; the loss type is checked by
     :func:`make_loss_fn`.  Every registry model trains, ViT and ResNet
-    towers alike; ``stem_s2d`` is accepted as the TPU layout hint it is
-    (see :func:`create_train_setup`)."""
+    towers alike, under every loss type, GradCache accumulation, either
+    ``adam_mu_dtype`` and a ``soft_targets_provider``;
+    ``allow_accum_gather`` selects nothing on one device (the JAX
+    microbatch layout differs only over a data mesh), and ``stem_s2d`` is
+    accepted as the TPU layout hint it is (see :func:`create_train_setup`)."""
     for unsupported, what in _NOT_PORTED:
         if unsupported(config):
             raise NotImplementedError(
@@ -85,30 +91,44 @@ class TrainState:
     model: CLIP                         # fp32 parameters
     temperature: torch.Tensor           # raw fp32 scalar on the device
     optimizer: torch.optim.Optimizer    # AdamW over the trainables
+    # loss_type "siglip": {"logit_scale": log-space scale, "logit_bias"},
+    # fp32 device scalars that AdamW trains beside the model; else None
+    loss_scalars: Optional[Dict[str, torch.Tensor]] = None
 
 
-def build_optimizer(params, lr_schedule: Callable[[int], float]) -> torch.optim.AdamW:
+def build_optimizer(params, lr_schedule: Callable[[int], float],
+                    adam_mu_dtype: str = "float32") -> torch.optim.Optimizer:
     """AdamW exactly as the reference configures it: betas (0.9, 0.999),
     eps 1e-8, decoupled wd 0.01 applied to ALL parameters (torch AdamW
-    default; sparsify_clip.py:730).  The step sets the LR from the
-    schedule before each update."""
+    default; sparsify_clip.py:730).  ``adam_mu_dtype: bfloat16`` keeps the
+    first moment in bf16 as optax's ``mu_dtype`` does (:class:`AdamWBf16Mu`).
+    The step sets the LR from the schedule before each update."""
+    if adam_mu_dtype == "bfloat16":
+        return AdamWBf16Mu(params, lr=lr_schedule(0), betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=0.01)
     return torch.optim.AdamW(params, lr=lr_schedule(0), betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=0.01)
 
 
 def batch_to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
     """The array fields of a host (numpy) or device batch as tensors on
-    ``device``: fp32 images, integer tokens."""
-    return {
+    ``device``: fp32 images, integer tokens and, where the batch has them,
+    the fp32 (B, B) ``soft_targets``."""
+    fields = {
         "images": torch.as_tensor(batch["images"], dtype=torch.float32).to(device, non_blocking=True),
         "tokens": torch.as_tensor(batch["tokens"]).to(device, non_blocking=True),
     }
+    if batch.get("soft_targets") is not None:
+        fields["soft_targets"] = torch.as_tensor(batch["soft_targets"], dtype=torch.float32).to(
+            device, non_blocking=True)
+    return fields
 
 
 class TrainStep:
     """One training step for this experiment's loss_type
-    (train.py:109-408, the ``grad_accum_steps == 1`` route):
-    encode → l2_normalize → loss → backward → AdamW → metrics."""
+    (train.py:109-408): encode → l2_normalize → loss → backward → AdamW →
+    metrics, the encoders over ``grad_accum_steps`` microbatches when it
+    is over 1 (:meth:`gradcache`)."""
 
     def __init__(self, config: ExperimentConfig, steps_per_epoch: int, total_steps: int,
                  lr_schedule: Callable[[int], float]):
@@ -133,11 +153,20 @@ class TrainStep:
                           config.alpha_warmup_epoch, config.alpha_increment_epoch)
         fields = batch_to_device(batch, state.temperature.device)
         state.optimizer.zero_grad(set_to_none=True)
-        img, txt = state.model(fields["images"], fields["tokens"])
+        scalars = {}
+        if state.loss_scalars is not None:
+            # the scale is learned in log space: the loss sees exp of it
+            scalars = {"logit_scale": torch.exp(state.loss_scalars["logit_scale"]),
+                       "logit_bias": state.loss_scalars["logit_bias"]}
         ctx = LossContext(temperature=state.temperature, beta=beta, alpha=alpha,
-                          warm=epoch < config.only_lunif_epochs)
-        loss, aux = self.loss_fn(l2_normalize(img), l2_normalize(txt), ctx)
-        loss.backward()
+                          warm=epoch < config.only_lunif_epochs,
+                          soft_targets=fields.get("soft_targets"), **scalars)
+        if config.grad_accum_steps > 1:
+            loss, aux = self.gradcache(state.model, fields["images"], fields["tokens"], ctx)
+        else:
+            img, txt = state.model(fields["images"], fields["tokens"])
+            loss, aux = self.loss_fn(l2_normalize(img), l2_normalize(txt), ctx)
+            loss.backward()
         # optax differentiates every trainable: one the loss does not reach
         # (the temperature in the warm phase) gets a zero gradient, and AdamW
         # still decays it and advances its moments and count.
@@ -147,6 +176,52 @@ class TrainStep:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
         return loss, aux, beta, alpha
+
+    def gradcache(self, model: CLIP, images: torch.Tensor, tokens: torch.Tensor,
+                  ctx: LossContext):
+        """GradCache accumulation (JAX ``gradcache_value_and_grad``,
+        train.py:246-349), on one device, where microbatch ``i`` is the
+        contiguous slice ``[i·mb, (i+1)·mb)``:
+
+        1. encode every microbatch without autograd and l2-normalise it;
+        2. the loss over the full batch of those embeddings, as leaves:
+           exactly the large-batch loss (the B×B loss couples every pair),
+           whose backward leaves the embeddings' gradients on the leaves and
+           the temperature's and the loss scalars' in their ``.grad``;
+        3. re-encode each microbatch with autograd and back-propagate its
+           slice of the embeddings' gradients: the parameters' fp32
+           ``.grad`` sum the microbatches in order, as JAX's scan does
+           from zero.
+
+        Peak activation memory is one microbatch's; the cost is one extra
+        encoder forward.  A BatchNorm tower normalizes by each
+        microbatch's statistics in both passes; its running statistics
+        move once a microbatch in pass 1 alone (JAX threads ``batch_stats``
+        through pass 1 and drops pass 2's), so pass 2's in-place updates
+        are undone."""
+        a = self.config.grad_accum_steps
+        b = images.shape[0]
+        if b % a:
+            raise ValueError(f"global batch {b} not divisible by grad_accum_steps {a}")
+        micro = [slice(i * b // a, (i + 1) * b // a) for i in range(a)]
+        with torch.no_grad():
+            encoded = [model(images[s], tokens[s]) for s in micro]
+            img = torch.cat([l2_normalize(i) for i, _ in encoded]).requires_grad_(True)
+            txt = torch.cat([l2_normalize(t) for _, t in encoded]).requires_grad_(True)
+        del encoded
+        loss, aux = self.loss_fn(img, txt, ctx)
+        loss.backward()
+        d_img = img.grad if img.grad is not None else torch.zeros_like(img)
+        d_txt = txt.grad if txt.grad is not None else torch.zeros_like(txt)
+        running = [(buf, buf.clone()) for buf in model.buffers()]
+        for s in micro:
+            img_s, txt_s = model(images[s], tokens[s])
+            torch.autograd.backward((l2_normalize(img_s), l2_normalize(txt_s)),
+                                    (d_img[s], d_txt[s]))
+        with torch.no_grad():
+            for buf, kept in running:
+                buf.copy_(kept)
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     def __call__(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
         lr = self.lr_schedule(state.step)
@@ -168,6 +243,9 @@ class TrainStep:
                             else self.config.anchor_temperature),
             **{k: v.detach() for k, v in aux.items()},
         }
+        if state.loss_scalars is not None:
+            metrics["siglip_scale"] = torch.exp(state.loss_scalars["logit_scale"].detach())
+            metrics["siglip_bias"] = state.loss_scalars["logit_bias"].detach().clone()
         return state, metrics
 
 
@@ -178,6 +256,7 @@ def check_finite(state: TrainState, loss: torch.Tensor) -> None:
     if not torch.isfinite(loss).item():
         raise FloatingPointError(f"non-finite loss {loss.item()} at step {state.step}")
     named = list(state.model.named_parameters()) + [("temperature", state.temperature)]
+    named += list((state.loss_scalars or {}).items())
     for name, p in named:
         if p.grad is not None and not torch.isfinite(p.grad).all().item():
             raise FloatingPointError(f"non-finite gradient of {name} at step {state.step}")
@@ -246,11 +325,25 @@ def create_train_setup(
                          image_size=image_size).train()
     temperature = torch.tensor(config.anchor_temperature, dtype=torch.float32, device=device)
     temperature.requires_grad_(config.anchor_temperature_learnable)
-    # the trainables: the model's parameters, then the temperature when
-    # it is learnable (train.py:80-86)
+    loss_scalars = None
+    if config.loss_type == "siglip":
+        # SigLIP's learnables (losses/sigmoid.py): the scale in log space,
+        # so exp keeps it positive under unconstrained AdamW, and the bias
+        loss_scalars = {
+            "logit_scale": torch.log(torch.tensor(config.siglip_logit_scale_init,
+                                                  dtype=torch.float32, device=device)),
+            "logit_bias": torch.tensor(config.siglip_logit_bias_init, dtype=torch.float32,
+                                       device=device),
+        }
+        for scalar in loss_scalars.values():
+            scalar.requires_grad_(True)
+    # the trainables: the model's parameters, the temperature when it is
+    # learnable, SigLIP's scalars (train.py:80-86)
     params = list(model.parameters()) + ([temperature] if temperature.requires_grad else [])
+    params += list((loss_scalars or {}).values())
     state = TrainState(step=0, model=model, temperature=temperature,
-                       optimizer=build_optimizer(params, schedule))
+                       optimizer=build_optimizer(params, schedule, config.adam_mu_dtype),
+                       loss_scalars=loss_scalars)
     return TrainSetup(
         config=config,
         model=model,
@@ -305,6 +398,59 @@ class _ThroughputMeter:
         return (t1 - t0) / (len(self._times) - 1) * 1000
 
 
+def resolve_soft_targets_provider(spec: str) -> Optional[Callable[[List[str]], Any]]:
+    """``"module:attr"`` / ``"module.attr"`` → the host soft-target
+    callable (JAX ``resolve_soft_targets_provider``, train.py:595-626).
+
+    The ``anchor-roberta`` loss (sparsify_clip.py:135-157) needs a (B, B)
+    row-stochastic text-similarity matrix that the reference computes on
+    the host from a RoBERTa sentence encoder (:711-713).  The provider is
+    user code, any callable from the batch's caption strings to that
+    matrix; this resolves the config's import spec once a run.  Returns
+    None for the empty spec."""
+    if not spec:
+        return None
+    if ":" in spec:
+        mod_name, attr_path = spec.split(":", 1)
+    else:
+        mod_name, _, attr_path = spec.rpartition(".")
+    if not mod_name or not attr_path:
+        raise ValueError(
+            f"soft_targets_provider {spec!r} is not an import spec — "
+            "use 'package.module:callable'"
+        )
+    fn = importlib.import_module(mod_name)
+    for part in attr_path.split("."):
+        fn = getattr(fn, part)
+    if not callable(fn):
+        raise TypeError(
+            f"soft_targets_provider {spec!r} resolved to non-callable {fn!r}"
+        )
+    return fn
+
+
+def apply_soft_targets(batch: Batch, soft_fn: Optional[Callable[[List[str]], Any]]) -> Batch:
+    """The host batch with its fp32 (B, B) ``soft_targets`` from the
+    provider over its ``captions`` (JAX ``_apply_soft_targets``,
+    train.py:628-645); the batch itself without a provider."""
+    if soft_fn is None:
+        return batch
+    captions = batch.get("captions")
+    if captions is None:
+        raise ValueError(
+            "soft_targets_provider is configured but the loader batch "
+            "carries no 'captions' — use a caption-bearing dataset/loader"
+        )
+    st = np.asarray(soft_fn(captions), dtype=np.float32)
+    b = len(captions)
+    if st.shape != (b, b):
+        raise ValueError(
+            f"soft_targets_provider returned shape {st.shape}, "
+            f"expected ({b}, {b}) for this batch"
+        )
+    return {**batch, "soft_targets": st}
+
+
 def run_training(
     setup: TrainSetup,
     train_batches: Callable[[int], Iterator[Batch]],
@@ -318,7 +464,8 @@ def run_training(
 ) -> TrainState:
     """The epoch loop (train.py:648-797; reference sparsify_clip.py:739-986).
 
-    ``train_batches(epoch)`` yields host batches (dicts of arrays);
+    ``train_batches(epoch)`` yields host batches (dicts of arrays, with
+    ``captions`` where a ``soft_targets_provider`` reads them);
     ``eval_fn`` runs before training and after every epoch (and every
     ``eval_every_n_steps``); ``checkpoint_fn(state, epoch)`` fires every
     ``save_checkpoint_every_n_epochs``; ``log_fn`` gets each step's
@@ -342,17 +489,21 @@ def run_training(
     if eval_fn is not None:
         eval_fn(state)  # pre-training eval (sparsify_clip.py:740)
 
+    soft_fn = resolve_soft_targets_provider(config.soft_targets_provider)
+
     def device_batches(epoch: int, skip: int = 0):
         """One-step lookahead: the next batch's host→device copy is
         queued before the current step runs.  ``skip`` drops leading
-        batches on the host, before any copy."""
+        batches on the host, before any copy.  A configured soft-target
+        provider runs on the host batch's captions, and its matrix goes
+        with the batch."""
         pending = None
         it = iter(train_batches(epoch))
         for _ in range(skip):
             if next(it, None) is None:
                 break
         for batch in it:
-            nxt = batch_to_device(batch, setup.device)
+            nxt = batch_to_device(apply_soft_targets(batch, soft_fn), setup.device)
             if pending is not None:
                 yield pending
             pending = nxt

@@ -8,10 +8,11 @@ dispatch against the JAX package's, on the CPU.
   ``losses.unif.lunif_loss``, at N = 8 and at N = 200, which is no
   multiple of the TPU's 128-row tile.
 * The helpers of ``losses/{unif,align,centroids}.py`` against JAX.
-* Every runnable ``loss_type``: value, the three aux components and the
+* Every ``loss_type``: value, the three aux components and the
   gradients of img, txt and the temperature against the JAX
   ``make_loss_fn`` on the same numpy embeddings, in both phases where
-  the string has a warm phase.
+  the string has a warm phase; every context carries a row-stochastic
+  soft-target matrix (``anchor-roberta``) and SigLIP's scale and bias.
 
 The CUDA kernels themselves are held against the plain versions on the
 card (tests/test_torch_port_cuda_lunif.py).
@@ -223,10 +224,17 @@ def test_normalized_centroids_clamp_a_zero_midpoint():
 
 # ------------------------------------------------------------------ dispatch
 
-RUNNABLE = [k for k in dispatch._DISPATCH if k not in ("anchor-roberta", "siglip")]
+RUNNABLE = list(dispatch._DISPATCH)
 PHASES = [(lt, warm) for lt in RUNNABLE
           for warm in ((False, True) if jax_dispatch._DISPATCH[lt][1] else (False,))]
 N_PAIRS, TEMP, BETA, ALPHA = 24, 0.1, 0.7, 1.3
+SCALE, BIAS = 10.0, -10.0  # SigLIP's paper inits
+
+
+def _soft_targets():
+    logits = np.random.default_rng(24).standard_normal((N_PAIRS, N_PAIRS)).astype(np.float32)
+    e = np.exp(2.0 * logits)
+    return (e / e.sum(axis=1, keepdims=True)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -241,7 +249,10 @@ def jax_losses():
 
         def f(i, t, temp):
             ctx = jax_dispatch.LossContext(temperature=temp, beta=jnp.float32(BETA),
-                                           alpha=jnp.float32(ALPHA), warm=jnp.array(warm))
+                                           alpha=jnp.float32(ALPHA), warm=jnp.array(warm),
+                                           soft_targets=jnp.asarray(_soft_targets()),
+                                           logit_scale=jnp.float32(SCALE),
+                                           logit_bias=jnp.float32(BIAS))
             return fn(i, t, ctx)
 
         return jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)
@@ -256,7 +267,9 @@ def jax_losses():
 def _port_loss(loss_type, img, txt, warm):
     ti, tt = (torch.from_numpy(v).requires_grad_(True) for v in (img, txt))
     temp = torch.tensor(TEMP, requires_grad=True)
-    ctx = dispatch.LossContext(temperature=temp, beta=BETA, alpha=ALPHA, warm=warm)
+    ctx = dispatch.LossContext(temperature=temp, beta=BETA, alpha=ALPHA, warm=warm,
+                               soft_targets=torch.from_numpy(_soft_targets()),
+                               logit_scale=torch.tensor(SCALE), logit_bias=torch.tensor(BIAS))
     loss, aux = dispatch.make_loss_fn(loss_type)(ti, tt, ctx)
     loss.backward()
     grads = [v.grad if v.grad is not None else torch.zeros_like(v) for v in (ti, tt, temp)]
