@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths once on one
 NVIDIA GPU: RN50 (the reference's default tower), then SigLIP, GradCache
-and the soft-target loss last.
+and the soft-target loss, then the device image ops, the raw-uint8
+server, zero-shot, the CLI with ``device_augment``, ``torch.export`` and
+the encode CLI last.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -180,7 +182,41 @@ Phases, one line each; any failure exits nonzero before the final line:
    full state holds bf16 first and fp32 second moments), and ``siglip``
    (its records carry ``siglip_scale`` / ``siglip_bias``, its full state
    ``loss_scalars``); 24 ``mha_fwd`` and 24 ``mha_bwd`` a step, 24
-   ``mha_fwd`` an eval.
+   ``mha_fwd`` an eval;
+28. hold ``ops/image.py`` on the card against the same functions on the
+   CPU at batch 256: the ``device_augment`` crop-resize of 256² uint8
+   staging images to 224 (with normalization), given the same boxes and
+   flips, and ``eval_resize_batch`` from 480×640, both within 1e-5 on [0,
+   1] pixels and timed with CUDA events beside the CPU's time and their
+   bound (the bytes they move and their nonzero taps);
+29. time the host's cost of a no-grad attention call through its custom
+   op against its wrapper called directly, at a serving batch's shape;
+   build full-width ViT-B-32 in bf16 from a seed and serve 1024 images of
+   224² from 8 threads through ``submit_image`` (pixels normalized on the
+   host) and through ``submit_image_u8`` (raw uint8), then 1024 uint8
+   requests of a 224² / 256² / 480×640 mix: every batch launches 12
+   ``mha_fwd`` and nothing else and holds one shape, the shapes' queues
+   drain away, the embeddings are finite unit vectors, the uint8 ones
+   agree with the fp32 path on the same pixels and each mixed request with
+   its pixels resized on the host (phase 4's cosine); requests/s and
+   p50/p99 of the three bursts beside phase 5's; then a zero-shot
+   classifier over 10 class names × 7 templates (one text batch of 70
+   prompts, 12 ``mha_fwd``) on 64 images, whose probabilities sum to 1;
+30. the CLI on a YAML of full-width ViT-B-32 under exp 6 at batch 256 with
+   ``device_augment: true`` (uint8 staging at 256): 2 epochs of 8 steps on
+   2048 synthetic pairs, 512 eval pairs; phase 9's launches a step, the
+   loss falling within each epoch (the warm and the main phase's losses
+   are different functions); the loader alone, the host→device copy of a
+   uint8 batch, the CLI step and a ``torch.profiler`` idle share beside
+   phase 19's;
+31. export that ViT-B-32 with a symbolic batch and its weights baked in,
+   and once with ``uint8_input``; load each in a child process that
+   imports only torch and ``sparsify_clip_tpu_torch.ops`` (checked from
+   its ``sys.modules``), whose batches of 1, 7 and 64 must agree with the
+   live ``CLIPEncoder`` and launch 12 ``mha_fwd`` a call; then ``python -m
+   sparsify_clip_tpu_torch.encode`` on 64 PNG and JPEG files of several
+   sizes, written with PIL, and a captions file: its npz holds unit rows
+   equal to the live encoder's on the same decoded pixels.
 
 Phases 6 and 8 also hold the loss kernels at RN50's (256, 1024), the
 main path's shape, and at ViT-L-14-336's (256, 768) of phase 26.  The kernels line reports each kernel at the case its
@@ -197,8 +233,10 @@ pairs 4 times.  RN50 runs at full depth; phases 21-22 train 2 epochs of
 8 steps (the reference trains 100 on COCO), phase 23 2 of 2 on 512
 synthetic pairs.  Phases 24-27 cut the depth of a run alone: SigLIP 2
 epochs of 4 steps, the GradCache ViT-L-14-336 run 2 of 2 (eval 256 pairs,
-not 512), the two CLIs 2 of 2 with one eval batch of 256.  The earlier
-phases run as they did.
+not 512), the two CLIs 2 of 2 with one eval batch of 256.  Phases 28-31
+run ViT-B-32 at full width and depth; phase 30 cuts training as phase 19
+does (2 epochs of 8 steps on 2048 synthetic pairs, 512 eval pairs 4
+times).  The earlier phases run as they did.
 
 The last lines are a JSON object of per-kernel results (time, plain time,
 library time, the card's least time for the work, launches on the main
@@ -509,9 +547,14 @@ class _BatchLaunches:
 
     def __init__(self, encoder):
         self.encoder, self.device, self.batches = encoder, encoder.device, []
+        self.u8_shapes = []  # (H, W) of each raw-uint8 batch
 
     def encode_images(self, images):
         return self._run("image", self.encoder.encode_images, images)
+
+    def encode_images_u8(self, images):
+        self.u8_shapes.append(tuple(images.shape[1:3]))
+        return self._run("image_u8", self.encoder.encode_images_u8, images)
 
     def encode_tokens(self, tokens):
         return self._run("tokens", self.encoder.encode_tokens, tokens)
@@ -2037,6 +2080,497 @@ def phase_cli_losses(smi: str):
     return out
 
 
+# slice 10: the rest of inference, serving and export (phases 28-31)
+IMAGE_BATCH = 256                # phase 28: the train batch, and a serving batch
+IMAGE_STAGING = 256              # device_augment_staging's default
+IMAGE_FRAME = (480, 640)         # a camera frame, squash-resized to the tower's 224
+# crop-resize and resize on the card vs the same function on the CPU: fp32
+# sums of a few taps in other orders, on [0, 1] pixels (normalized: / std)
+IMAGE_ATOL = 1e-5
+U8_SHAPES = ((224, 224), (256, 256), IMAGE_FRAME)  # phase 29's client shapes
+U8_REQUESTS = 1024               # a burst of each path at 224², then the shape mix
+ZERO_SHOT_CLASSES = ("dog", "cat", "car", "bus", "bird", "horse", "ship", "truck",
+                     "airplane", "kitchen")
+DISPATCH_CALLS, DISPATCH_ROUNDS = 200, 5  # phase 29: the custom op's host cost a call
+EXPORT_BATCHES = (1, 7, 64)      # phase 31: an artifact against the live encoder
+ENCODE_FILES = 64                # phase 31: the encode CLI's folder (PNG and JPEG)
+
+
+def _resample_flops(case: str, args) -> int:
+    """The operations phase 28's function needs on these inputs, not those
+    of its dense products: a multiply-add (2) for each nonzero tap of the
+    separable weights (rows over the input's columns, then columns over
+    the output's rows; each sample's own matrices for the crop boxes) a
+    channel, and the normalize's subtract and divide (2) an output value."""
+    from sparsify_clip_tpu_torch.ops import image
+
+    images = args[0]
+    _, height, width, channels = images.shape
+    size = 224
+    if case == "augment":  # crop_resize's matrices
+        top, left, h, w = (t.float() for t in args[1])
+        scale_y, scale_x = size / h, size / w
+        rows = image.weight_matrix(height, size, 1.0 / scale_y, -top * scale_y, antialias=False)
+        cols = image.weight_matrix(width, size, 1.0 / scale_x, -left * scale_x, antialias=False)
+        per_sample = 1
+    else:  # eval_resize_batch's, one pair for the batch
+        rows, cols = (image.weight_matrix(n, size, 1.0 / (size / n), 0.0, antialias=True)
+                      for n in (height, width))
+        per_sample = len(images)
+    taps = per_sample * (rows.count_nonzero() * width + cols.count_nonzero() * size) * channels
+    return int(2 * taps + 2 * len(images) * size * size * channels)
+
+
+def phase_image_ops(smi: str):
+    """Phase 28: ``ops/image.py`` on the card against the same functions on
+    the CPU at batch 256: the staging 256² → 224 crop-resize of
+    ``device_augment`` given the same boxes and flips, and
+    ``eval_resize_batch`` from 480×640; both timed with CUDA events."""
+    from sparsify_clip_tpu_torch.ops import image
+
+    rng = np.random.default_rng(SEED + 28)
+    gen = torch.Generator().manual_seed(SEED)
+    results = {}
+    staging = rng.integers(0, 256, (IMAGE_BATCH, IMAGE_STAGING, IMAGE_STAGING, 3), np.uint8)
+    u, u_flip = image.augment_uniforms(gen, IMAGE_BATCH)
+    boxes = image.crop_boxes_from_uniforms(u[:, 0], u[:, 1], u[:, 2], u[:, 3],
+                                           IMAGE_STAGING, IMAGE_STAGING)
+    flips = u_flip < 0.5
+    frames = rng.integers(0, 256, (IMAGE_BATCH, *IMAGE_FRAME, 3), np.uint8)
+    cases = {
+        "augment": (lambda x, bx, fl: image.normalize_batch(image.crop_resize(x, bx, fl, 224)),
+                    (torch.from_numpy(staging), boxes, flips)),
+        "eval_resize": (lambda x: image.eval_resize_batch(x, 224), (torch.from_numpy(frames),)),
+    }
+    std = torch.as_tensor(image.CLIP_STD)
+    for name, (fn, cpu_args) in cases.items():
+        t = time.perf_counter()
+        want = fn(*cpu_args)
+        cpu_ms = (time.perf_counter() - t) * 1e3
+        dev_args = tuple(a.cuda() if isinstance(a, torch.Tensor) else
+                         tuple(t.cuda() for t in a) for a in cpu_args)
+        got = fn(*dev_args)
+        torch.cuda.synchronize()
+        err = ((got.cpu() - want) * std).abs().max().item()  # on [0, 1] pixels
+        ms = cuda_ms(lambda: fn(*dev_args), iters=20, warmup=3)
+        bound_ms, bound_by = bound(dev_args[0].numel() + 4 * got.numel(),
+                                   _resample_flops(name, cpu_args), "float32")
+        results[name] = dict(max_abs_err=err, ms=ms, cpu_ms=cpu_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+        log("phase 28 image", case=name, input=list(dev_args[0].shape), output=list(got.shape),
+            max_abs_err_pixels=err, atol=IMAGE_ATOL, ms=f"{ms:.5f}", cpu_ms=f"{cpu_ms:.3f}",
+            bound_ms=f"{bound_ms:.5f}", bound_by=bound_by, card=json.dumps(smi))
+        if not err <= IMAGE_ATOL:
+            raise AssertionError(f"phase 28 {name}: card vs CPU {err} > {IMAGE_ATOL}")
+    return results
+
+
+def _burst(server, payloads, submit):
+    """Submit ``payloads`` from ``SUBMIT_THREADS`` threads → (rows in
+    order, wall seconds)."""
+    futures, errors = [None] * len(payloads), []
+
+    def run(worker):
+        try:
+            for j in range(worker, len(payloads), SUBMIT_THREADS):
+                futures[j] = submit(payloads[j])
+        except Exception as exc:  # reported and failed below
+            errors.append(exc)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(w,)) for w in range(SUBMIT_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"submission failed: {errors}")
+    rows = np.stack([f.result(timeout=600) for f in futures])
+    return rows, time.perf_counter() - t0
+
+
+def _dispatch_us(smi: str, model) -> dict:
+    """Host µs a call of the no-grad attention forward as serving, eval and
+    GradCache's first pass reach it, through its custom op
+    (``sparsify_clip::mha_fwd``), against the same wrapper called directly,
+    at a serving batch's vision shape: the same kernel, so the difference
+    is the op's dispatch.  Each timing issues its calls without waiting
+    (the launch queue holds them) and the medians of interleaved rounds are
+    reported."""
+    from sparsify_clip_tpu_torch.ops import attention
+
+    width, heads = model.cfg.vision_width, model.cfg.vision_heads
+    tokens = (model.cfg.image_size // model.cfg.patch_size) ** 2 + 1
+    qkv = torch.randn((MAX_BATCH, tokens, 3 * width), device="cuda", dtype=torch.bfloat16)
+    calls = {"custom_op": lambda: attention.mha_fwd_op(qkv, heads, False),
+             "wrapper": lambda: attention.mha_fwd(qkv, heads, False)[0]}
+    if not torch.equal(calls["custom_op"](), calls["wrapper"]()):
+        raise AssertionError("phase 29: the custom op and its wrapper differ")
+    rounds = {name: [] for name in calls}
+    for _ in range(DISPATCH_ROUNDS):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn()
+            rounds[name].append((time.perf_counter() - t) / DISPATCH_CALLS * 1e6)
+            torch.cuda.synchronize()
+    us = {name: float(np.median(v)) for name, v in rounds.items()}
+    us["added"] = us["custom_op"] - us["wrapper"]
+    log("phase 29 dispatch", shape=list(qkv.shape), calls=DISPATCH_CALLS,
+        rounds=DISPATCH_ROUNDS, custom_op_us=f"{us['custom_op']:.2f}",
+        wrapper_us=f"{us['wrapper']:.2f}", added_us=f"{us['added']:.2f}",
+        added_ms_per_batch=f"{us['added'] * model.cfg.vision_layers[0] / 1e3:.4f}",
+        spread_us=json.dumps({k: [round(min(v), 2), round(max(v), 2)]
+                              for k, v in rounds.items()}), card=json.dumps(smi))
+    return us
+
+
+def phase_serve_u8(smi: str, model, fp32_rate: dict):
+    """Phase 29: ``submit_image_u8`` from 8 threads through full-width bf16
+    ViT-B-32: a burst at 224² against the same pixels normalized on the
+    host through ``submit_image``, then a mix of 224², 256² and 480×640
+    clients; every batch launches 12 ``mha_fwd`` and nothing else and holds
+    one shape; then zero-shot over 10 classes × 7 templates."""
+    from sparsify_clip_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
+    from sparsify_clip_tpu_torch.inference import (
+        DEFAULT_TEMPLATES, CLIPEncoder, build_zero_shot_classifier, zero_shot_classify,
+    )
+    from sparsify_clip_tpu_torch.ops.image import eval_resize_batch
+    from sparsify_clip_tpu_torch.serving import BatchingEncoderServer
+    from sparsify_clip_tpu_torch.text import get_tokenizer
+
+    rng = np.random.default_rng(SEED + 29)
+    encoder = CLIPEncoder(model, get_tokenizer(model.cfg.name))
+    recorder = _BatchLaunches(encoder)
+    zero = dict.fromkeys(KERNELS, 0)
+    per_batch = dict(zero, mha_fwd=model.cfg.vision_layers[0])
+    square = rng.integers(0, 256, (U8_REQUESTS, 224, 224, 3), np.uint8)
+    host = ((square.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD).astype(np.float32)
+    mix = [rng.integers(0, 256, (*U8_SHAPES[i % 3], 3), np.uint8) for i in range(U8_REQUESTS)]
+    rates, launches = {}, dict(zero)
+    dispatch = _dispatch_us(smi, model)
+    server = BatchingEncoderServer(recorder, max_batch=MAX_BATCH)
+    try:
+        server.warmup((224, 224, 3), model.cfg.context_length, include_u8=True)
+        for shape in U8_SHAPES[1:]:  # the other shapes' first batches off the clock
+            server.submit_image_u8(np.zeros((*shape, 3), np.uint8)).result(60)
+        for name, payloads, submit in (
+                ("fp32_224", host, server.submit_image),
+                ("u8_224", square, server.submit_image_u8),
+                ("u8_mix", mix, server.submit_image_u8)):
+            before = server.stats()
+            recorder.batches.clear()
+            recorder.u8_shapes.clear()
+            reset_counts()
+            rows, wall = _burst(server, payloads, submit)
+            counts = read_counts()
+            stats = server.stats()
+            batches = list(recorder.batches)
+            wrong = [c for _, c in batches if c != per_batch]
+            if wrong or len(batches) != stats.batches - before.batches:
+                raise AssertionError(f"phase 29 {name}: batches launched {wrong[:3]}, "
+                                     f"expected {per_batch}")
+            lat = server._latencies
+            recent = sorted(list(lat)[-len(payloads):])
+            rates[name] = dict(rows=rows, wall=wall, batches=len(batches),
+                               requests_per_s=len(payloads) / wall,
+                               p50_ms=1e3 * recent[len(recent) // 2],
+                               p99_ms=1e3 * recent[min(len(recent) - 1,
+                                                       int(0.99 * len(recent)))],
+                               shapes=sorted(set(recorder.u8_shapes)))
+            if name != "fp32_224":
+                launches = {k: launches[k] + counts[k] for k in KERNELS}
+        queues = sorted(str(k) for k in server._queues)
+    finally:
+        server.close()
+    if queues != ["image", "tokens"]:
+        raise AssertionError(f"phase 29: the uint8 queues did not drain away: {queues}")
+    if rates["u8_mix"]["shapes"] != sorted((s[0], s[1]) for s in U8_SHAPES):
+        raise AssertionError(f"phase 29: batch shapes {rates['u8_mix']['shapes']}")
+    served = np.concatenate([rates["u8_224"]["rows"], rates["u8_mix"]["rows"]])
+    norms = np.linalg.norm(served, axis=-1)
+    if not np.isfinite(served).all() or np.abs(norms - 1).max() > NORM_TOL:
+        raise AssertionError(f"phase 29: norms off 1 by {np.abs(norms - 1).max()}")
+    cos_host = min_cosine(rates["u8_224"]["rows"], rates["fp32_224"]["rows"])
+    # each mixed-shape request against its pixels resized and normalized on
+    # the host, encoded as fp32 pixels
+    cos_mix = 1.0
+    for shape in U8_SHAPES:
+        idx = [i for i in range(U8_REQUESTS) if mix[i].shape[:2] == shape]
+        pixels = eval_resize_batch(torch.from_numpy(np.stack([mix[i] for i in idx])), 224)
+        want = encode_direct(encoder.encode_images, pixels.numpy(), MAX_BATCH)
+        cos_mix = min(cos_mix, min_cosine(rates["u8_mix"]["rows"][idx], want))
+
+    # zero-shot: 10 classes × 7 templates, 64 images
+    before = read_counts()
+    classifier = build_zero_shot_classifier(encoder, ZERO_SHOT_CLASSES)
+    images = host[:64]
+    out = zero_shot_classify(encoder, images, classifier)
+    zs_counts = _delta(before, read_counts())
+    probs = out["probs"]
+    sums = probs.sum(-1)
+    cls_norms = torch.linalg.vector_norm(classifier, dim=-1).cpu().numpy()
+    ok = (probs.shape == (64, len(ZERO_SHOT_CLASSES)) and np.isfinite(probs).all()
+          and np.abs(sums - 1).max() < 1e-5 and np.abs(cls_norms - 1).max() < NORM_TOL
+          and out["predictions"].shape == (64,))
+    log("phase 29 zero-shot", ok=ok, classes=len(ZERO_SHOT_CLASSES),
+        templates=len(DEFAULT_TEMPLATES), images=64, max_prob_sum_err=float(np.abs(sums - 1).max()),
+        launches=json.dumps({k: v for k, v in zs_counts.items() if v}))
+    if not ok or zs_counts != dict(zero, mha_fwd=2 * model.cfg.text_layers):
+        raise AssertionError(f"phase 29 zero-shot: {out['predictions']}, launches {zs_counts}")
+    launches = {k: launches[k] + zs_counts[k] for k in KERNELS}
+    for name in ("fp32_224", "u8_224", "u8_mix"):
+        r = rates[name]
+        log("phase 29 rate", path=name, requests=U8_REQUESTS, batches=r["batches"],
+            requests_per_s=f"{r['requests_per_s']:.1f}", wall_s=f"{r['wall']:.3f}",
+            p50_ms=f"{r['p50_ms']:.3f}", p99_ms=f"{r['p99_ms']:.3f}",
+            phase_5_fp32=json.dumps(fp32_rate), card=json.dumps(smi))
+    log("phase 29 serve-u8", ok=True, min_cos_u8_vs_host_fp32=cos_host,
+        min_cos_mix_vs_host_resized=cos_mix, min_cosine=MIN_COSINE,
+        max_norm_err=float(np.abs(norms - 1).max()), per_batch=json.dumps(per_batch),
+        launches=json.dumps({k: v for k, v in launches.items() if v}),
+        dispatch_added_ms_per_batch=f"{dispatch['added'] * per_batch['mha_fwd'] / 1e3:.4f}",
+        u8_224_ms_per_batch=f"{1e3 * rates['u8_224']['wall'] / rates['u8_224']['batches']:.3f}")
+    if cos_host < MIN_COSINE or cos_mix < MIN_COSINE:
+        raise AssertionError(f"phase 29: cosine {cos_host} / {cos_mix} below {MIN_COSINE}")
+    return dict(launches=launches, rates={k: {kk: vv for kk, vv in v.items() if kk != "rows"}
+                                          for k, v in rates.items()})
+
+
+def phase_cli_augment(smi: str, phase19: dict):
+    """Phase 30: the CLI on a YAML of full-width ViT-B-32 under exp 6 at
+    batch 256 with ``device_augment: true`` (uint8 staging at 256): 2
+    epochs of 8 steps on synthetic pairs, phase 9's launches a step, the
+    loss falling within each epoch; the loader alone, the host→device copy
+    of a uint8 batch, the CLI step and the idle share beside phase 19's."""
+    import os
+    import tempfile
+
+    from sparsify_clip_tpu_torch.config import load_config
+    from sparsify_clip_tpu_torch.data import dataset_loader
+    from sparsify_clip_tpu_torch.train import batch_to_device
+
+    spe = CLI_TRAIN_SAMPLES // EXP6["batch_size"]
+    run = "exp6-vitb32-augment"
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml_path = _write_exp6_yaml(tmp, run_name=run, device_augment=True,
+                                     device_augment_staging=IMAGE_STAGING)
+        config = load_config(yaml_path)
+        train_loader, _ = dataset_loader(config, image_size=224)
+        t = time.perf_counter()
+        batches = list(train_loader.epoch(0))
+        loader_ms = (time.perf_counter() - t) / len(batches) * 1e3
+        one = batches[0]
+        if one["images"].dtype != np.uint8 or one["images"].shape[1:] != (
+                IMAGE_STAGING, IMAGE_STAGING, 3):
+            raise AssertionError(f"staging batch {one['images'].dtype} {one['images'].shape}")
+        copy_ms = cuda_ms(lambda: batch_to_device(one, torch.device("cuda")), iters=10, warmup=2)
+        del batches
+        counter = _PerStepCounts()
+        t = time.perf_counter()
+        try:
+            reset_counts()
+            _run_cli(["--config", yaml_path])
+            launches = read_counts()
+        finally:
+            counter.close()
+        seconds = time.perf_counter() - t
+        records = _jsonl(os.path.join(tmp, "logs", f"{run}.jsonl"))
+    steps = [r for r in records if "train_loss" in r]
+    losses = [r["train_loss"] for r in steps]
+    evals = _check_evals(records, EXP6_EPOCHS + 2, "exp 6 with device_augment")
+    epochs = [losses[e * spe:(e + 1) * spe] for e in range(EXP6_EPOCHS)]
+    if len(losses) != EXP6_EPOCHS * spe or not np.isfinite(losses).all() or not all(
+            e[-1] < e[0] for e in epochs):
+        raise AssertionError(f"exp 6 with device_augment: losses {losses}")
+    zero = dict.fromkeys(KERNELS, 0)
+    warm = dict(zero, mha_fwd=24, mha_bwd=24, lunif_fwd=2, lunif_bwd=2)
+    main = dict(zero, mha_fwd=24, mha_bwd=24, infonce_fwd=1, infonce_bwd_dimg=1,
+                infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
+    per_eval = dict(zero, mha_fwd=24 * (EVAL_PAIRS // EXP6["batch_size"]))
+    _expect_launches(counter.steps, [(k, warm if k < spe else main)
+                                     for k in range(EXP6_EPOCHS * spe)], "phase 30's steps")
+    _expect_launches(counter.evals, [per_eval] * (EXP6_EPOCHS + 2), "phase 30's evals")
+    rates = [r for r in records if "step_time_ms" in r]
+    prof = _profile_cli_steps(config, CLI_PROFILE_STEPS)
+    log("phase 30 cli", ok=True, model=config.model, batch=config.batch_size,
+        device_augment=config.device_augment, staging=config.device_augment_staging,
+        steps=len(steps), losses=json.dumps(losses), eval_last=json.dumps(evals[-1]),
+        launches=json.dumps(launches), seconds=f"{seconds:.3f}")
+    log("phase 30 rate", loader_ms_per_batch=f"{loader_ms:.3f}",
+        host_to_device_ms=f"{copy_ms:.3f}",
+        cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in rates]),
+        cli_pairs_per_s=json.dumps([round(r["pairs_per_sec"], 1) for r in rates]),
+        profiled_kernel_ms=f"{prof['kernel_ms']:.3f}", profiled_copy_ms=f"{prof['copy_ms']:.3f}",
+        profiled_wall_ms=f"{prof['wall_ms']:.3f}",
+        idle_share_profiled=f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}",
+        phase_19=json.dumps(dict(loader_ms_per_batch=round(phase19["loader_ms"], 3),
+                                 host_to_device_ms=round(phase19["copy_ms"], 3),
+                                 cli_step_ms=[round(r["step_time_ms"], 3)
+                                              for r in phase19["rates"]],
+                                 idle_share_profiled=round(
+                                     1 - phase19["profile"]["busy_ms"]
+                                     / phase19["profile"]["wall_ms"], 4))),
+        card=json.dumps(smi))
+    return dict(launches=launches)
+
+
+_EXPORT_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+import sparsify_clip_tpu_torch.ops
+from sparsify_clip_tpu_torch.ops import attention
+
+artifact, inputs, out = sys.argv[1:4]
+result = {}
+for kind in ("image", "text"):
+    program = torch.export.load(f"{artifact}/{kind}_encoder.pt2").module()
+    with np.load(inputs) as data:
+        batches = {k: data[k] for k in data.files if k.startswith(kind)}
+    for key, x in sorted(batches.items()):
+        before = attention.mha_fwd.launches
+        with torch.inference_mode():
+            y = program(torch.from_numpy(x).cuda())
+        torch.cuda.synchronize()
+        result[key] = dict(launches=attention.mha_fwd.launches - before)
+        np.save(f"{out}/{key}.npy", y.cpu().numpy())
+result["modules"] = sorted(m for m in sys.modules if m.startswith("sparsify_clip"))
+print(json.dumps(result))
+"""
+
+
+def phase_export(smi: str, model):
+    """Phase 31: full-width bf16 ViT-B-32 exported with a symbolic batch
+    (weights baked in), once with ``uint8_input``; each loaded in a child
+    process that imports torch and the port's op module alone, whose
+    batches of 1, 7 and 64 must agree with the live encoder and launch 12
+    ``mha_fwd`` a call; then ``python -m sparsify_clip_tpu_torch.encode``
+    on a folder of 64 PNG and JPEG files and a captions file, whose npz
+    must hold unit rows equal to the live encoder's."""
+    import os
+    import tempfile
+
+    from PIL import Image
+
+    from sparsify_clip_tpu_torch import encode
+    from sparsify_clip_tpu_torch.checkpoints import save_weights
+    from sparsify_clip_tpu_torch.export import save_exported
+    from sparsify_clip_tpu_torch.inference import CLIPEncoder
+    from sparsify_clip_tpu_torch.text import get_tokenizer
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 31)
+    encoder = CLIPEncoder(model, get_tokenizer(cfg.name))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    layers = cfg.vision_layers[0]
+    launches = dict.fromkeys(KERNELS, 0)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, uint8_input in (("symbolic", False), ("symbolic_uint8", True)):
+            artifact = os.path.join(tmp, name)
+            t = time.perf_counter()
+            save_exported(model, artifact, model_name=cfg.name, uint8_input=uint8_input)
+            export_s = time.perf_counter() - t
+            size_mb = sum(os.path.getsize(os.path.join(artifact, f))
+                          for f in os.listdir(artifact)) / 2**20
+            inputs, want = {}, {}
+            for b in EXPORT_BATCHES:
+                raw = rng.integers(0, 256, (b, cfg.image_size, cfg.image_size, 3), np.uint8)
+                if uint8_input:
+                    inputs[f"image_{b}"] = raw
+                    want[f"image_{b}"] = encoder.encode_images_u8(raw).cpu().numpy()
+                else:
+                    pixels = rng.standard_normal(raw.shape, dtype=np.float32)
+                    inputs[f"image_{b}"] = pixels
+                    want[f"image_{b}"] = encoder.encode_images(pixels).cpu().numpy()
+                    tokens = token_rows(rng, b, cfg.context_length, cfg.vocab_size)
+                    inputs[f"text_{b}"] = tokens
+                    want[f"text_{b}"] = encoder.encode_tokens(tokens).cpu().numpy()
+            path = os.path.join(tmp, f"{name}_inputs.npz")
+            np.savez(path, **inputs)
+            outputs = os.path.join(tmp, f"{name}_outputs")
+            os.makedirs(outputs)
+            t = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", _EXPORT_CHILD, artifact, path, outputs],
+                                  cwd=REPO, env=env, capture_output=True, text=True,
+                                  timeout=CLI_PROCESS_TIMEOUT)
+            child_s = time.perf_counter() - t
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 31 {name}: the child failed:\n{proc.stderr[-4000:]}")
+            result = json.loads(proc.stdout.strip().splitlines()[-1])
+            bad_modules = [m for m in result["modules"] if m.startswith((
+                "sparsify_clip_tpu_torch.models", "sparsify_clip_tpu_torch.export",
+                "sparsify_clip_tpu."))]
+            errs, cosines = {}, {}
+            for key, w in want.items():
+                got = np.load(os.path.join(outputs, f"{key}.npy"))
+                errs[key] = float(np.abs(got - w).max())
+                cosines[key] = min_cosine(got, w)
+                norms = np.linalg.norm(got, axis=-1)
+                if got.shape != w.shape or np.abs(norms - 1).max() > NORM_TOL:
+                    raise AssertionError(f"phase 31 {name} {key}: shape {got.shape}, norms {norms}")
+                if result[key]["launches"] != layers:
+                    raise AssertionError(f"phase 31 {name} {key}: {result[key]} mha_fwd, "
+                                         f"expected {layers}")
+                launches["mha_fwd"] += result[key]["launches"]
+            log("phase 31 export", ok=not bad_modules, artifact=name, batches=list(EXPORT_BATCHES),
+                export_s=f"{export_s:.3f}", child_s=f"{child_s:.3f}", size_mib=f"{size_mb:.1f}",
+                max_abs_err=json.dumps(errs), min_cosine=json.dumps(cosines),
+                launches=json.dumps({k: v["launches"] for k, v in result.items()
+                                     if k != "modules"}),
+                child_modules=json.dumps(result["modules"]), card=json.dumps(smi))
+            if bad_modules or min(cosines.values()) < MIN_COSINE:
+                raise AssertionError(f"phase 31 {name}: modules {bad_modules}, cosines {cosines}")
+            out[name] = dict(export_s=export_s, child_s=child_s)
+
+        # the encode CLI on 64 PNG and JPEG files of several sizes
+        folder = os.path.join(tmp, "images")
+        os.makedirs(folder)
+        for i in range(ENCODE_FILES):
+            h, w = (224, 224) if i % 4 == 0 else (int(rng.integers(100, 640)),
+                                                   int(rng.integers(100, 640)))
+            pixels = rng.integers(0, 256, (h, w, 3), np.uint8)
+            Image.fromarray(pixels).save(os.path.join(folder, f"img_{i:02d}.png" if i % 2
+                                                      else f"img_{i:02d}.jpg"), quality=95)
+        captions = [f"a photo of a {c} number {i}" for i, c in
+                    enumerate(ZERO_SHOT_CLASSES * 3)]
+        texts = os.path.join(tmp, "captions.txt")
+        with open(texts, "w") as fh:
+            fh.write("\n".join(captions) + "\n")
+        weights = save_weights(model, os.path.join(tmp, "weights.npz"))
+        npz = os.path.join(tmp, "embeddings.npz")
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "sparsify_clip_tpu_torch.encode", "--model",
+                               cfg.name, "--weights", weights, "--images", folder, "--texts",
+                               texts, "--out", npz], cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=CLI_PROCESS_TIMEOUT)
+        encode_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 31 encode CLI failed:\n{proc.stderr[-4000:]}")
+        with np.load(npz) as data:
+            got = {k: data[k] for k in data.files}
+        files = list(got["image_files"])
+        want_img = encode_direct(encoder.encode_images,
+                                 encode._load_image_batch(files, cfg.image_size), 64)
+        want_txt = encoder.encode_texts(list(got["texts"])).cpu().numpy()
+    rows = np.concatenate([got["image_embeddings"], got["text_embeddings"]])
+    norms = np.linalg.norm(rows, axis=-1)
+    cos = min(min_cosine(got["image_embeddings"], want_img),
+              min_cosine(got["text_embeddings"], want_txt))
+    ok = (got["image_embeddings"].shape == (ENCODE_FILES, cfg.embed_dim)
+          and len(got["texts"]) == len(captions) and np.abs(norms - 1).max() <= NORM_TOL
+          and cos >= MIN_COSINE)
+    log("phase 31 encode", ok=ok, images=len(files), texts=len(got["texts"]),
+        keys=json.dumps(sorted(got)), min_cos_vs_live=cos,
+        max_norm_err=float(np.abs(norms - 1).max()), seconds=f"{encode_s:.3f}",
+        retrieval=json.dumps([ln for ln in proc.stdout.splitlines() if ln.startswith("image ")]))
+    if not ok:
+        raise AssertionError("phase 31: the encode CLI's npz disagrees with the live encoder")
+    return dict(launches=launches, **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -2060,7 +2594,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    stats = serve["stats"]
+    stats = stats_b32 = serve["stats"]
     log("phase 5 rate", requests_per_s=f"{stats.requests / serve['wall']:.1f}",
         wall_s=f"{serve['wall']:.3f}", p50_ms=f"{stats.latency_p50_ms:.3f}",
         p99_ms=f"{stats.latency_p99_ms:.3f}", card=json.dumps(smi))
@@ -2214,6 +2748,22 @@ def main() -> int:
         raise AssertionError("the ViT-L-14-336 GradCache step does not fit the card")
     torch.cuda.empty_cache()
     cli_losses = phase_cli_losses(smi)
+    torch.cuda.empty_cache()
+
+    # the rest of inference, serving and export: full-width bf16 ViT-B-32
+    image_ops = phase_image_ops(smi)
+    model = create_model("ViT-B-32", dtype=torch.bfloat16, device="cuda", seed=SEED)
+    fp32_rate = dict(requests_per_s=round(stats_b32.requests / serve["wall"], 1),
+                     p50_ms=round(stats_b32.latency_p50_ms, 3),
+                     p99_ms=round(stats_b32.latency_p99_ms, 3))
+    serve_u8 = phase_serve_u8(smi, model, fp32_rate)
+    del model
+    torch.cuda.empty_cache()
+    cli_augment = phase_cli_augment(smi, cli_exp6)
+    torch.cuda.empty_cache()
+    model = create_model("ViT-B-32", dtype=torch.bfloat16, device="cuda", seed=SEED)
+    exported = phase_export(smi, model)
+    del model
 
     # each row's times are at the case named beside it: the RN50 main
     # path's shape where the kernel runs on it (the text tower's causal
@@ -2282,6 +2832,9 @@ def main() -> int:
             "eval_gradcache_l336": sum(c[counter] for c in gradcache_l336["eval"]),
             "cli_roberta": cli_losses["roberta-vitb32"][counter],
             "cli_siglip": cli_losses["siglip-vitb32"][counter],
+            "serve_u8": serve_u8["launches"][counter],
+            "export": exported["launches"][counter],
+            "cli_augment": cli_augment["launches"][counter],
         }
         by_path = {path: count for path, count in by_path.items() if on_path(path)}
         entries.append({

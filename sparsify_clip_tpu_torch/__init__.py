@@ -10,19 +10,29 @@ first moment, GradCache accumulation, epoch loop) and the per-epoch eval (13
 metrics over an fp32 twin), with hand-written CUDA kernels for the
 attention forward and backward, the fused InfoNCE and the fused
 uniformity loss; and the training CLI (tokenizer, data loaders, JSONL
-logging, checkpoints, exact resume, preemption).  See README.md
-("PyTorch port").
+logging, checkpoints, exact resume, preemption); the device augment
+and raw-uint8 request path, zero-shot classification, the ``encode`` CLI
+and ``torch.export`` artifacts (:mod:`sparsify_clip_tpu_torch.export`).
+See README.md ("PyTorch port").
 """
 
-from sparsify_clip_tpu_torch.checkpoints import load_jax_params, load_weights
-from sparsify_clip_tpu_torch.inference import CLIPEncoder, RetrievalIndex
-from sparsify_clip_tpu_torch.models.clip import CLIP, MODEL_REGISTRY, CLIPConfig, create_model
-from sparsify_clip_tpu_torch.serving import BatchingEncoderServer, ServerStats, bucket_ladder
-from sparsify_clip_tpu_torch.train import TrainSetup, TrainState, create_train_setup, run_training
+import importlib
 
-__all__ = [
-    "CLIP", "CLIPConfig", "CLIPEncoder", "MODEL_REGISTRY", "BatchingEncoderServer",
-    "RetrievalIndex", "ServerStats", "bucket_ladder", "create_model",
-    "load_jax_params", "load_weights", "TrainSetup", "TrainState", "create_train_setup",
-    "run_training",
-]
+# name → module; imported at first use, so that importing a submodule (the
+# custom ops of sparsify_clip_tpu_torch.ops, say, to load an exported
+# program) does not import the models, the trainer or the server
+_EXPORTS = {
+    "CLIP": "models.clip", "CLIPConfig": "models.clip", "MODEL_REGISTRY": "models.clip",
+    "create_model": "models.clip", "CLIPEncoder": "inference", "RetrievalIndex": "inference",
+    "BatchingEncoderServer": "serving", "ServerStats": "serving", "bucket_ladder": "serving",
+    "load_jax_params": "checkpoints", "load_weights": "checkpoints",
+    "TrainSetup": "train", "TrainState": "train", "create_train_setup": "train",
+    "run_training": "train", "ExportedEncoder": "export",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)

@@ -33,8 +33,9 @@ The full state (:func:`save_full`, :func:`restore_full`) keeps the JAX
 names and the ``<checkpoint_dir>/<run_name>/step_<N>`` layout, in the
 port's own format: one ``torch.save`` a step (``step_<N>.pt``) of the
 model's ``state_dict`` (parameters and BatchNorm running statistics),
-the AdamW state, the temperature, the step and the config, written under
-a temporary name and then renamed.
+the AdamW state, the temperature, the device-augment generator's state,
+the step and the config, written under a temporary name and then
+renamed.
 """
 
 from __future__ import annotations
@@ -212,6 +213,24 @@ def collect_host_arrays(model: nn.Module) -> Dict[str, np.ndarray]:
             for name, (path, fn) in jax_paths(model).items()}
 
 
+def collect_variables(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The JAX variables dict of the model, flattened with "/": the
+    parameters under ``params/`` (:func:`collect_host_arrays`) and, for a
+    ResNet tower, the BatchNorm running statistics under ``batch_stats/``
+    (``<module path>/mean`` and ``/var``), fp32, as the JAX
+    ``save_weights(variables, ...)`` writes them (export.py:178-186)."""
+    from sparsify_clip_tpu_torch.models.resnet import BatchNormHalf, ModifiedResNet
+
+    resnet = isinstance(getattr(model, "visual", None), ModifiedResNet)
+    out = {f"params/{path}": arr for path, arr in collect_host_arrays(model).items()}
+    for mod_name, module in model.named_modules():
+        if isinstance(module, BatchNormHalf):
+            path = "/".join(_jax_module_path(mod_name, resnet))
+            for leaf, buf in (("mean", module.running_mean), ("var", module.running_var)):
+                out[f"batch_stats/{path}/{leaf}"] = buf.detach().float().cpu().numpy()
+    return out
+
+
 def save_weights(model: nn.Module, path: str) -> str:
     """Weights-only ``.npz`` under the JAX flat keys (the reference's
     periodic ``torch.save(model.state_dict())``), readable by the JAX
@@ -243,6 +262,8 @@ def _snapshot(state, config: Optional[Any] = None) -> Dict[str, Any]:
         "optimizer": _to_host(state.optimizer.state_dict()),
         "temperature": _to_host(state.temperature),
         "loss_scalars": _to_host(state.loss_scalars),
+        "aug_generator": (None if state.aug_generator is None
+                          else state.aug_generator.get_state()),
         "config": config.to_dict() if config is not None else None,
     }
 
@@ -262,7 +283,8 @@ def _write(payload: Dict[str, Any], path: str) -> str:
 def save_full(state, directory: str, config: Optional[Any] = None) -> str:
     """Save the full TrainState (model parameters and running statistics,
     AdamW and its moments in their dtypes, temperature, SigLIP's loss
-    scalars, step) and the config as ``directory/step_<N>.pt``."""
+    scalars, the device-augment generator's state, step) and the config as
+    ``directory/step_<N>.pt``."""
     return _write(_snapshot(state, config), _step_path(directory, int(state.step)))
 
 
@@ -334,5 +356,7 @@ def restore_full(directory_or_path: str, state):
         state.temperature.copy_(payload["temperature"])
         for name, value in (payload.get("loss_scalars") or {}).items():
             state.loss_scalars[name].copy_(value)
+    if payload.get("aug_generator") is not None and state.aug_generator is not None:
+        state.aug_generator.set_state(payload["aug_generator"])
     state.step = int(payload["step"])
     return state

@@ -7,7 +7,10 @@ batches are prefetched into a bounded queue so host work overlaps the
 device step.  A producer's error is re-raised in the consumer.
 
 Batch schema: ``{"images": (B,S,S,3) f32, "tokens": (B,77) i32,
-"captions": list[str]}``.
+"captions": list[str]}``; with ``raw_uint8`` the images are (B,S,S,3)
+uint8 staging pixels, squash-resized and not augmented (the
+``device_augment`` path: :mod:`sparsify_clip_tpu_torch.ops.image` crops,
+flips and normalizes them on the card).
 
 Determinism: the epoch order is a permutation drawn from (seed, epoch),
 and each item's crop, flip and caption draws from (seed, epoch, index,
@@ -25,7 +28,9 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-from sparsify_clip_tpu_torch.data.transforms import test_transform, train_transform
+from sparsify_clip_tpu_torch.data.transforms import (
+    resize_bilinear, test_transform, train_transform,
+)
 
 
 class DataLoader:
@@ -43,7 +48,11 @@ class DataLoader:
         num_threads: int = 4,
         prefetch: int = 2,
         image_size: int = 224,
+        raw_uint8: bool = False,
     ):
+        """``raw_uint8``: skip the host augmentation; squash-resize each
+        decoded image to ``image_size`` (Pillow's bilinear, to the bit)
+        and ship uint8."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.tokenizer = tokenizer
@@ -54,6 +63,7 @@ class DataLoader:
         self.num_threads = max(1, num_threads)
         self.prefetch = prefetch
         self.image_size = image_size
+        self.raw_uint8 = raw_uint8
         self._pool = None
         if self.num_threads > 1:
             from concurrent.futures import ThreadPoolExecutor
@@ -71,7 +81,9 @@ class DataLoader:
             np.random.SeedSequence([self.seed, epoch, index, int(self.train)])
         )
         img, captions = self.dataset[index]
-        if self.train:
+        if self.raw_uint8:
+            arr = resize_bilinear(img, (self.image_size, self.image_size))
+        elif self.train:
             arr = train_transform(img, rng, self.image_size)
         else:
             arr = test_transform(img, self.image_size)
@@ -84,7 +96,8 @@ class DataLoader:
             items = list(self._pool.map(lambda i: self._load_item(int(i), epoch), indices))
         else:
             items = [self._load_item(int(i), epoch) for i in indices]
-        images = np.stack([it[0] for it in items]).astype(np.float32)
+        images = np.stack([it[0] for it in items]).astype(
+            np.uint8 if self.raw_uint8 else np.float32)
         captions = [it[1] for it in items]
         tokens = self.tokenizer(captions)
         return {"images": images, "tokens": tokens, "captions": captions}

@@ -4,7 +4,9 @@
 COCO train2017/val2017 under ``config.data_root``, head-subsets via
 ``num_{train,test}_samples``, train shuffled + drop_last, eval ordered +
 drop_last (so ``num_test_samples: 512`` at batch 256 yields exactly 2
-batches, the reference protocol).  ``dataset: "synthetic"`` swaps in
+batches, the reference protocol).  With ``device_augment`` the train
+loader ships uint8 staging images at ``device_augment_staging`` and the
+train step augments them on the card (ops/image.py).  ``dataset: "synthetic"`` swaps in
 the procedural set (2048 train and 512 test samples when the counts are
 -1).
 
@@ -32,9 +34,6 @@ _NOT_PORTED: List[Tuple[Callable[[ExperimentConfig], bool], str]] = [
     (lambda c: c.image_backend in ("native", "auto"),
      "image_backend: native/auto (the native image decoder, "
      "ROADMAP Queue 1, 'Data without PIL')"),
-    (lambda c: c.device_augment,
-     "device_augment (the uint8 staging path and ops/image.py, "
-     "ROADMAP Queue 1, 'Rest of inference, serving and export')"),
 ]
 
 
@@ -77,7 +76,9 @@ def dataset_loader(
 
     train_loader = DataLoader(
         train_ds, config.batch_size, tokenizer, train=True, seed=config.seed,
-        shuffle=True, drop_last=True, num_threads=num_threads, image_size=image_size,
+        shuffle=True, drop_last=True, num_threads=num_threads,
+        image_size=config.device_augment_staging if config.device_augment else image_size,
+        raw_uint8=config.device_augment,
     )
     test_loader = DataLoader(
         test_ds, config.batch_size, tokenizer, train=False, seed=config.seed,

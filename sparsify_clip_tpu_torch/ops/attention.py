@@ -32,12 +32,18 @@ the result is the (B, L, W) context.
   :func:`mha_bwd_head_group` wrap ``csrc/mha_fwd.cu``'s second entry
   point and ``csrc/mha_head_group.cu`` and count their launches the same
   way.
+* :func:`mha_fwd_op` and :func:`mha_fwd_head_group_op` are the two
+  forwards without an LSE as ``torch.library`` custom ops
+  (``sparsify_clip::mha_fwd``, ``sparsify_clip::mha_fwd_head_group``):
+  the plain version on the CPU, the kernel on CUDA, and a fake
+  implementation for ``torch.export``'s tracing, so an exported tower
+  carries the kernel (:mod:`sparsify_clip_tpu_torch.export`).
 * :func:`attention_core` is what the towers call, on both devices.  When
   a gradient is wanted it goes through :class:`MhaFunction`, whose
   forward is :func:`mha_fwd` with the LSE and saves qkv and the LSE, and
   whose backward is :func:`mha_bwd`, or, on the head-group route, through
   :class:`MhaHeadGroupFunction`, which saves qkv alone; otherwise
-  (serving, eval) it calls the route's forward without the LSE.
+  (serving, eval, export) it calls the route's custom op.
 """
 
 from __future__ import annotations
@@ -401,17 +407,43 @@ class MhaHeadGroupFunction(torch.autograd.Function):
         return mha_bwd_head_group(qkv, dout, ctx.heads, ctx.causal), None, None
 
 
+# The forwards without a gradient as custom ops of the ``sparsify_clip``
+# namespace, so that ``torch.export`` can trace them: a graph holds the op,
+# its fake implementation gives the output's shape under a symbolic batch,
+# and a loaded program calls the wrapper, which runs the plain version on a
+# CPU tensor and the kernel on a CUDA one (counting the launch).  Any other
+# device raises.  Registering them builds nothing.
+@torch.library.custom_op("sparsify_clip::mha_fwd", mutates_args=(), device_types=("cpu", "cuda"))
+def mha_fwd_op(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    """The whole-width forward's context, no LSE (:func:`mha_fwd`)."""
+    return mha_fwd(qkv, heads, causal)[0]
+
+
+@torch.library.custom_op("sparsify_clip::mha_fwd_head_group", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def mha_fwd_head_group_op(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    """The head-group forward (:func:`mha_fwd_head_group`)."""
+    return mha_fwd_head_group(qkv, heads, causal)
+
+
+@mha_fwd_op.register_fake
+@mha_fwd_head_group_op.register_fake
+def _context_like(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
+    b, l, w3 = qkv.shape
+    return qkv.new_empty((b, l, w3 // 3))
+
+
 def attention_core(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
     """The towers' attention core: packed (B, L, 3W) qkv → (B, L, W)
     context.  Long sequences (:func:`use_head_group`) take the head-group
     pair through :class:`MhaHeadGroupFunction`, the rest the whole-width
     pair through :class:`MhaFunction`.  Without a gradient to take, the
-    route's forward runs alone and no LSE is written."""
+    route's forward runs alone, as its custom op, and no LSE is written."""
     grad = torch.is_grad_enabled() and qkv.requires_grad
     if use_head_group(qkv.shape[1], qkv.shape[2], qkv.element_size(), heads):
         if grad:
             return MhaHeadGroupFunction.apply(qkv, heads, causal)
-        return mha_fwd_head_group(qkv, heads, causal)
+        return mha_fwd_head_group_op(qkv, heads, causal)
     if grad:
         return MhaFunction.apply(qkv, heads, causal)
-    return mha_fwd(qkv, heads, causal)[0]
+    return mha_fwd_op(qkv, heads, causal)

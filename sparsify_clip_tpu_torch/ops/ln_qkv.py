@@ -40,8 +40,10 @@ in one kernel, with the normalized rows kept on chip.
   dy = g·W in ``dtype``, then :func:`ln_fast_bwd` (y, dx, dscale and
   dbias), then dW = gᵀ·y and db = Σ g in ``dtype``.
 * :func:`ln_qkv_core` is what the blocks call: through
-  :class:`LnQkvFunction` when a gradient is wanted, else (serving, eval)
-  the forward alone.
+  :class:`LnQkvFunction` when a gradient is wanted, else (serving, eval,
+  export) the forward alone as the custom op :func:`ln_qkv_fwd_op`
+  (``sparsify_clip::ln_qkv_fwd``; the plain version on the CPU, the
+  kernel on CUDA).
 """
 
 from __future__ import annotations
@@ -291,5 +293,21 @@ def ln_qkv_core(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             t.requires_grad for t in (x, scale, bias, weight, kbias)):
         out = LnQkvFunction.apply(x2d, scale, bias, weight, kbias, eps, x.dtype)
     else:
-        out = ln_qkv_fwd(x2d, scale, bias, weight, kbias, eps, x.dtype)
+        out = ln_qkv_fwd_op(x2d, scale, bias, weight, kbias, eps)
     return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+# The forward without a gradient as a custom op, for ``torch.export`` (see
+# ops/attention.py's ``mha_fwd_op``): the wrapper, so the plain version on
+# a CPU tensor and the kernel on a CUDA one, in x's type.
+@torch.library.custom_op("sparsify_clip::ln_qkv_fwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def ln_qkv_fwd_op(x2d: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  weight: torch.Tensor, kbias: torch.Tensor, eps: float) -> torch.Tensor:
+    """:func:`ln_qkv_fwd` in x's type."""
+    return ln_qkv_fwd(x2d, scale, bias, weight, kbias, eps)
+
+
+@ln_qkv_fwd_op.register_fake
+def _(x2d, scale, bias, weight, kbias, eps):
+    return x2d.new_empty((x2d.shape[0], weight.shape[0]))

@@ -42,7 +42,6 @@ from typing import Tuple
 
 import torch
 
-from sparsify_clip_tpu_torch.losses.unif import pairwise_sq_dists
 from sparsify_clip_tpu_torch.ops import _build
 from sparsify_clip_tpu_torch.utils.numerics import fp32_matmul
 
@@ -52,6 +51,9 @@ _count_lock = threading.Lock()
 
 def _weights(x: torch.Tensor, t: float) -> torch.Tensor:
     """W_ij = exp(−t·d²_ij), 0 on the diagonal, in fp32."""
+    # imported here: the losses package imports this module
+    from sparsify_clip_tpu_torch.losses.unif import pairwise_sq_dists
+
     return torch.exp(-t * pairwise_sq_dists(x)).fill_diagonal_(0.0)
 
 

@@ -12,6 +12,11 @@ Port of :mod:`sparsify_clip_tpu.serving`, with the same behaviour:
 * **Replicas**: pass a list of encoders (one per device, see
   :func:`replicate_clip_encoder`) and one runner thread per replica
   pulls batches from a shared queue.
+* **Raw uint8 requests** (:meth:`BatchingEncoderServer.submit_image_u8`)
+  ship a quarter of fp32's bytes; the encoder casts, squash-resizes and
+  normalizes them on the device.  Any (H, W) is legal, and each queues
+  apart, under ``("image_u8", H, W)``, so that every formed batch
+  stacks; a shape's queue is deleted when it drains.
 * **Observable**: latency percentiles and the padded batch histogram.
 
 PyTorch's grad mode and current CUDA device are thread-local, so each
@@ -23,6 +28,7 @@ Usage::
 
     server = BatchingEncoderServer(CLIPEncoder(model))
     fut = server.submit_image(pixels)        # (H, W, 3) float32
+    fut = server.submit_image_u8(raw)        # (H, W, 3) uint8, any H and W
     emb = fut.result()                       # (D,) unit fp32
     server.close()
 """
@@ -78,7 +84,7 @@ def bucket_ladder(max_batch: int) -> List[int]:
 
 @dataclass
 class _Request:
-    kind: str  # "image" | "tokens"
+    kind: str  # "image" | "image_u8" | "tokens"
     payload: np.ndarray  # (H, W, 3) or (context_length,)
     future: Future = field(default_factory=Future)
     t_submit: float = field(default_factory=time.monotonic)
@@ -103,16 +109,19 @@ class BatchingEncoderServer:
 
     ``encoder``: one encoder, or a list of replicas.  Each needs
     ``encode_images((B,H,W,3) np) -> (B,D) tensor`` and
-    ``encode_tokens((B,T) int np) -> (B,D) tensor``; a ``device``
-    attribute names the device its runner thread selects.  Raw strings
-    (:meth:`submit_text`) are tokenized on the submitting thread by
-    ``tokenizer``, or by the first encoder's ``tokenizer`` attribute, so
-    the dispatcher only moves fixed-shape arrays.  The raw-uint8 image
-    path of the JAX server waits for the port of ``ops/image.py``
-    (ROADMAP Queue 1, 'Rest of inference, serving and export').
+    ``encode_tokens((B,T) int np) -> (B,D) tensor``, and
+    ``encode_images_u8((B,H,W,3) uint8 np) -> (B,D) tensor`` for the
+    raw-uint8 path where it has one (:class:`CLIPEncoder` does; an
+    exported artifact does not); a ``device`` attribute names the device
+    its runner thread selects.  The expected image and token-row sizes
+    come from the encoder's model config, or from an exported artifact's
+    ``meta``.  Raw strings (:meth:`submit_text`) are tokenized on the
+    submitting thread by ``tokenizer``, or by the first encoder's
+    ``tokenizer`` attribute, so the dispatcher only moves fixed-shape
+    arrays.
 
-    One dispatcher thread serves both modalities, always working the
-    queue whose head request has waited longest.  Formed batches land
+    One dispatcher thread serves every queue, always working the one
+    whose head request has waited longest.  Formed batches land
     on a shared queue drained by one runner thread per replica.
     """
 
@@ -130,7 +139,9 @@ class BatchingEncoderServer:
         if not encoders:
             raise ValueError("need at least one encoder replica")
         self._replicas = [
-            {"image": enc.encode_images, "tokens": enc.encode_tokens} for enc in encoders
+            {"image": enc.encode_images, "tokens": enc.encode_tokens,
+             "image_u8": getattr(enc, "encode_images_u8", None)}
+            for enc in encoders
         ]
         self._devices = [getattr(enc, "device", None) for enc in encoders]
         self.tokenizer = tokenizer if tokenizer is not None else getattr(
@@ -138,9 +149,11 @@ class BatchingEncoderServer:
         )
         # expected request shapes: one wrong-sized payload must fail ITS
         # request at submit time, not every co-batched request at np.stack
+        # (an exported artifact's meta, else the model's config)
+        meta = getattr(encoders[0], "meta", None) or {}
         cfg = getattr(getattr(encoders[0], "model", None), "cfg", None)
-        self.image_size = getattr(cfg, "image_size", None)
-        self.context_length = getattr(cfg, "context_length", None)
+        self.image_size = meta.get("image_size", getattr(cfg, "image_size", None))
+        self.context_length = meta.get("context_length", getattr(cfg, "context_length", None))
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.buckets = sorted(set(int(b) for b in buckets)) if buckets else (
@@ -153,7 +166,9 @@ class BatchingEncoderServer:
 
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
-        self._queues: Dict[str, deque] = {"image": deque(), "tokens": deque()}
+        # a key a queue: the modality, or ("image_u8", H, W), made at the
+        # first request of that shape and deleted when it drains
+        self._queues: Dict[Any, deque] = {"image": deque(), "tokens": deque()}
         self._stopped = False
         self._n_requests = 0
         self._n_batches = 0
@@ -193,6 +208,22 @@ class BatchingEncoderServer:
                 )
         return self._submit("image", image)
 
+    def submit_image_u8(self, image_u8: np.ndarray) -> Future:
+        """Queue one (H, W, 3) uint8 raw-pixel image → Future[(D,)].  Any
+        H and W: the encoder resizes on the device; each (H, W) batches
+        apart."""
+        if self._replicas[0]["image_u8"] is None:
+            raise ValueError(
+                "this backend has no uint8 path (exported artifacts take the "
+                "pixels they were exported for; use submit_image)"
+            )
+        image_u8 = np.asarray(image_u8)
+        if image_u8.dtype != np.uint8 or image_u8.ndim != 3 or image_u8.shape[-1] != 3:
+            raise ValueError(
+                f"expected one (H, W, 3) uint8 image, got {image_u8.dtype} {image_u8.shape}"
+            )
+        return self._submit(("image_u8", *image_u8.shape[:2]), image_u8)
+
     def submit_tokens(self, tokens: np.ndarray) -> Future:
         """Queue one (T,) int32 token row → Future[(D,)]."""
         tokens = np.asarray(tokens, np.int32)
@@ -212,14 +243,18 @@ class BatchingEncoderServer:
         row = np.asarray(self.tokenizer([text]))[0]
         return self._submit("tokens", row.astype(np.int32))
 
-    def warmup(self, image_shape: Sequence[int], context_length: int) -> None:
+    def warmup(self, image_shape: Sequence[int], context_length: int,
+               include_u8: bool = False) -> None:
         """Run one dummy batch per (modality, bucket, replica), so the
-        first requests do not pay cuBLAS and allocator set-up."""
+        first requests do not pay cuBLAS and allocator set-up;
+        ``include_u8`` also runs the raw-uint8 path at ``image_shape``."""
         for fns, device in zip(self._replicas, self._devices):
             with _on_device(device):
                 for b in self.buckets:
                     fns["image"](np.zeros((b, *image_shape), np.float32))
                     fns["tokens"](np.zeros((b, context_length), np.int32))
+                    if include_u8 and fns["image_u8"] is not None:
+                        fns["image_u8"](np.zeros((b, *image_shape), np.uint8))
 
     def stats(self) -> ServerStats:
         with self._lock:
@@ -263,17 +298,17 @@ class BatchingEncoderServer:
 
     # ------------------------------------------------------ dispatcher
 
-    def _submit(self, kind: str, payload: np.ndarray) -> Future:
-        req = _Request(kind, payload)
+    def _submit(self, key: Any, payload: np.ndarray) -> Future:
+        req = _Request(key[0] if isinstance(key, tuple) else key, payload)
         with self._cond:
             if self._stopped:
                 raise RuntimeError("server is closed")
-            self._queues[kind].append(req)
+            self._queues.setdefault(key, deque()).append(req)
             self._n_requests += 1
             self._cond.notify_all()
         return req.future
 
-    def _pick_kind_locked(self) -> Optional[str]:
+    def _pick_kind_locked(self) -> Optional[Any]:
         heads = [
             (q[0].t_submit, i, key)
             for i, (key, q) in enumerate(self._queues.items())
@@ -309,6 +344,8 @@ class BatchingEncoderServer:
                 ):
                     self._cond.wait(remaining)
                 take = [pending.popleft() for _ in range(min(len(pending), self.max_batch))]
+                if not pending and isinstance(kind, tuple):
+                    del self._queues[kind]  # a drained per-shape uint8 queue
             self._batch_q.put((kind, take))
 
     def _bucket(self, n: int) -> int:
@@ -325,7 +362,8 @@ class BatchingEncoderServer:
                     return
                 self._run_batch(replica, *item)
 
-    def _run_batch(self, replica: int, kind: str, reqs: List[_Request]) -> None:
+    def _run_batch(self, replica: int, key: Any, reqs: List[_Request]) -> None:
+        kind = key[0] if isinstance(key, tuple) else key
         # claim every future first: a client-side cancel() before this
         # wins, and a claimed future can no longer be cancelled, so the
         # set_result / set_exception calls below cannot raise

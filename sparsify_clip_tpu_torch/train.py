@@ -19,6 +19,12 @@
 * ``loss_type: "anchor-roberta"`` takes a (B, B) ``soft_targets`` matrix
   with each batch, from the config's ``soft_targets_provider`` over the
   batch's captions (:func:`resolve_soft_targets_provider`).
+* ``device_augment`` takes uint8 staging batches and crops, flips and
+  normalizes them on the device before the encode, once a step (before
+  any GradCache split), drawing from ``TrainState.aug_generator``, a
+  generator on the device seeded from ``config.seed`` whose state the
+  full checkpoint keeps.  JAX draws its crops from the state's threefry
+  key: the same seed gives other crops here.
 
 The JAX step is a pure function of an immutable state.  Here the state
 holds the model and the optimizer, which a step updates in place; a
@@ -44,7 +50,8 @@ import torch
 
 from sparsify_clip_tpu_torch.config import ExperimentConfig
 from sparsify_clip_tpu_torch.losses import LossContext, make_loss_fn
-from sparsify_clip_tpu_torch.models.clip import CLIP, create_model
+from sparsify_clip_tpu_torch.models.clip import CLIP, MODEL_REGISTRY, create_model
+from sparsify_clip_tpu_torch.ops.image import augment_batch
 from sparsify_clip_tpu_torch.optim import AdamWBf16Mu
 from sparsify_clip_tpu_torch.schedules import get_alpha, get_beta, make_lr_schedule
 from sparsify_clip_tpu_torch.utils.numerics import l2_normalize
@@ -54,8 +61,6 @@ Metrics = Dict[str, Union[torch.Tensor, float]]
 
 # Config knobs the port's step does not run yet → what they wait for.
 _NOT_PORTED: List[Tuple[Callable[[ExperimentConfig], bool], str]] = [
-    (lambda c: c.device_augment,
-     "device_augment (ops/image.py, ROADMAP Queue 1, 'Rest of inference, serving and export')"),
     (lambda c: c.sparse_projection != "none",
      "sparse_projection (ops/sparsify.py, ROADMAP Queue 1, 'Extensions and knobs')"),
     (lambda c: c.remat, "remat (ROADMAP Queue 1, 'Extensions and knobs')"),
@@ -94,6 +99,8 @@ class TrainState:
     # loss_type "siglip": {"logit_scale": log-space scale, "logit_bias"},
     # fp32 device scalars that AdamW trains beside the model; else None
     loss_scalars: Optional[Dict[str, torch.Tensor]] = None
+    # device_augment: the crops' and flips' generator, on the device; else None
+    aug_generator: Optional[torch.Generator] = None
 
 
 def build_optimizer(params, lr_schedule: Callable[[int], float],
@@ -112,10 +119,12 @@ def build_optimizer(params, lr_schedule: Callable[[int], float],
 
 def batch_to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
     """The array fields of a host (numpy) or device batch as tensors on
-    ``device``: fp32 images, integer tokens and, where the batch has them,
-    the fp32 (B, B) ``soft_targets``."""
+    ``device``: fp32 images (uint8 staging images stay uint8), integer
+    tokens and, where the batch has them, the fp32 (B, B) ``soft_targets``."""
+    images = torch.as_tensor(batch["images"])
     fields = {
-        "images": torch.as_tensor(batch["images"], dtype=torch.float32).to(device, non_blocking=True),
+        "images": (images if images.dtype == torch.uint8 else images.float()).to(
+            device, non_blocking=True),
         "tokens": torch.as_tensor(batch["tokens"]).to(device, non_blocking=True),
     }
     if batch.get("soft_targets") is not None:
@@ -131,9 +140,11 @@ class TrainStep:
     is over 1 (:meth:`gradcache`)."""
 
     def __init__(self, config: ExperimentConfig, steps_per_epoch: int, total_steps: int,
-                 lr_schedule: Callable[[int], float]):
+                 lr_schedule: Callable[[int], float], image_size: Optional[int] = None):
         check_supported(config)
         self.config = config
+        # the encoder's input size, which device_augment crops to
+        self.image_size = image_size or MODEL_REGISTRY[config.model].image_size
         self.steps_per_epoch = steps_per_epoch
         self.total_steps = total_steps
         self.lr_schedule = lr_schedule
@@ -152,6 +163,9 @@ class TrainStep:
         alpha = get_alpha(current_batch, self.total_steps,
                           config.alpha_warmup_epoch, config.alpha_increment_epoch)
         fields = batch_to_device(batch, state.temperature.device)
+        images = fields["images"]
+        if config.device_augment:
+            images = augment_batch(images, state.aug_generator, self.image_size)
         state.optimizer.zero_grad(set_to_none=True)
         scalars = {}
         if state.loss_scalars is not None:
@@ -162,9 +176,9 @@ class TrainStep:
                           warm=epoch < config.only_lunif_epochs,
                           soft_targets=fields.get("soft_targets"), **scalars)
         if config.grad_accum_steps > 1:
-            loss, aux = self.gradcache(state.model, fields["images"], fields["tokens"], ctx)
+            loss, aux = self.gradcache(state.model, images, fields["tokens"], ctx)
         else:
-            img, txt = state.model(fields["images"], fields["tokens"])
+            img, txt = state.model(images, fields["tokens"])
             loss, aux = self.loss_fn(l2_normalize(img), l2_normalize(txt), ctx)
             loss.backward()
         # optax differentiates every trainable: one the loss does not reach
@@ -318,7 +332,8 @@ def create_train_setup(
     num_warmup = int(0.20 * total_steps)  # sparsify_clip.py:735
     schedule = make_lr_schedule(config.learning_rate, num_warmup, total_steps,
                                 config.only_lunif_epochs)
-    train_step = TrainStep(config, steps_per_epoch, total_steps, schedule)  # refuses early
+    train_step = TrainStep(config, steps_per_epoch, total_steps, schedule,
+                           image_size)  # refuses early
     dtype = torch.bfloat16 if config.fp16 else torch.float32
     model = create_model(config.model, dtype=dtype, device=device, seed=config.seed,
                          param_dtype=torch.float32, fused_ln_qkv=config.fused_ln_qkv,
@@ -341,9 +356,13 @@ def create_train_setup(
     # learnable, SigLIP's scalars (train.py:80-86)
     params = list(model.parameters()) + ([temperature] if temperature.requires_grad else [])
     params += list((loss_scalars or {}).values())
+    aug_generator = None
+    if config.device_augment:
+        aug_generator = torch.Generator(device=device)
+        aug_generator.manual_seed(config.seed)
     state = TrainState(step=0, model=model, temperature=temperature,
                        optimizer=build_optimizer(params, schedule, config.adam_mu_dtype),
-                       loss_scalars=loss_scalars)
+                       loss_scalars=loss_scalars, aug_generator=aug_generator)
     return TrainSetup(
         config=config,
         model=model,

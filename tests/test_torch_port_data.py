@@ -137,7 +137,6 @@ def test_loader_reraises_a_producer_error():
     ("loader_backend", "grain", "'Data without PIL'"),
     ("image_backend", "native", "'Data without PIL'"),
     ("image_backend", "auto", "'Data without PIL'"),
-    ("device_augment", True, "'Rest of inference, serving and export'"),
 ])
 def test_unported_routes_raise_and_name_their_roadmap_item(field, value, item):
     config = dataclasses.replace(_configs()[1], **{field: value})

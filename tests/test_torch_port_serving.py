@@ -326,7 +326,9 @@ def test_port_imports_no_jax():
             assert bad not in src, f"{path}: {bad!r}"
         mod = ".".join(path.relative_to(REPO).with_suffix("").parts)
         modules.append(mod[:-len(".__init__")] if mod.endswith(".__init__") else mod)
-    assert {"sparsify_clip_tpu_torch.train", "sparsify_clip_tpu_torch.ops.infonce"} <= set(modules)
+    assert {"sparsify_clip_tpu_torch.train", "sparsify_clip_tpu_torch.ops.infonce",
+            "sparsify_clip_tpu_torch.ops.image", "sparsify_clip_tpu_torch.export",
+            "sparsify_clip_tpu_torch.encode"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "class Block:\n"

@@ -187,7 +187,6 @@ def test_unknown_loss_type_raises():
 
 
 @pytest.mark.parametrize("knob,match", [
-    (dict(device_augment=True), "device_augment"),
     (dict(sparse_projection="topk"), "sparse_projection"),
     (dict(remat=True), "remat"),
     (dict(onehot_embed=True), "onehot_embed"),
