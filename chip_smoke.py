@@ -3,7 +3,9 @@
 NVIDIA GPU: RN50 (the reference's default tower), then SigLIP, GradCache
 and the soft-target loss, then the device image ops, the raw-uint8
 server, zero-shot, the CLI with ``device_augment``, ``torch.export`` and
-the encode CLI last.
+the encode CLI, then the extensions and knobs last: the sparse
+projection with the per-eval plots, remat, the one-hot embedding and the
+LayerNorm in the compute type.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -216,7 +218,47 @@ Phases, one line each; any failure exits nonzero before the final line:
    live ``CLIPEncoder`` and launch 12 ``mha_fwd`` a call; then ``python -m
    sparsify_clip_tpu_torch.encode`` on 64 PNG and JPEG files of several
    sizes, written with PIL, and a captions file: its npz holds unit rows
-   equal to the live encoder's on the same decoded pixels.
+   equal to the live encoder's on the same decoded pixels;
+32. the CLI on a YAML of full-width ViT-B-32 under exp 6 at batch 256 with
+   ``sparse_projection: topk``, ``sparse_topk`` 64, ``sparse_after_epoch``
+   1, 2 epochs of 8 steps on 2048 synthetic pairs, 256 eval pairs, and
+   ``plot_embeddings: true`` where matplotlib is installed (the UMAP,
+   t-SNE and PCA PNGs of each of the 4 eval passes, on the host): phase
+   19's launches a step, finite evals, the CLI step beside phase 19's;
+   without matplotlib, the same YAML with ``plot_embeddings: true`` is
+   refused by name before any file is written; the trained model's
+   embeddings of one batch projected as the step does (at least 64
+   nonzeros a row, exactly 64 unless ties, unit norm); a main step on the
+   kernels held against the same step with every kernel swapped for its
+   plain version, in fp32 towers (phase 9's tolerances; in bf16 the two
+   paths' roundings move components across the 64th magnitude, and the
+   rows whose mask differs are counted); then the ``topk`` and the ``l1``
+   step timed on a device-resident batch;
+33. full-width ViT-L-14-336 under exp 6 at the reference's batch 256 in
+   one shot under ``remat: true`` (policy ``nothing``), through
+   ``run_training`` over one warm and one main epoch of 2 steps: the
+   backward recomputes each block, so a step launches 48
+   ``mha_fwd_head_group``, 24 ``mha_fwd`` and phase 13's backwards; step
+   ms, pairs/s and peak beside phase 26's GradCache step; two main steps
+   with ``fused_ln_qkv`` (72 ``ln_qkv_fwd``, 36 ``ln_fast_bwd`` a step);
+   at batch 64 the remat step against the same step without remat (loss,
+   every gradient, the largest difference, phase 9's tolerances) and the
+   step ms and peak of no remat and of the policies ``nothing``,
+   ``dots_no_batch`` and ``attn_out``; at 256 the policies ``dots`` and
+   ``dots_no_batch``, whose saved products may not fit (an out-of-memory
+   is printed as a reading);
+34. full-width RN50 under exp 6 at batch 256 with and without ``remat``
+   from the same seed: after two steps the running statistics, the last
+   gradients and the losses agree (phase 9's tolerances; bit-identical or
+   not, printed), 24 ``mha_fwd`` a remat step; step ms and peak beside
+   phase 21's;
+35. full-width ViT-B-32 under exp 6 at batch 256 with ``onehot_embed`` and
+   with ``ln_fp32: false`` (and ``fused_ln_qkv: true``, which such blocks
+   bypass: no ``ln_qkv_fwd``) against the default step from the same
+   seed: the one-hot embedding and the text tower's output equal to the
+   gather's to the bit, each main step's loss and gradient directions
+   within phase 9's tolerances, phase 9's launches, step ms and peak
+   beside phase 9's.
 
 Phases 6 and 8 also hold the loss kernels at RN50's (256, 1024), the
 main path's shape, and at ViT-L-14-336's (256, 768) of phase 26.  The kernels line reports each kernel at the case its
@@ -236,7 +278,10 @@ epochs of 4 steps, the GradCache ViT-L-14-336 run 2 of 2 (eval 256 pairs,
 not 512), the two CLIs 2 of 2 with one eval batch of 256.  Phases 28-31
 run ViT-B-32 at full width and depth; phase 30 cuts training as phase 19
 does (2 epochs of 8 steps on 2048 synthetic pairs, 512 eval pairs 4
-times).  The earlier phases run as they did.
+times).  Phases 32-35 run at full width: phase 32 cuts training as phase
+19 does with 256 eval pairs (the plots of 512 points take the host
+seconds a pass), phase 33 trains 2 epochs of 2 steps, phases 34-35 a few
+steps.  The earlier phases run as they did.
 
 The last lines are a JSON object of per-kernel results (time, plain time,
 library time, the card's least time for the work, launches on the main
@@ -357,12 +402,15 @@ L336_GRADCACHE_STEPS_PER_EPOCH = 2
 CLI_LOSS_STEPS = 2
 CLI_LOSS_EVAL_PAIRS = 256
 REPO = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for bound_ms
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def log(phase: str, **fields) -> None:
+    """One line a reading; ``t`` is the seconds since the script started."""
+    fields["t"] = f"{time.perf_counter() - T0:.1f}"
     print(f"{phase}: " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -2571,6 +2619,538 @@ def phase_export(smi: str, model):
     return dict(launches=launches, **out)
 
 
+# slice 11: the extensions and knobs (phases 32-35)
+SPARSE_TOPK = 64                 # phase 32: sparse_topk, on 512-wide embeddings
+SPARSE_EVAL_PAIRS = 256          # phase 32: eval pairs a pass (plots of 512 points)
+PLOTS_PER_EVAL = ("umap", "tsne", "pca")
+REMAT_BATCH = 256                # phase 33: the reference's batch, one shot
+REMAT_STEPS_PER_EPOCH = 2        # phase 33: one warm and one main epoch of 2 steps
+REMAT_CHECK_BATCH = 64           # phase 33: fits without remat (phase 13's batch)
+REMAT_POLICIES = ("dots_no_batch", "attn_out")  # timed at REMAT_CHECK_BATCH
+REMAT_TRIED_AT_256 = ("dots", "dots_no_batch")  # may not fit: an OOM is a reading
+RN50_REMAT_STEPS = 2             # phase 34
+KNOB_STEPS = 3                   # phase 35: timed main steps of each setup
+
+
+def _read_train_counts(fn):
+    """Run ``fn`` with every count set to 0 and return (its result, the
+    counts it launched)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def _set_remat(model, on: bool, policy: Optional[str] = "nothing") -> None:
+    """Switch every transformer stack and Bottleneck of ``model`` between
+    remat under ``policy`` and the plain blocks, over the same parameters
+    (what ``create_model(remat=..., remat_policy=...)`` builds)."""
+    from sparsify_clip_tpu_torch.models.layers import Transformer, resolve_remat_policy
+    from sparsify_clip_tpu_torch.models.resnet import Bottleneck
+
+    for module in model.modules():
+        if isinstance(module, (Transformer, Bottleneck)):
+            module.remat = on
+            module.policy = resolve_remat_policy(policy) if on else None
+        if isinstance(module, Transformer):
+            for block in module.resblocks:
+                block.tag_attn_out = on and policy == "attn_out"
+
+
+def _timed_steps(setup, batch, steps: int, first_step: int):
+    """``steps`` steps through ``train_step`` from ``first_step``, the last
+    ``steps - 1`` timed on the host clock (each ends in a read of its
+    loss) → (ms a step, peak bytes, losses, launches of the timed steps)."""
+    setup.state.step = first_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, t = [], None
+    reset_counts()
+    for k in range(steps):
+        if k == 1:
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+        setup.state, metrics = setup.train_step(setup.state, batch)
+        losses.append(float(metrics["train_loss"]))
+    ms = (time.perf_counter() - t) / (steps - 1) * 1e3
+    return ms, torch.cuda.max_memory_allocated(), losses, read_counts()
+
+
+def phase_cli_sparse(smi: str, phase19: dict):
+    """Phase 32: the CLI on a YAML of full-width ViT-B-32 under exp 6 at
+    batch 256 with ``sparse_projection: topk`` (``sparse_topk`` 64,
+    ``sparse_after_epoch`` 1) and the per-eval plots where matplotlib is
+    installed; the projected embeddings of one batch; one step held
+    against the plain versions; one ``l1`` step."""
+    import dataclasses
+    import importlib.util
+    import os
+    import tempfile
+
+    from sparsify_clip_tpu_torch.config import load_config
+    from sparsify_clip_tpu_torch.data import synthetic_batch
+    from sparsify_clip_tpu_torch.ops.sparsify import make_projection
+    from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup
+    from sparsify_clip_tpu_torch.utils.numerics import l2_normalize
+
+    spe, batch = CLI_TRAIN_SAMPLES // EXP6["batch_size"], EXP6["batch_size"]
+    plots = importlib.util.find_spec("matplotlib") is not None
+    run = "exp6-topk"
+    sparse = dict(sparse_projection="topk", sparse_topk=SPARSE_TOPK, sparse_after_epoch=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml_path = _write_exp6_yaml(tmp, run_name=run, num_test_samples=SPARSE_EVAL_PAIRS,
+                                     plot_embeddings=plots, **sparse)
+        config = load_config(yaml_path)
+        counter = _PerStepCounts()
+        t = time.perf_counter()
+        try:
+            reset_counts()
+            _run_cli(["--config", yaml_path])
+            launches = read_counts()
+        finally:
+            counter.close()
+        seconds = time.perf_counter() - t
+        model, counter.state = counter.state.model, None
+        records = _jsonl(os.path.join(tmp, "logs", f"{run}.jsonl"))
+        images = [r for r in records if r.get("event") == "image"]
+        png_sizes = [os.path.getsize(r["path"]) for r in images if os.path.exists(r["path"])]
+    step_records = [r for r in records if "train_loss" in r]
+    if len(step_records) != EXP6_EPOCHS * spe or not np.isfinite(
+            [r["train_loss"] for r in step_records]).all():
+        raise AssertionError(f"topk CLI train records {step_records}")
+    n_evals = EXP6_EPOCHS + 2
+    evals = _check_evals(records, n_evals, "exp 6 topk")
+    want_keys = list(PLOTS_PER_EVAL) * n_evals if plots else []
+    if [r["key"] for r in images] != want_keys or len(png_sizes) != len(want_keys) \
+            or min(png_sizes, default=1001) <= 1000:
+        raise AssertionError(f"plots: {images}, sizes {png_sizes}")
+    zero = dict.fromkeys(KERNELS, 0)
+    warm = dict(zero, mha_fwd=24, mha_bwd=24, lunif_fwd=2, lunif_bwd=2)
+    main = dict(zero, mha_fwd=24, mha_bwd=24, infonce_fwd=1, infonce_bwd_dimg=1,
+                infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
+    per_eval = dict(zero, mha_fwd=24 * (SPARSE_EVAL_PAIRS // batch))
+    _expect_launches(counter.steps, [(k, warm if k < spe else main)
+                                     for k in range(EXP6_EPOCHS * spe)], "the topk CLI's steps")
+    _expect_launches(counter.evals, [per_eval] * n_evals, "the topk CLI's evals")
+    rates = [r for r in records if "step_time_ms" in r]
+    refused = None
+    if not plots:
+        # without matplotlib the CLI refuses plot_embeddings: true by name,
+        # before it writes any file
+        with tempfile.TemporaryDirectory() as tmp:
+            yaml_path = _write_exp6_yaml(tmp, run_name=run, plot_embeddings=True, **sparse)
+            try:
+                _run_cli(["--config", yaml_path])
+            except NotImplementedError as e:
+                refused = str(e)
+            written = os.listdir(tmp)
+        if refused is None or "matplotlib" not in refused or written != ["exp6.yaml"]:
+            raise AssertionError(f"plot_embeddings without matplotlib: {refused!r}, {written}")
+    log("phase 32 cli", ok=True, model=config.model, batch=batch, **sparse,
+        plot_embeddings=plots, refused_without_matplotlib=json.dumps(refused),
+        steps=len(step_records), evals=len(evals), plots=len(images),
+        png_bytes_min=min(png_sizes, default=0),
+        losses=json.dumps([r["train_loss"] for r in step_records]),
+        eval_last=json.dumps(evals[-1]), launches=json.dumps(launches),
+        cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in rates]),
+        phase19_cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in phase19["rates"]]),
+        seconds=f"{seconds:.3f}", card=json.dumps(smi))
+
+    # the trained model's embeddings of one batch, projected as the step does
+    cfg = model.cfg
+    held = batch_to_device(synthetic_batch(batch, cfg.image_size, cfg.context_length,
+                                           seed=SEED + 5), torch.device("cuda"))
+    project = make_projection("topk", SPARSE_TOPK)
+    with torch.no_grad():
+        img, txt = model(held["images"], held["tokens"])
+        projected = torch.cat([project(l2_normalize(img)), project(l2_normalize(txt))])
+    nonzeros = (projected != 0).sum(-1)
+    norm_err = (projected.norm(dim=-1) - 1).abs().max().item()
+    log("phase 32 projection", rows=projected.shape[0], width=projected.shape[1],
+        nonzeros_min=int(nonzeros.min()), nonzeros_max=int(nonzeros.max()),
+        rows_over_k=int((nonzeros > SPARSE_TOPK).sum()), max_norm_err=norm_err,
+        norm_tol=NORM_TOL)
+    if nonzeros.min().item() < SPARSE_TOPK or norm_err > NORM_TOL:
+        raise AssertionError("phase 32: the projected rows are not k-sparse unit vectors")
+    del model, img, txt, projected
+
+    # one main step (past sparse_after_epoch) on the kernels against the same
+    # step on the plain versions, in fp32 towers: in bf16 the two paths'
+    # roundings move components across the k-th magnitude (the mask flips,
+    # and the gradient with it), which the flip count below shows
+    check = create_train_setup(dataclasses.replace(config, fp16=False), steps_per_epoch=spe,
+                               device="cuda")
+    check.state.step = spe
+    (loss_k, aux_k, _, _), counts = _read_train_counts(
+        lambda: check.train_step.loss_and_grads(check.state, held))
+    _expect_launches(counts, main, "the fp32 topk main step")
+    params = list(check.model.parameters())
+    names = [n for n, _ in check.model.named_parameters()]
+    grads_k = [p.grad.detach().clone() for p in params]
+    with torch.no_grad():
+        emb_k = torch.cat([l2_normalize(e) for e in check.model(held["images"], held["tokens"])])
+    restore = _plain_paths()
+    try:
+        (loss_p, aux_p, _, _), plain_counts = _read_train_counts(
+            lambda: check.train_step.loss_and_grads(check.state, held))
+        with torch.no_grad():
+            emb_p = torch.cat([l2_normalize(e)
+                               for e in check.model(held["images"], held["tokens"])])
+    finally:
+        restore()
+    if any(plain_counts.values()):
+        raise AssertionError(f"the plain topk step launched {plain_counts}")
+    flips = int(((project(emb_k) != 0) != (project(emb_p) != 0)).any(-1).sum())
+    cosines = _grad_cosines(params, grads_k)
+    gaps = {k: _rel_gap(aux_k[k].item(), aux_p[k].item()) for k in aux_k}
+    gaps["loss"] = _rel_gap(loss_k.item(), loss_p.item())
+    worst = _worst(names, cosines)
+    log("phase 32 plain", step=spe, batch=batch, dtype="float32", loss_kernel=loss_k.item(),
+        loss_plain=loss_p.item(), rel_gaps=json.dumps(gaps), rtol=TRAIN_LOSS_RTOL,
+        min_grad_cosine=cosines[worst], min_at=names[worst], min_cosine=TRAIN_MIN_GRAD_COSINE,
+        rows_whose_mask_differs=flips, rows=emb_k.shape[0])
+    if max(gaps.values()) > TRAIN_LOSS_RTOL or cosines[worst] < TRAIN_MIN_GRAD_COSINE:
+        raise AssertionError("phase 32: the topk step on the kernels and the plain versions "
+                             "disagree")
+    del check, grads_k, params, emb_k, emb_p
+    torch.cuda.empty_cache()
+
+    # the topk and the l1 step timed on the device-resident batch (bf16 towers)
+    out = {}
+    for kind in ("topk", "l1"):
+        setup = create_train_setup(dataclasses.replace(config, sparse_projection=kind),
+                                   steps_per_epoch=spe, device="cuda")
+        setup.state.step = spe
+        (loss_k, aux_k, _, _), counts = _read_train_counts(
+            lambda: setup.train_step.loss_and_grads(setup.state, held))
+        _expect_launches(counts, main, f"the {kind} main step")
+        setup.state.optimizer.zero_grad(set_to_none=True)
+        ms, peak, losses, counts = _timed_steps(setup, held, 3, spe)
+        _expect_launches(counts, {k: 2 * v for k, v in main.items()}, f"two {kind} steps")
+        if not np.isfinite([loss_k.item()] + losses).all():
+            raise AssertionError(f"phase 32: {kind} losses {losses}")
+        out[kind] = dict(loss=loss_k.item(), step_ms=ms, launches=counts)
+        log("phase 32 step", projection=kind, step=spe, batch=batch, loss=loss_k.item(),
+            components=json.dumps({k: v.item() for k, v in aux_k.items()}),
+            losses=json.dumps(losses), step_ms=f"{ms:.3f}",
+            max_memory_allocated_gib=f"{peak / 2**30:.3f}", card=json.dumps(smi))
+        del setup
+        torch.cuda.empty_cache()
+    return dict(launches=launches, steps=out)
+
+
+def phase_remat_l336(smi: str, gradcache_l336: dict):
+    """Phase 33: full-width ViT-L-14-336 under exp 6 at the reference's
+    batch 256 in one shot under ``remat: true`` (policy ``nothing``),
+    unfused and with ``fused_ln_qkv``, beside phase 26's GradCache step;
+    at batch 64 the remat step against the same step without remat, and
+    the selective policies' peaks and step times; at 256 the policies
+    that keep the projections' outputs, which may not fit."""
+    from sparsify_clip_tpu_torch.config import ExperimentConfig
+    from sparsify_clip_tpu_torch.data import synthetic_batch
+    from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup, run_training
+
+    spe = REMAT_STEPS_PER_EPOCH
+    config = ExperimentConfig.from_dict(dict(EXP6, model=L336, batch_size=REMAT_BATCH,
+                                             epochs=EXP6_EPOCHS, log_every_n_steps=spe,
+                                             remat=True, remat_policy="nothing"))
+    t = time.perf_counter()
+    setup = create_train_setup(config, steps_per_epoch=spe, device="cuda")
+    torch.cuda.synchronize()
+    setup_seconds = time.perf_counter() - t
+    cfg, model = setup.model.cfg, setup.model
+    batch = batch_to_device(synthetic_batch(REMAT_BATCH, cfg.image_size, cfg.context_length,
+                                            seed=SEED), setup.device)
+    zero = dict.fromkeys(KERNELS, 0)
+    vision, text = cfg.vision_layers[0], cfg.text_layers
+    # the backward recomputes each block's forward: the forwards run twice
+    attention = dict(mha_fwd_head_group=2 * vision, mha_bwd_head_group=vision,
+                     mha_fwd=2 * text, mha_bwd=text)
+    warm_step = dict(zero, **attention, lunif_fwd=2, lunif_bwd=2)
+    main_step = dict(zero, **attention, infonce_fwd=1, infonce_bwd_dimg=1, infonce_bwd_dtxt=1,
+                     lunif_fwd=1, lunif_bwd=1)
+    fused_step = dict(main_step, ln_qkv_fwd=2 * (vision + text), ln_fast_bwd=vision + text)
+
+    # the main path: run_training over one warm and one main epoch
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run_training(setup, lambda epoch: iter([batch] * spe), log_fn=records.append)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _expect_launches(launches, {k: spe * (warm_step[k] + main_step[k]) for k in KERNELS},
+                     "the remat run")
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    rates = [r for r in records if "step_time_ms" in r]
+    if len(losses) != 2 * spe or not np.isfinite(losses).all():
+        raise AssertionError(f"phase 33 losses {losses}")
+    gc_peak = gradcache_l336["peak"]
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    log("phase 33 remat", model=L336, batch=REMAT_BATCH, remat_policy="nothing",
+        setup_seconds=f"{setup_seconds:.3f}", losses=json.dumps(losses),
+        launches_warm_step=json.dumps(warm_step), launches_main_step=json.dumps(main_step),
+        step_ms=json.dumps({k: round(r["step_time_ms"], 3) for k, r in zip(("warm", "main"),
+                                                                           rates)}),
+        pairs_per_s=json.dumps({k: round(r["pairs_per_sec"], 1) for k, r in zip(
+            ("warm", "main"), rates)}),
+        max_memory_allocated_gib=f"{peak / 2**30:.3f}",
+        gradcache_step_ms=json.dumps({k: round(v["step_ms"], 3)
+                                      for k, v in gradcache_l336["rates"].items()}),
+        gradcache_max_memory_allocated_gib=f"{gc_peak / 2**30:.3f}",
+        card_memory_gib=f"{card_bytes / 2**30:.3f}", card=json.dumps(smi))
+    if peak >= card_bytes:
+        raise AssertionError("phase 33: the remat step does not fit the card")
+
+    # the same, with the fused LN+qkv: two main steps timed
+    _set_fused_ln_qkv(model, True)
+    try:
+        setup.state.optimizer.zero_grad(set_to_none=True)
+        fused_ms, fused_peak, fused_losses, fused_launches = _timed_steps(setup, batch, 3, spe)
+    finally:
+        _set_fused_ln_qkv(model, False)
+    _expect_launches(fused_launches, {k: 2 * v for k, v in fused_step.items()},
+                     "two fused remat steps")
+    log("phase 33 remat fused", batch=REMAT_BATCH, step_ms=f"{fused_ms:.3f}",
+        pairs_per_s=f"{REMAT_BATCH / fused_ms * 1e3:.1f}",
+        max_memory_allocated_gib=f"{fused_peak / 2**30:.3f}",
+        launches_step=json.dumps(fused_step), losses=json.dumps(fused_losses),
+        card=json.dumps(smi))
+
+    # batch 64: the remat step against the step without remat (same state)
+    small = batch_to_device(synthetic_batch(REMAT_CHECK_BATCH, cfg.image_size,
+                                            cfg.context_length, seed=SEED + 1), setup.device)
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    small_main = dict(main_step)
+    grads = {}
+    for remat in (False, True):
+        _set_remat(model, remat)
+        setup.state.step = spe
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (loss, aux, _, _), counts = _read_train_counts(
+            lambda: setup.train_step.loss_and_grads(setup.state, small))
+        want = small_main if remat else dict(small_main, mha_fwd_head_group=vision,
+                                             mha_fwd=text)
+        _expect_launches(counts, want, f"the batch-64 step with remat {remat}")
+        grads[remat] = (loss.item(), {k: v.item() for k, v in aux.items()},
+                        [p.grad.detach().clone() for p in params],
+                        torch.cuda.max_memory_allocated())
+        setup.state.optimizer.zero_grad(set_to_none=True)
+    (loss0, aux0, g0, peak0), (loss1, aux1, g1, peak1) = grads[False], grads[True]
+    max_diff = max((a - b).abs().max().item() for a, b in zip(g0, g1))
+    identical = loss0 == loss1 and all(torch.equal(a, b) for a, b in zip(g0, g1))
+    cosines = [_cosine(a, b) for a, b in zip(g1, g0)]
+    worst = _worst(names, cosines)
+    gaps = {k: _rel_gap(aux1[k], aux0[k]) for k in aux0}
+    gaps["loss"] = _rel_gap(loss1, loss0)
+    log("phase 33 equality", batch=REMAT_CHECK_BATCH, step=spe, loss_remat=loss1,
+        loss_plain=loss0, bit_identical=identical, max_abs_grad_diff=max_diff,
+        rel_gaps=json.dumps(gaps), rtol=TRAIN_LOSS_RTOL, min_grad_cosine=cosines[worst],
+        min_at=names[worst], min_cosine=TRAIN_MIN_GRAD_COSINE,
+        peak_gib_plain=f"{peak0 / 2**30:.3f}", peak_gib_remat=f"{peak1 / 2**30:.3f}")
+    if max(gaps.values()) > TRAIN_LOSS_RTOL or cosines[worst] < TRAIN_MIN_GRAD_COSINE:
+        raise AssertionError("phase 33: the remat step and the plain step disagree")
+    del g0, g1, grads
+
+    # each policy's peak and step at batch 64, and without remat
+    policies = {}
+    for policy in (None, "nothing") + REMAT_POLICIES:
+        _set_remat(model, policy is not None, policy)
+        setup.state.optimizer.zero_grad(set_to_none=True)
+        ms, peak_p, _, counts = _timed_steps(setup, small, 3, spe)
+        want = small_main if policy is not None else dict(small_main, mha_fwd_head_group=vision,
+                                                          mha_fwd=text)
+        _expect_launches(counts, {k: 2 * v for k, v in want.items()},
+                         f"two batch-64 steps under {policy}")
+        policies[str(policy)] = dict(step_ms=round(ms, 3), peak_gib=round(peak_p / 2**30, 3))
+    log("phase 33 policies", batch=REMAT_CHECK_BATCH, policies=json.dumps(policies),
+        card=json.dumps(smi))
+
+    # batch 256 under the policies that keep the projections' outputs
+    at_256 = {}
+    for policy in REMAT_TRIED_AT_256:
+        _set_remat(model, True, policy)
+        setup.state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        try:
+            ms, peak_p, _, _ = _timed_steps(setup, batch, 2, spe)
+            at_256[policy] = dict(step_ms=round(ms, 3), peak_gib=round(peak_p / 2**30, 3))
+        except torch.cuda.OutOfMemoryError:
+            # a measured fact: the policy's saved products do not fit at 256
+            at_256[policy] = dict(out_of_memory=True,
+                                  peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+        setup.state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    _set_remat(model, True, "nothing")
+    log("phase 33 policies at 256", batch=REMAT_BATCH, policies=json.dumps(at_256),
+        card=json.dumps(smi))
+    fused_launches_total = {k: fused_launches[k] for k in KERNELS}
+    del setup, model, batch, small
+    torch.cuda.empty_cache()
+    return dict(launches=launches, fused_launches=fused_launches_total, peak=peak,
+                rates=rates, fused_ms=fused_ms)
+
+
+def phase_remat_rn50(smi: str, exp6_rn50: dict):
+    """Phase 34: full-width RN50 under exp 6 at batch 256 with and without
+    ``remat`` from the same seed: after two steps the running statistics,
+    the last gradients and the losses agree; step ms and peak beside phase
+    21's."""
+    from sparsify_clip_tpu_torch.config import ExperimentConfig
+    from sparsify_clip_tpu_torch.data import synthetic_batch
+    from sparsify_clip_tpu_torch.models.clip import MODEL_REGISTRY
+    from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup
+
+    spe = EXP6_STEPS_PER_EPOCH
+    runs, launches = {}, None
+    for remat in (False, True):
+        config = ExperimentConfig.from_dict(dict(EXP6, model="RN50", epochs=EXP6_EPOCHS,
+                                                 remat=remat))
+        setup = create_train_setup(config, steps_per_epoch=spe, device="cuda")
+        cfg = setup.model.cfg
+        batch = batch_to_device(synthetic_batch(TRAIN_BATCH, cfg.image_size, cfg.context_length,
+                                                seed=SEED), setup.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses = []
+        for _ in range(RN50_REMAT_STEPS):
+            setup.state, metrics = setup.train_step(setup.state, batch)
+            losses.append(float(metrics["train_loss"]))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        stats = {n: b.detach().clone() for n, b in setup.model.named_buffers()}
+        grads = {n: p.grad.detach().clone() for n, p in setup.model.named_parameters()}
+        setup.state.optimizer.zero_grad(set_to_none=True)
+        ms, _, _, _ = _timed_steps(setup, batch, 3, spe)  # main-phase steps
+        runs[remat] = dict(losses=losses, stats=stats, grads=grads, peak=peak, step_ms=ms,
+                           counts=counts)
+        if remat:
+            launches = counts
+        del setup, batch
+        torch.cuda.empty_cache()
+    plain, remat = runs[False], runs[True]
+    text = MODEL_REGISTRY["RN50"].text_layers
+    # the ResNet tower runs no kernel; the text tower's forwards run twice
+    want = dict(dict.fromkeys(KERNELS, 0), mha_fwd=2 * text * RN50_REMAT_STEPS,
+                mha_bwd=text * RN50_REMAT_STEPS, lunif_fwd=2 * RN50_REMAT_STEPS,
+                lunif_bwd=2 * RN50_REMAT_STEPS)
+    _expect_launches(remat["counts"], want, "two RN50 remat steps")
+    stat_diff = max((remat["stats"][n] - b).abs().max().item() for n, b in plain["stats"].items())
+    stat_scale = max(b.abs().max().item() for b in plain["stats"].values())
+    stats_identical = all(torch.equal(remat["stats"][n], b) for n, b in plain["stats"].items())
+    names = list(plain["grads"])
+    cosines = [_cosine(remat["grads"][n], plain["grads"][n]) for n in names]
+    worst = _worst(names, cosines)
+    grads_identical = all(torch.equal(remat["grads"][n], plain["grads"][n]) for n in names)
+    loss_gap = max(_rel_gap(a, b) for a, b in zip(remat["losses"], plain["losses"]))
+    moved = any(not torch.equal(b, torch.zeros_like(b)) for n, b in remat["stats"].items()
+                if n.endswith("running_mean"))
+    log("phase 34 remat rn50", batch=TRAIN_BATCH, steps=RN50_REMAT_STEPS,
+        losses_plain=json.dumps(plain["losses"]), losses_remat=json.dumps(remat["losses"]),
+        loss_rel_gap=loss_gap, rtol=TRAIN_LOSS_RTOL, stats_bit_identical=stats_identical,
+        stats_max_abs_diff=stat_diff, stats_scale=stat_scale, stats_moved=moved,
+        grads_bit_identical=grads_identical, min_grad_cosine=cosines[worst],
+        min_at=names[worst], min_cosine=TRAIN_MIN_GRAD_COSINE,
+        step_ms_plain=f"{plain['step_ms']:.3f}", step_ms_remat=f"{remat['step_ms']:.3f}",
+        peak_gib_plain=f"{plain['peak'] / 2**30:.3f}",
+        peak_gib_remat=f"{remat['peak'] / 2**30:.3f}",
+        phase21_step_ms=json.dumps({k: round(v["step_ms"], 3)
+                                    for k, v in exp6_rn50["rates"].items()}),
+        phase21_max_memory_allocated_gib=f"{exp6_rn50['peak'] / 2**30:.3f}",
+        launches=json.dumps(launches), card=json.dumps(smi))
+    if (loss_gap > TRAIN_LOSS_RTOL or cosines[worst] < TRAIN_MIN_GRAD_COSINE or not moved
+            or stat_diff > TRAIN_LOSS_RTOL * stat_scale):
+        raise AssertionError("phase 34: the RN50 remat steps and the plain steps disagree")
+    return dict(launches=launches)
+
+
+def phase_knobs(smi: str, exp6: dict):
+    """Phase 35: full-width ViT-B-32 under exp 6 at batch 256 with
+    ``onehot_embed`` and with ``ln_fp32: false`` against the default step
+    from the same seed: the one-hot embedding equal to the gather's to the
+    bit, each step's loss within the bf16 step tolerance, step ms and peak
+    beside phase 9's."""
+    from sparsify_clip_tpu_torch.config import ExperimentConfig
+    from sparsify_clip_tpu_torch.data import synthetic_batch
+    from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup
+
+    spe = EXP6_STEPS_PER_EPOCH
+    zero = dict.fromkeys(KERNELS, 0)
+    main = dict(zero, mha_fwd=24, mha_bwd=24, infonce_fwd=1, infonce_bwd_dimg=1,
+                infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
+    out, launches, ref = {}, {}, None
+    for name, fields in (("default", {}), ("onehot_embed", dict(onehot_embed=True)),
+                         ("ln_fp32_false", dict(ln_fp32=False, fused_ln_qkv=True))):
+        config = ExperimentConfig.from_dict(dict(EXP6, epochs=EXP6_EPOCHS, **fields))
+        setup = create_train_setup(config, steps_per_epoch=spe, device="cuda")
+        cfg = setup.model.cfg
+        batch = batch_to_device(synthetic_batch(TRAIN_BATCH, cfg.image_size, cfg.context_length,
+                                                seed=SEED), setup.device)
+        text = setup.model.text
+        with torch.no_grad():
+            if name == "onehot_embed":
+                # the one-hot product against the gather, on the same table
+                tokens = batch["tokens"]
+                table = text.token_embedding.weight
+                flat = tokens.reshape(-1, 1).long()
+                onehot = torch.zeros(flat.shape[0], table.shape[0], dtype=text.dtype,
+                                     device=flat.device).scatter_(1, flat, 1.0)
+                product = onehot @ table.to(text.dtype)
+                gathered = table[flat[:, 0]].to(text.dtype)
+                embed_identical = torch.equal(product, gathered)
+                del onehot, product, gathered
+                tower = text(tokens)
+                text.onehot_embed = False
+                tower_gather = text(tokens)
+                text.onehot_embed = True
+                tower_identical = torch.equal(tower, tower_gather)
+                log("phase 35 onehot", rows=flat.shape[0], vocab=table.shape[0],
+                    onehot_bytes=flat.shape[0] * table.shape[0] * 2,
+                    embedding_bit_identical=embed_identical,
+                    text_tower_bit_identical=tower_identical)
+                if not (embed_identical and tower_identical):
+                    raise AssertionError("phase 35: the one-hot embedding differs from the "
+                                         "gather's")
+        setup.state.step = spe
+        (loss, aux, _, _), counts = _read_train_counts(
+            lambda: setup.train_step.loss_and_grads(setup.state, batch))
+        _expect_launches(counts, main, f"the {name} main step")
+        grads = [p.grad.detach().clone() for p in setup.model.parameters()]
+        setup.state.optimizer.zero_grad(set_to_none=True)
+        ms, peak, losses, counts = _timed_steps(setup, batch, KNOB_STEPS + 1, spe)
+        _expect_launches(counts, {k: KNOB_STEPS * v for k, v in main.items()},
+                         f"{KNOB_STEPS} {name} steps")
+        launches[name] = counts
+        result = dict(loss=loss.item(), step_ms=ms, peak=peak)
+        if ref is None:
+            ref = dict(result, grads=grads, names=[n for n, _ in setup.model.named_parameters()])
+            gaps, cos = {}, 1.0
+        else:
+            gaps = {"loss": _rel_gap(loss.item(), ref["loss"])}
+            cosines = [_cosine(a, b) for a, b in zip(grads, ref["grads"])]
+            worst = _worst(ref["names"], cosines)
+            cos = cosines[worst]
+            if gaps["loss"] > TRAIN_LOSS_RTOL or cos < TRAIN_MIN_GRAD_COSINE:
+                raise AssertionError(f"phase 35: the {name} step and the default step disagree")
+        log("phase 35 step", knobs=name, batch=TRAIN_BATCH, step=spe, loss=loss.item(),
+            loss_rel_gap_vs_default=gaps.get("loss", 0.0), rtol=TRAIN_LOSS_RTOL,
+            min_grad_cosine_vs_default=cos, min_cosine=TRAIN_MIN_GRAD_COSINE,
+            losses=json.dumps(losses), step_ms=f"{ms:.3f}",
+            pairs_per_s=f"{TRAIN_BATCH / ms * 1e3:.1f}",
+            max_memory_allocated_gib=f"{peak / 2**30:.3f}",
+            phase9_step_ms=json.dumps({k: round(v["step_ms"], 3)
+                                       for k, v in exp6["rates"].items()}),
+            phase9_max_memory_allocated_gib=f"{exp6['peak'] / 2**30:.3f}", card=json.dumps(smi))
+        out[name] = result
+        del setup, batch, grads
+        torch.cuda.empty_cache()
+    return dict(launches=launches, steps=out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -2764,6 +3344,18 @@ def main() -> int:
     model = create_model("ViT-B-32", dtype=torch.bfloat16, device="cuda", seed=SEED)
     exported = phase_export(smi, model)
     del model
+    torch.cuda.empty_cache()
+
+    # the extensions and knobs: the sparse projection through the CLI with
+    # the plots, remat on ViT-L-14-336 at batch 256 and on RN50, the one-hot
+    # embedding and the LayerNorm in the compute type
+    cli_sparse = phase_cli_sparse(smi, cli_exp6)
+    torch.cuda.empty_cache()
+    remat_l336 = phase_remat_l336(smi, gradcache_l336)
+    torch.cuda.empty_cache()
+    remat_rn50 = phase_remat_rn50(smi, exp6_rn50)
+    torch.cuda.empty_cache()
+    knobs = phase_knobs(smi, exp6)
 
     # each row's times are at the case named beside it: the RN50 main
     # path's shape where the kernel runs on it (the text tower's causal
@@ -2835,6 +3427,14 @@ def main() -> int:
             "serve_u8": serve_u8["launches"][counter],
             "export": exported["launches"][counter],
             "cli_augment": cli_augment["launches"][counter],
+            "cli_sparse": cli_sparse["launches"][counter],
+            "train_sparse_topk": cli_sparse["steps"]["topk"]["launches"][counter],
+            "train_sparse_l1": cli_sparse["steps"]["l1"]["launches"][counter],
+            "train_remat_l336": remat_l336["launches"][counter],
+            "train_remat_l336_fused": remat_l336["fused_launches"][counter],
+            "train_remat_rn50": remat_rn50["launches"][counter],
+            "train_onehot": knobs["launches"]["onehot_embed"][counter],
+            "train_ln_fp32_false": knobs["launches"]["ln_fp32_false"][counter],
         }
         by_path = {path: count for path, count in by_path.items() if on_path(path)}
         entries.append({

@@ -12,7 +12,10 @@ attention forward and backward, the fused InfoNCE and the fused
 uniformity loss; and the training CLI (tokenizer, data loaders, JSONL
 logging, checkpoints, exact resume, preemption); the device augment
 and raw-uint8 request path, zero-shot classification, the ``encode`` CLI
-and ``torch.export`` artifacts (:mod:`sparsify_clip_tpu_torch.export`).
+and ``torch.export`` artifacts (:mod:`sparsify_clip_tpu_torch.export`);
+the extensions and knobs: the sparse embedding projection, remat, the
+one-hot token embedding, the LayerNorm in the compute type and the
+per-eval embedding plots (:mod:`sparsify_clip_tpu_torch.viz`).
 See README.md ("PyTorch port").
 """
 

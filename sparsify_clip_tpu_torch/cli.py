@@ -10,7 +10,10 @@ device="cpu")``.
 Each run: data → pre-training eval → epochs (train, eval, weights npz
 and full-state checkpoint every ``save_checkpoint_every_n_epochs``) →
 final eval → final weights npz, logged to ``<log_dir>/<run_name>.jsonl``
-with the JAX CLI's records.  ``resume_checkpoint`` resumes weights only
+with the JAX CLI's records; with ``plot_embeddings`` (the default) each
+eval pass also writes the reference's UMAP / t-SNE / PCA sphere plots to
+``<log_dir>/plots/`` on the host (:mod:`sparsify_clip_tpu_torch.viz`) and
+logs them as image records.  ``resume_checkpoint`` resumes weights only
 from an ``.npz`` (the reference's semantics) or the full state from
 ``"auto"`` (``<checkpoint_dir>/<run_name>/``) or a directory, data order
 exact.  SIGTERM (``handle_preemption``) finishes the step, saves the
@@ -21,8 +24,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import os
 import random
+import time
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -58,10 +63,10 @@ def _check_supported(config: ExperimentConfig) -> None:
     from sparsify_clip_tpu_torch.data.pipeline import check_supported as check_data
     from sparsify_clip_tpu_torch.train import check_supported as check_step
 
-    if config.plot_embeddings:
+    if config.plot_embeddings and importlib.util.find_spec("matplotlib") is None:
         raise NotImplementedError(
-            "plot_embeddings: true (viz*.py, ROADMAP Queue 1, 'Extensions and knobs') is not "
-            "ported to sparsify_clip_tpu_torch yet; set plot_embeddings: false or run --smoke"
+            "plot_embeddings: true draws the per-eval plots with matplotlib, which is not "
+            "installed; set plot_embeddings: false or run --smoke"
         )
     check_data(config)
     check_step(config)
@@ -81,6 +86,7 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
     from sparsify_clip_tpu_torch.models.clip import MODEL_REGISTRY
     from sparsify_clip_tpu_torch.train import create_train_setup, run_training
     from sparsify_clip_tpu_torch.utils.preemption import GracefulShutdown
+    from sparsify_clip_tpu_torch.viz import plot_all_methods
 
     device = torch.device(device if device is not None else f"cuda:{config.device_id}")
     if device.type == "cuda":
@@ -153,8 +159,17 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
             batches = list(test_loader.epoch(eval_pass))
         else:
             batches = eval_batches
+        this_pass = eval_pass
         eval_pass += 1
-        metrics = evaluate_model(eval_model, batches)
+        plot_fn = None
+        if config.plot_embeddings:
+            def plot_fn(txt, img):
+                # the pass counter in the tag: two eval passes inside one
+                # wall-clock second must not overwrite each other
+                plot_all_methods(txt, img, out_dir=os.path.join(config.log_dir, "plots"),
+                                 tag=f"{this_pass:04d}_{time.time():.0f}", logger=logger)
+        metrics = evaluate_model(eval_model, batches, plot_embeddings=config.plot_embeddings,
+                                 plot_fn=plot_fn)
         print("Evaluation Results:", metrics, "\n")
         logger.log(metrics)
         last_eval = metrics

@@ -128,20 +128,28 @@ class CLIP(nn.Module):
     L2-normalize.  The vision tower is a ViT or, for the RN registry
     entries, a :class:`ModifiedResNet`, whose BatchNorms use the batch
     statistics in train mode and the running statistics in eval mode (the
-    JAX ``CLIP(..., train=True/False)``).  ``fused_ln_qkv`` runs every
-    transformer block's ln_1 and in_proj as the fused LN+qkv kernel, as
-    the JAX ``CLIP(fused_ln_qkv=True)``."""
+    JAX ``CLIP(..., train=True/False)``).  The knobs are the JAX
+    ``CLIP``'s (clip.py:147-166): ``fused_ln_qkv`` runs every transformer
+    block's ln_1 and in_proj as the fused LN+qkv kernel; ``remat`` and
+    ``remat_policy`` recompute each block (a ``Bottleneck`` in a ResNet)
+    in every tower's backward; ``ln_fp32: False`` gives the blocks flax's
+    LayerNorm in the compute type (and the unfused route); ``onehot_embed``
+    embeds the tokens by a one-hot product."""
 
     def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
-                 fused_ln_qkv: bool = False):
+                 fused_ln_qkv: bool = False, remat: bool = False,
+                 remat_policy: Optional[str] = None, ln_fp32: bool = True,
+                 onehot_embed: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.fused_ln_qkv = fused_ln_qkv
+        self.knobs = dict(fused_ln_qkv=fused_ln_qkv, remat=remat, remat_policy=remat_policy,
+                          ln_fp32=ln_fp32, onehot_embed=onehot_embed)
         act = quick_gelu if cfg.quick_gelu else gelu_exact
+        blocks = dict(remat=remat, remat_policy=remat_policy)
         if cfg.vision_kind == "resnet":
             self.visual = ModifiedResNet(
                 layers=cfg.vision_layers, width=cfg.vision_width, image_size=cfg.image_size,
-                embed_dim=cfg.embed_dim, heads=cfg.vision_heads, dtype=dtype,
+                embed_dim=cfg.embed_dim, heads=cfg.vision_heads, dtype=dtype, **blocks,
             )
         elif cfg.vision_kind == "vit":
             self.visual = VisionTransformer(
@@ -149,6 +157,7 @@ class CLIP(nn.Module):
                 width=cfg.vision_width, layers=cfg.vision_layers[0],
                 heads=cfg.vision_heads, mlp_hidden=cfg.vision_mlp_hidden,
                 embed_dim=cfg.embed_dim, act=act, dtype=dtype, fused_ln_qkv=fused_ln_qkv,
+                ln_fp32=ln_fp32, **blocks,
             )
         else:
             raise ValueError(f"Unknown vision_kind {cfg.vision_kind}")
@@ -156,8 +165,12 @@ class CLIP(nn.Module):
             vocab_size=cfg.vocab_size, context_length=cfg.context_length,
             width=cfg.text_width, heads=cfg.text_heads, layers=cfg.text_layers,
             mlp_hidden=cfg.text_mlp_hidden, embed_dim=cfg.embed_dim, act=act, dtype=dtype,
-            fused_ln_qkv=fused_ln_qkv,
+            fused_ln_qkv=fused_ln_qkv, ln_fp32=ln_fp32, onehot_embed=onehot_embed, **blocks,
         )
+
+    @property
+    def fused_ln_qkv(self) -> bool:
+        return self.knobs["fused_ln_qkv"]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -172,9 +185,9 @@ class CLIP(nn.Module):
         """A CLIP that computes in ``dtype`` over this model's parameters
         and buffers: the same tensors, not copies, so it sees every update
         to them (the JAX side's ``model.clone(dtype=...)`` applied to the
-        shared params and batch_stats), with this model's ``fused_ln_qkv``."""
+        shared params and batch_stats), with this model's knobs."""
         with torch.device("meta"):
-            twin = CLIP(self.cfg, dtype=dtype, fused_ln_qkv=self.fused_ln_qkv)
+            twin = CLIP(self.cfg, dtype=dtype, **self.knobs)
         twin.load_state_dict(self.state_dict(keep_vars=True), strict=True, assign=True)
         return twin.train(self.training)
 
@@ -201,6 +214,10 @@ def create_model(
     param_dtype: Optional[torch.dtype] = None,
     fused_ln_qkv: bool = False,
     image_size: Optional[int] = None,
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
+    ln_fp32: bool = True,
+    onehot_embed: bool = False,
 ) -> CLIP:
     """Build a registry model with fresh weights, in eval mode, on
     ``device`` (the card unless the caller asks for the CPU).
@@ -218,7 +235,9 @@ def create_model(
     ``param_dtype=torch.float32`` and keeps fp32 parameters, cast to
     ``dtype`` where they are used, as on the JAX side.  ``fused_ln_qkv``
     fuses every block's ln_1 into its in_proj (the JAX ``create_model``'s
-    knob, clip.py:267); the parameters are the same either way.
+    knob, clip.py:267); the parameters are the same either way, and under
+    ``remat``, ``remat_policy``, ``ln_fp32`` and ``onehot_embed`` (the
+    JAX ``create_model``'s knobs of the same names, clip.py:263-286) too.
     ``image_size`` overrides the registry's input resolution (the vision
     tower's positional embedding follows it), as the JAX ``create_model``'s.
     """
@@ -234,7 +253,8 @@ def create_model(
         cfg = MODEL_REGISTRY[name]
         if image_size is not None:
             cfg = dataclasses.replace(cfg, image_size=image_size)
-        model = CLIP(cfg, dtype=dtype, fused_ln_qkv=fused_ln_qkv)
+        model = CLIP(cfg, dtype=dtype, fused_ln_qkv=fused_ln_qkv, remat=remat,
+                     remat_policy=remat_policy, ln_fp32=ln_fp32, onehot_embed=onehot_embed)
     model.to_empty(device="cpu")
     model.reset_parameters(torch.Generator().manual_seed(seed))
     folded = model.visual.folded_convs() if isinstance(model.visual, ModifiedResNet) else ()

@@ -18,16 +18,26 @@ Conventions carried over from the JAX towers:
   one kernel (:func:`sparsify_clip_tpu_torch.ops.ln_qkv.ln_qkv_core`,
   the JAX block's ``ln_qkv_core`` route, layers.py:206-215) over the same
   parameters, so the ``state_dict`` is the unfused block's;
+* ``remat`` runs each block under ``torch.utils.checkpoint``
+  (non-reentrant) when a gradient is taken: the backward recomputes the
+  block's forward, kernels included, from its saved input; a
+  ``remat_policy`` keeps chosen intermediates (:func:`resolve_remat_policy`);
+* ``ln_fp32: false`` is flax's ``nn.LayerNorm(dtype=x.dtype)`` in the
+  blocks (:class:`LayerNorm`), and such a block takes the unfused route
+  even with ``fused_ln_qkv`` (the JAX condition ``fused_ln_qkv and
+  ln_fp32``, layers.py:206);
 * module and parameter names follow open_clip's ``state_dict``
   (``resblocks.N.attn.in_proj_weight``, ``mlp.c_fc`` ...).
 
-Only the unrolled layer stack is ported: ``scan_layers``, remat and the
-pipeline are later work (ROADMAP).
+Only the unrolled layer stack is ported: ``scan_layers`` is a compile-time
+lever of XLA (ROADMAP Queue 1, 'Do not port') and the pipeline waits for
+'Multi-GPU'.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+from typing import Callable, FrozenSet, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +47,69 @@ from sparsify_clip_tpu_torch.ops.attention import attention_core
 from sparsify_clip_tpu_torch.ops.ln_qkv import ln_qkv_core
 
 Activation = Callable[[torch.Tensor], torch.Tensor]
+
+
+# The block's attention output (after out_proj), tagged for the "attn_out"
+# policy as the JAX block tags it with checkpoint_name (layers.py:218-220).
+# A custom op may not return its input, so the tag is a copy, and the block
+# calls it only under that policy.
+@torch.library.custom_op("sparsify_clip::attn_out", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def attn_out(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()
+
+
+@attn_out.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+attn_out.register_autograd(lambda ctx, grad: grad)
+
+_aten = torch.ops.aten
+# What each selective policy saves, as the aten ops whose outputs the
+# checkpoint keeps; everything else is recomputed.  The hand-written
+# kernels are no aten op, so every policy recomputes them (attention, the
+# fused LN+qkv), as JAX's dots policies recompute a pallas_call, which is
+# no dot_general.  "dots" keeps each block's four projections (in_proj,
+# out_proj, c_fc, c_proj: 9 W a token) and any batched product (the plain
+# attention's on the CPU, the folded convs' moments in a ResNet);
+# "dots_no_batch" only the products without batch dims; "attn_out" the
+# tagged attention output (W a token) beside the block's input.
+_REMAT_POLICIES = {
+    "dots": frozenset({_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+                       _aten.baddbmm.default}),
+    "dots_no_batch": frozenset({_aten.mm.default, _aten.addmm.default}),
+    "attn_out": frozenset({torch.ops.sparsify_clip.attn_out.default}),
+}
+
+
+def resolve_remat_policy(name: Optional[str]) -> Optional[FrozenSet]:
+    """A config string → the ops a checkpointed block keeps (the JAX
+    ``resolve_remat_policy``, layers.py:34-61): ``None`` for
+    ``"nothing"``/``"full"``/None (save the block's input alone, recompute
+    the whole block); ``"dots"``, ``"dots_no_batch"`` and ``"attn_out"`` as
+    above.  Policies change what the backward recomputes, never the math."""
+    if name in (None, "nothing", "full"):
+        return None
+    if name not in _REMAT_POLICIES:
+        raise ValueError(
+            f"Unknown remat_policy {name!r}; choose from "
+            f"{['nothing', *_REMAT_POLICIES]}"
+        )
+    return _REMAT_POLICIES[name]
+
+
+def remat(fn: Callable, policy: Optional[FrozenSet], *args):
+    """``fn(*args)`` under a non-reentrant ``torch.utils.checkpoint``
+    (``jax.checkpoint``): the forward keeps ``args`` and, under a
+    selective ``policy``, the outputs of its ops; the backward recomputes
+    the rest.  The blocks draw no random numbers, so no RNG state is kept."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    context_fn = {} if policy is None else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, sorted(policy, key=str))}
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **context_fn)
 
 
 class LayerNorm(nn.Module):
@@ -49,11 +122,20 @@ class LayerNorm(nn.Module):
     (9e-6 at 3, 1.1e-3 at 30, on unit-variance 768-wide rows in fp32):
     that gap is flax's own rounding error, measured against float64 in
     tests/test_torch_port_models.py.
+
+    ``fp32=False`` is the JAX ``LayerNorm(fp32=False)``, flax 0.12.3's
+    ``nn.LayerNorm(dtype=x.dtype)``: ``_compute_stats`` promotes x to fp32
+    for the mean and the fast variance (clipped at 0), and ``_normalize``
+    takes ``x − mean`` in fp32 (bf16 minus fp32 promotes), multiplies by
+    ``rsqrt(var + eps)·scale`` and adds the bias in fp32, then rounds once
+    to x's type.  So it is this module's fp32 function with flax's
+    variance, as plain elementwise work.
     """
 
-    def __init__(self, width: int, eps: float = 1e-5):
+    def __init__(self, width: int, eps: float = 1e-5, fp32: bool = True):
         super().__init__()
         self.eps = eps
+        self.fp32 = fp32
         self.weight = nn.Parameter(torch.ones(width))
         self.bias = nn.Parameter(torch.zeros(width))
 
@@ -62,6 +144,12 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fp32:
+            x32 = x.float()
+            mean = x32.mean(-1, keepdim=True)
+            var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
+            y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+            return y.to(x.dtype)
         y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, self.eps)
         return y.to(x.dtype)
 
@@ -150,17 +238,21 @@ class MLP(nn.Module):
 class ResidualAttentionBlock(nn.Module):
     """Pre-LN block: x += attn(ln_1(x)); x += mlp(ln_2(x)).
 
-    With ``fused_ln_qkv``, ``ln_1`` and the in_proj run as one fused
-    LN+qkv (fast-variance LayerNorm, the JAX kernel's arithmetic) in x's
-    type, over ``ln_1``'s and ``attn``'s own parameters."""
+    With ``fused_ln_qkv`` and ``ln_fp32``, ``ln_1`` and the in_proj run as
+    one fused LN+qkv (fast-variance LayerNorm, the JAX kernel's
+    arithmetic) in x's type, over ``ln_1``'s and ``attn``'s own
+    parameters.  ``tag_attn_out`` tags the attention output for the
+    ``attn_out`` remat policy."""
 
     def __init__(self, width: int, heads: int, mlp_hidden: Optional[int],
-                 act: Activation, causal: bool, fused_ln_qkv: bool = False):
+                 act: Activation, causal: bool, fused_ln_qkv: bool = False,
+                 ln_fp32: bool = True, tag_attn_out: bool = False):
         super().__init__()
         self.fused_ln_qkv = fused_ln_qkv
-        self.ln_1 = LayerNorm(width)
+        self.tag_attn_out = tag_attn_out
+        self.ln_1 = LayerNorm(width, fp32=ln_fp32)
         self.attn = MultiHeadAttention(width, heads, causal)
-        self.ln_2 = LayerNorm(width)
+        self.ln_2 = LayerNorm(width, fp32=ln_fp32)
         self.mlp = MLP(width, mlp_hidden or 4 * width, act)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -170,22 +262,34 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp.reset_parameters(gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused_ln_qkv:
+        if self.fused_ln_qkv and self.ln_1.fp32:
             qkv = ln_qkv_core(x, self.ln_1.weight, self.ln_1.bias, self.attn.in_proj_weight,
                               self.attn.in_proj_bias, self.ln_1.eps)
-            x = x + self.attn.attend(qkv)
+            attn = self.attn.attend(qkv)
         else:
-            x = x + self.attn(self.ln_1(x))
+            attn = self.attn(self.ln_1(x))
+        x = x + (attn_out(attn) if self.tag_attn_out else attn)
         return x + self.mlp(self.ln_2(x))
 
 
 class Transformer(nn.Module):
+    """The block stack.  With ``remat`` each block runs under
+    :func:`remat` with its ``remat_policy`` whenever a gradient is taken
+    (the JAX ``nn.remat(ResidualAttentionBlock)``, layers.py:322-336);
+    without a gradient (eval, GradCache's first pass) the blocks run
+    plainly."""
+
     def __init__(self, width: int, layers: int, heads: int,
                  mlp_hidden: Optional[int] = None, act: Activation = gelu_exact,
-                 causal: bool = False, fused_ln_qkv: bool = False):
+                 causal: bool = False, fused_ln_qkv: bool = False, ln_fp32: bool = True,
+                 remat: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
+        self.remat = remat
+        self.policy = resolve_remat_policy(remat_policy) if remat else None
+        tag = remat and remat_policy == "attn_out"
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, mlp_hidden, act, causal, fused_ln_qkv)
+            ResidualAttentionBlock(width, heads, mlp_hidden, act, causal, fused_ln_qkv,
+                                   ln_fp32, tag)
             for _ in range(layers)
         )
 
@@ -194,6 +298,7 @@ class Transformer(nn.Module):
             block.reset_parameters(gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        recompute = self.remat and torch.is_grad_enabled()
         for block in self.resblocks:
-            x = block(x)
+            x = remat(block, self.policy, x) if recompute else block(x)
         return x

@@ -24,18 +24,25 @@ statistic and parameter is fp32 whatever the compute type.  The JAX
 side calls no ``pallas_call`` here: its convs, BatchNorm and attention
 pool are XLA, and the port's are cuDNN, cuBLAS and PyTorch's own
 elementwise kernels.
+
+``remat`` runs each ``Bottleneck`` under a checkpoint when a gradient is
+taken (the JAX per-block ``nn.remat``, resnet.py:561-570).  Its
+recompute normalizes by the same batch statistics and leaves the running
+statistics alone: they move once, in the forward, as under JAX's remat.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sparsify_clip_tpu_torch.models.layers import _lecun_normal_, _normal_, linear
+from sparsify_clip_tpu_torch.models.layers import (
+    _lecun_normal_, _normal_, linear, remat, resolve_remat_policy,
+)
 
 
 def _conv(x: torch.Tensor, weight: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -83,12 +90,15 @@ class BatchNormHalf(nn.Module):
         self.running_mean.mul_(m).add_(mean.detach() * (1 - m))
         self.running_var.mul_(m).add_(var.detach() * (n / max(n - 1, 1)) * (1 - m))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        """``update_stats=False`` normalizes as in train mode without the
+        momentum step (a checkpoint's recompute)."""
         if self.training:
             xf = x.float()
             mean = xf.mean((0, 2, 3))
             var = xf.square().mean((0, 2, 3)) - mean.square()
-            self.update_running_stats(mean, var, x.numel() // x.shape[1])
+            if update_stats:
+                self.update_running_stats(mean, var, x.numel() // x.shape[1])
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
@@ -156,16 +166,19 @@ def _from_rows(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y.view(b, h, w, y.shape[1]).permute(0, 3, 1, 2)
 
 
-def conv1x1_bn(x: torch.Tensor, weight: torch.Tensor, bn: BatchNormHalf) -> torch.Tensor:
+def conv1x1_bn(x: torch.Tensor, weight: torch.Tensor, bn: BatchNormHalf,
+               update_stats: bool = True) -> torch.Tensor:
     """The folded 1×1 conv + BatchNorm (the JAX ``_conv1x1_bn_folded``,
     resnet.py:276-335): :class:`FoldedConvBN` in train mode, with one
-    momentum step of ``bn``'s running statistics; in eval mode the running
-    statistics fold into the conv's weights."""
+    momentum step of ``bn``'s running statistics unless ``update_stats``
+    is off; in eval mode the running statistics fold into the conv's
+    weights."""
     rows = _as_rows(x)
     w = weight.view(weight.shape[0], -1).t()  # (K, C) fp32
     if bn.training:
         y, mean, var = FoldedConvBN.apply(rows, w, bn.weight, bn.bias, bn.eps)
-        bn.update_running_stats(mean, var, rows.shape[0])
+        if update_stats:
+            bn.update_running_stats(mean, var, rows.shape[0])
     else:
         inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
         y = torch.addmm((bn.bias - bn.running_mean * inv).to(x.dtype), rows,
@@ -183,10 +196,13 @@ def conv1x1_bn_plain(x: torch.Tensor, weight: torch.Tensor, bn: BatchNormHalf) -
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         out_ch = planes * self.expansion
         self.stride = stride
+        self.remat = remat
+        self.policy = resolve_remat_policy(remat_policy) if remat else None
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = BatchNormHalf(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
@@ -210,15 +226,28 @@ class Bottleneck(nn.Module):
             self.downsample[1].reset_parameters()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(self.bn1(_conv(x, self.conv1.weight)))
-        out = torch.relu(self.bn2(_conv(out, self.conv2.weight, padding=1)))
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._forward(x, True)
+        calls = []
+
+        def run(x):
+            # the first call is the forward, a later one the recompute
+            calls.append(None)
+            return self._forward(x, len(calls) == 1)
+
+        return remat(run, self.policy, x)
+
+    def _forward(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
+        out = torch.relu(self.bn1(_conv(x, self.conv1.weight), update_stats))
+        out = torch.relu(self.bn2(_conv(out, self.conv2.weight, padding=1), update_stats))
         identity = x
         if self.stride > 1:
             out = F.avg_pool2d(out, self.stride)
             identity = F.avg_pool2d(identity, self.stride)
-        out = conv1x1_bn(out, self.conv3.weight, self.bn3)
+        out = conv1x1_bn(out, self.conv3.weight, self.bn3, update_stats)
         if self.downsample is not None:
-            identity = conv1x1_bn(identity, self.downsample[0].weight, self.downsample[1])
+            identity = conv1x1_bn(identity, self.downsample[0].weight, self.downsample[1],
+                                  update_stats)
         return torch.relu(out + identity)
 
 
@@ -271,7 +300,8 @@ def feature_size(image_size: int, stages: int) -> int:
 class ModifiedResNet(nn.Module):
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), width: int = 64,
                  image_size: int = 224, embed_dim: int = 1024, heads: int = 32,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         self.dtype = dtype  # the compute type; weights are cast to it at use
         self.image_size = image_size
@@ -287,7 +317,8 @@ class ModifiedResNet(nn.Module):
             stride = 1 if stage == 0 else 2
             stage_blocks = []
             for block in range(blocks):
-                stage_blocks.append(Bottleneck(inplanes, planes, stride if block == 0 else 1))
+                stage_blocks.append(Bottleneck(inplanes, planes, stride if block == 0 else 1,
+                                               remat, remat_policy))
                 inplanes = planes * Bottleneck.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*stage_blocks))
             planes *= 2

@@ -19,6 +19,14 @@
 * ``loss_type: "anchor-roberta"`` takes a (B, B) ``soft_targets`` matrix
   with each batch, from the config's ``soft_targets_provider`` over the
   batch's captions (:func:`resolve_soft_targets_provider`).
+* ``sparse_projection: topk | l1`` projects both normalised embeddings
+  inside the loss once ``epoch >= sparse_after_epoch``
+  (:mod:`sparsify_clip_tpu_torch.ops.sparsify`), the epoch taken from
+  ``state.step`` as the JAX step does, so resume and ``skip_steps`` keep
+  it; on the GradCache path too, where the embeddings' cached gradients
+  then include the projection's.
+* ``remat``, ``remat_policy``, ``onehot_embed`` and ``ln_fp32`` are the
+  model's (:func:`create_train_setup` passes them to ``create_model``).
 * ``device_augment`` takes uint8 staging batches and crops, flips and
   normalizes them on the device before the encode, once a step (before
   any GradCache split), drawing from ``TrainState.aug_generator``, a
@@ -32,8 +40,8 @@ step returns the same state object, so the JAX call shape
 ``state, metrics = train_step(state, batch)`` carries over.
 
 One device: the mesh, sharding, multi-host and pipeline paths wait for
-ROADMAP Queue 1, 'Multi-GPU', and every config knob the step does not support
-yet raises (see ``_NOT_PORTED``).  Entry points run on the card unless the
+ROADMAP Queue 1, 'Multi-GPU', and their config knobs raise (see
+``_NOT_PORTED``).  Entry points run on the card unless the
 caller asks for the CPU.
 """
 
@@ -52,6 +60,7 @@ from sparsify_clip_tpu_torch.config import ExperimentConfig
 from sparsify_clip_tpu_torch.losses import LossContext, make_loss_fn
 from sparsify_clip_tpu_torch.models.clip import CLIP, MODEL_REGISTRY, create_model
 from sparsify_clip_tpu_torch.ops.image import augment_batch
+from sparsify_clip_tpu_torch.ops.sparsify import make_projection
 from sparsify_clip_tpu_torch.optim import AdamWBf16Mu
 from sparsify_clip_tpu_torch.schedules import get_alpha, get_beta, make_lr_schedule
 from sparsify_clip_tpu_torch.utils.numerics import l2_normalize
@@ -61,11 +70,6 @@ Metrics = Dict[str, Union[torch.Tensor, float]]
 
 # Config knobs the port's step does not run yet → what they wait for.
 _NOT_PORTED: List[Tuple[Callable[[ExperimentConfig], bool], str]] = [
-    (lambda c: c.sparse_projection != "none",
-     "sparse_projection (ops/sparsify.py, ROADMAP Queue 1, 'Extensions and knobs')"),
-    (lambda c: c.remat, "remat (ROADMAP Queue 1, 'Extensions and knobs')"),
-    (lambda c: c.onehot_embed, "onehot_embed (ROADMAP Queue 1, 'Extensions and knobs')"),
-    (lambda c: not c.ln_fp32, "ln_fp32: false (ROADMAP Queue 1, 'Extensions and knobs')"),
     (lambda c: c.pipeline, "pipeline (parallel/pipeline.py, ROADMAP Queue 1, 'Multi-GPU')"),
     (lambda c: c.fsdp, "fsdp (ROADMAP Queue 1, 'Multi-GPU')"),
     (lambda c: c.mesh_model > 1,
@@ -76,10 +80,12 @@ _NOT_PORTED: List[Tuple[Callable[[ExperimentConfig], bool], str]] = [
 
 def check_supported(config: ExperimentConfig) -> None:
     """Raise :class:`NotImplementedError` for the first config knob the
-    port's step does not run yet; the loss type is checked by
-    :func:`make_loss_fn`.  Every registry model trains, ViT and ResNet
-    towers alike, under every loss type, GradCache accumulation, either
-    ``adam_mu_dtype`` and a ``soft_targets_provider``;
+    port's step does not run yet (the multi-device knobs); the loss type
+    is checked by :func:`make_loss_fn`.  Every registry model trains, ViT
+    and ResNet towers alike, under every loss type, GradCache
+    accumulation, either ``adam_mu_dtype``, a ``soft_targets_provider``,
+    ``sparse_projection``, ``remat`` under every ``remat_policy``,
+    ``onehot_embed`` and either ``ln_fp32``;
     ``allow_accum_gather`` selects nothing on one device (the JAX
     microbatch layout differs only over a data mesh), and ``stem_s2d`` is
     accepted as the TPU layout hint it is (see :func:`create_train_setup`)."""
@@ -149,7 +155,18 @@ class TrainStep:
         self.total_steps = total_steps
         self.lr_schedule = lr_schedule
         self.loss_fn = make_loss_fn(config.loss_type)
+        self.projection = make_projection(config.sparse_projection, config.sparse_topk,
+                                          config.sparse_l1)
         self.learnable_temp = config.anchor_temperature_learnable
+
+    def embedding_loss(self, img: torch.Tensor, txt: torch.Tensor, ctx: LossContext,
+                       epoch: int):
+        """The loss over the normalised embeddings (JAX
+        ``loss_from_embeddings``, train.py:198-226): the sparse projection
+        of both, once ``epoch >= sparse_after_epoch``, then the loss."""
+        if self.projection is not None and epoch >= self.config.sparse_after_epoch:
+            img, txt = self.projection(img), self.projection(txt)
+        return self.loss_fn(img, txt, ctx)
 
     def loss_and_grads(self, state: TrainState, batch: Batch):
         """Forward and backward of the step at ``state.step``; the
@@ -176,10 +193,10 @@ class TrainStep:
                           warm=epoch < config.only_lunif_epochs,
                           soft_targets=fields.get("soft_targets"), **scalars)
         if config.grad_accum_steps > 1:
-            loss, aux = self.gradcache(state.model, images, fields["tokens"], ctx)
+            loss, aux = self.gradcache(state.model, images, fields["tokens"], ctx, epoch)
         else:
             img, txt = state.model(images, fields["tokens"])
-            loss, aux = self.loss_fn(l2_normalize(img), l2_normalize(txt), ctx)
+            loss, aux = self.embedding_loss(l2_normalize(img), l2_normalize(txt), ctx, epoch)
             loss.backward()
         # optax differentiates every trainable: one the loss does not reach
         # (the temperature in the warm phase) gets a zero gradient, and AdamW
@@ -192,13 +209,15 @@ class TrainStep:
         return loss, aux, beta, alpha
 
     def gradcache(self, model: CLIP, images: torch.Tensor, tokens: torch.Tensor,
-                  ctx: LossContext):
+                  ctx: LossContext, epoch: int):
         """GradCache accumulation (JAX ``gradcache_value_and_grad``,
         train.py:246-349), on one device, where microbatch ``i`` is the
         contiguous slice ``[i·mb, (i+1)·mb)``:
 
         1. encode every microbatch without autograd and l2-normalise it;
-        2. the loss over the full batch of those embeddings, as leaves:
+        2. the loss over the full batch of those embeddings, as leaves
+           (:meth:`embedding_loss`, so the sparse projection's gradient
+           is in the leaves' gradients once it is on):
            exactly the large-batch loss (the B×B loss couples every pair),
            whose backward leaves the embeddings' gradients on the leaves and
            the temperature's and the loss scalars' in their ``.grad``;
@@ -223,7 +242,7 @@ class TrainStep:
             img = torch.cat([l2_normalize(i) for i, _ in encoded]).requires_grad_(True)
             txt = torch.cat([l2_normalize(t) for _, t in encoded]).requires_grad_(True)
         del encoded
-        loss, aux = self.loss_fn(img, txt, ctx)
+        loss, aux = self.embedding_loss(img, txt, ctx, epoch)
         loss.backward()
         d_img = img.grad if img.grad is not None else torch.zeros_like(img)
         d_txt = txt.grad if txt.grad is not None else torch.zeros_like(txt)
@@ -301,9 +320,10 @@ def create_train_setup(
 ) -> TrainSetup:
     """Assemble model, state and step on ``device`` (the card unless the
     caller asks for the CPU; without a card the default raises).
-    ``config.fused_ln_qkv`` builds the blocks with the fused LN+qkv kernel
-    (``ln_fp32: false`` is refused above, so the JAX condition
-    ``fused_ln_qkv and ln_fp32`` holds whenever the knob is on).
+    The model takes the config's ``fused_ln_qkv``, ``ln_fp32``, ``remat``,
+    ``remat_policy`` and ``onehot_embed`` (JAX train.py:527-529); the
+    blocks run the fused LN+qkv kernel under the JAX condition
+    ``fused_ln_qkv and ln_fp32``.
     ``config.stem_s2d`` selects nothing here: on the JAX side it runs a
     ResNet stem's first conv over the space-to-depth input, the same
     function over the same parameters laid out for the TPU's matrix unit;
@@ -337,7 +357,9 @@ def create_train_setup(
     dtype = torch.bfloat16 if config.fp16 else torch.float32
     model = create_model(config.model, dtype=dtype, device=device, seed=config.seed,
                          param_dtype=torch.float32, fused_ln_qkv=config.fused_ln_qkv,
-                         image_size=image_size).train()
+                         image_size=image_size, remat=config.remat,
+                         remat_policy=config.remat_policy, ln_fp32=config.ln_fp32,
+                         onehot_embed=config.onehot_embed).train()
     temperature = torch.tensor(config.anchor_temperature, dtype=torch.float32, device=device)
     temperature.requires_grad_(config.anchor_temperature_learnable)
     loss_scalars = None

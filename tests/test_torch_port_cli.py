@@ -202,10 +202,16 @@ def test_folder_sweep_runs_every_yaml_and_skips_empty(tmp_path, monkeypatch, cap
         cli.cli(["--config", str(tmp_path / "nope.yaml")])
 
 
-def test_refusals(tmp_path):
+def test_refusals(tmp_path, monkeypatch):
     config = load_config(SMOKE_TINY)  # plot_embeddings defaults to true
-    with pytest.raises(NotImplementedError, match="'Extensions and knobs'"):
+    # the plots need matplotlib: without it the run is refused by name
+    # before any file is written
+    find_spec = cli.importlib.util.find_spec
+    monkeypatch.setattr(cli.importlib.util, "find_spec",
+                        lambda name, *a: None if name == "matplotlib" else find_spec(name, *a))
+    with pytest.raises(NotImplementedError, match="matplotlib"):
         cli.main(config, device="cpu")
+    monkeypatch.undo()
     assert not os.path.exists("./logs/smoke-tiny/smoke-tiny.jsonl")
     smoke = cli.apply_smoke_overrides(config)
     assert smoke.plot_embeddings is False and smoke.dataset == "synthetic"
