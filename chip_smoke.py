@@ -3,9 +3,11 @@
 NVIDIA GPU: RN50 (the reference's default tower), then SigLIP, GradCache
 and the soft-target loss, then the device image ops, the raw-uint8
 server, zero-shot, the CLI with ``device_augment``, ``torch.export`` and
-the encode CLI, then the extensions and knobs last: the sparse
-projection with the per-eval plots, remat, the one-hot embedding and the
-LayerNorm in the compute type.
+the encode CLI, then the extensions and knobs: the sparse projection
+with the per-eval plots, remat, the one-hot embedding and the LayerNorm
+in the compute type; last the host data routes: the native tokenizer,
+the repository's RN50 and ViT-L-14 YAMLs through the CLI and the grain
+route.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -258,13 +260,47 @@ Phases, one line each; any failure exits nonzero before the final line:
    seed: the one-hot embedding and the text tower's output equal to the
    gather's to the bit, each main step's loss and gradient directions
    within phase 9's tolerances, phase 9's launches, step ms and peak
-   beside phase 9's.
+   beside phase 9's;
+36. the native tokenizer (``text/native.py``) built with ``g++`` into
+   ``sparsify_clip_tpu_torch/_build/`` (the seconds printed): its ids
+   equal the Python tokenizer's on 4096 synthetic captions, and both
+   tokenizers' rows a second; without a C++ compiler, ``tokenizer:
+   native`` must raise by name and ``auto`` take the Python tokenizer;
+37. ``configs/rn50_tpu_baseline.yaml`` through the CLI (full-width RN50,
+   batch 256, ``anchor``, ``device_augment``, ``tokenizer`` and
+   ``image_backend`` both ``auto``), 2 epochs of 2 steps, one eval
+   batch: the first record names the routes taken (the native tokenizer
+   where phase 36 built it; the synthetic set hands out no JPEG bytes, so
+   the PIL/numpy image route), finite losses and evals, 12 ``mha_fwd``,
+   12 ``mha_bwd`` and one of each InfoNCE kernel a step, 12 ``mha_fwd``
+   an eval; the CLI step ms beside phase 23's;
+38. ``loader_backend: grain`` through the CLI on phase 19's ViT-B-32
+   exp-6 YAML, 2 epochs of 4 steps: float32 images, int32 tokens and
+   captions blanked in the loader's batches, phase 19's launches a step,
+   finite evals; the loader's ms a batch (in process: the pipeline
+   passes no worker count) and the CLI step beside phase 19's;
+39. ``configs/vitl14_single_chip.yaml`` through the CLI at full width
+   (ViT-L-14 at 224, batch 128, ``anchor`` at a fixed temperature,
+   ``device_augment``, no remat), 2 epochs of 4 steps, 256 eval pairs.
+   First rows 1 and 3 at (128, 257, 3072) bf16 (the whole-width route at
+   L = 257: the forward's last 64-key stage holds one key, the
+   backward's last 32-row tile one row) and row 2 in fp32 at (128, 257,
+   3072) (the eval twin's head-group route) against their plain versions
+   under phase 2's and phase 6's tolerances, timed beside SDPA under each
+   backend.  Then the CLI: 36 ``mha_fwd``, 36 ``mha_bwd`` and one of each
+   InfoNCE kernel a step; 24 fp32 ``mha_fwd_head_group`` and 12 fp32
+   ``mha_fwd`` an eval batch; two main steps under
+   ``utils.profiling.trace`` (a Chrome trace written), the five largest
+   kernels by device ms, step ms, pairs/s, peak GiB and the idle share.
 
 Phases 6 and 8 also hold the loss kernels at RN50's (256, 1024), the
 main path's shape, and at ViT-L-14-336's (256, 768) of phase 26.  The kernels line reports each kernel at the case its
 ``case`` key names: the RN50 path's shape where that path runs the
 kernel (the loss rows at (256, 1024); ``mha_fwd`` and ``mha_bwd`` at the
 causal text shape (256, 77, 1536) bf16), else ViT-B-32's vision shape.
+Three more entries hold phase 39's L = 257 cases (``mha_fwd/vision-257``,
+``mha_bwd/vision-257``, ``mha_fwd_head_group/fp32-257``), each with the
+ViT-L-14 CLI's launches of its kernel (vision and text towers alike).
 
 Depth cuts of the ViT-L-14-336 phases: 2 epochs of 4 steps (the
 reference trains 100); the eval set is 256 pairs in 4 batches of 64
@@ -281,6 +317,11 @@ does (2 epochs of 8 steps on 2048 synthetic pairs, 512 eval pairs 4
 times).  Phases 32-35 run at full width: phase 32 cuts training as phase
 19 does with 256 eval pairs (the plots of 512 points take the host
 seconds a pass), phase 33 trains 2 epochs of 2 steps, phases 34-35 a few
+steps.  Phases 36-39 cut depth alone: phase 37 trains 2 epochs of 2
+steps on 512 synthetic pairs with 256 eval pairs (the YAML: 100 epochs
+on COCO, 512 eval pairs), phase 38 2 epochs of 4 steps (phase 19's YAML
+otherwise), phase 39 2 epochs of 4 steps on 512 synthetic pairs with 256
+eval pairs (the YAML: 100 epochs on COCO, 512 eval pairs) and profiles 2
 steps.  The earlier phases run as they did.
 
 The last lines are a JSON object of per-kernel results (time, plain time,
@@ -401,6 +442,15 @@ L336_GRADCACHE_STEPS_PER_EPOCH = 2
 # the two loss CLIs (phase 27): 2 steps an epoch, one eval batch
 CLI_LOSS_STEPS = 2
 CLI_LOSS_EVAL_PAIRS = 256
+# the host data routes (phases 36-39): captions for the tokenizers' rates,
+# the grain CLI's steps an epoch, configs/vitl14_single_chip.yaml's batch
+# with its depth cut (steps an epoch, eval pairs, profiled main steps)
+TOKENIZER_CAPTIONS = 4096
+GRAIN_STEPS = 4
+VITL14_BATCH = 128
+VITL14_STEPS = 4
+VITL14_EVAL_PAIRS = 256
+VITL14_PROFILE_STEPS = 2
 REPO = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for bound_ms
@@ -1783,11 +1833,14 @@ def _cli_process(yaml_path: str, log_path: Optional[str] = None, stop_after: int
     return rc, time.perf_counter() - t, seen
 
 
-def _profile_cli_steps(config, steps: int):
+def _profile_cli_steps(config, steps: int, tracer=None):
     """The card's own account of the CLI's train loop: ``run_training``
     fed by the CLI's loader (threads, host transforms, tokenizer, the
     host→device copy) over ``steps`` steps under ``torch.profiler`` →
-    kernel-busy ms, host→device copy ms and window ms a step."""
+    kernel-busy ms, host→device copy ms and window ms a step.  ``tracer``
+    (a context manager yielding the profiler, as
+    ``utils.profiling.trace``) replaces the plain profiler; the profile
+    then comes back too, under ``prof``."""
     import dataclasses
     import itertools
 
@@ -1803,7 +1856,8 @@ def _profile_cli_steps(config, steps: int):
     warm = list(itertools.islice(train_loader.epoch(1), 2))
     run_training(setup, lambda epoch: iter(warm), log_fn=lambda m: None)  # cuBLAS, allocator
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with (tracer() if tracer is not None else
+          profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])) as prof:
         t = time.perf_counter()
         run_training(setup, lambda epoch: itertools.islice(train_loader.epoch(2), steps),
                      log_fn=lambda m: None)
@@ -1827,9 +1881,12 @@ def _profile_cli_steps(config, steps: int):
                 cur_e = max(cur_e, e)
         return busy + cur_e - cur_s
 
-    return dict(kernel_ms=union_us(kernels) / 1e3 / steps, copy_ms=union_us(copies) / 1e3 / steps,
-                busy_ms=union_us(kernels + copies) / 1e3 / steps, wall_ms=wall * 1e3 / steps,
-                copies=len(copies) / steps)
+    out = dict(kernel_ms=union_us(kernels) / 1e3 / steps, copy_ms=union_us(copies) / 1e3 / steps,
+               busy_ms=union_us(kernels + copies) / 1e3 / steps, wall_ms=wall * 1e3 / steps,
+               copies=len(copies) / steps)
+    if tracer is not None:
+        out["prof"] = prof
+    return out
 
 
 def phase_cli_exp6(smi: str, device_resident: dict):
@@ -2040,7 +2097,7 @@ def phase_cli_rn50(smi: str):
         running_statistics=len(saved), launches=json.dumps(launches),
         cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in rates]),
         seconds=f"{seconds:.3f}", card=json.dumps(smi))
-    return dict(launches=launches)
+    return dict(launches=launches, cli_step_ms=[round(r["step_time_ms"], 3) for r in rates])
 
 
 def phase_cli_losses(smi: str):
@@ -3151,6 +3208,381 @@ def phase_knobs(smi: str, exp6: dict):
     return dict(launches=launches, steps=out)
 
 
+def _tokens_per_s(tokenizer, captions, repeats: int = 3) -> float:
+    """Token rows a second of ``tokenizer`` over ``captions``, after one
+    warm-up pass (the Python tokenizer's pattern tables and BPE cache)."""
+    tokenizer(captions)
+    t = time.perf_counter()
+    for _ in range(repeats):
+        tokenizer(captions)
+    return repeats * len(captions) / (time.perf_counter() - t)
+
+
+def phase_native_tokenizer(smi: str):
+    """Phase 36: the native tokenizer built with ``g++`` into ``_build/``,
+    its ids against the Python tokenizer's on the synthetic set's
+    captions, and both tokenizers' rate.  Without a C++ compiler,
+    ``tokenizer: native`` must raise by name and ``auto`` take the Python
+    tokenizer."""
+    import dataclasses
+    import shutil
+
+    from sparsify_clip_tpu_torch.config import ExperimentConfig
+    from sparsify_clip_tpu_torch.data.pipeline import _select_tokenizer
+    from sparsify_clip_tpu_torch.data.synthetic import make_caption
+    from sparsify_clip_tpu_torch.text import get_tokenizer, native
+    from sparsify_clip_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(SEED)
+    captions = [make_caption(rng) for _ in range(TOKENIZER_CAPTIONS)]
+    config = ExperimentConfig.from_dict({"model": "ViT-B-32"})
+    compiler = shutil.which(os.environ.get("CXX") or "g++")
+    if compiler is None:
+        try:
+            _select_tokenizer(dataclasses.replace(config, tokenizer="native"))
+        except RuntimeError as exc:
+            if "native tokenizer" not in str(exc):
+                raise
+        else:
+            raise AssertionError("tokenizer: native did not raise without a C++ compiler")
+        auto = _select_tokenizer(dataclasses.replace(config, tokenizer="auto"))
+        if auto.backend != "python":
+            raise AssertionError(f"tokenizer: auto took {auto.backend} without a compiler")
+        log("phase 36 tokenizer", ok=True, compiler=None, native="raises by name",
+            auto=auto.backend)
+        return dict(native=False)
+    compiled = not native.native_build.library_path(native.SOURCE, native.CXXFLAGS, ()).exists()
+    path, build_s = profiling.log_compile_time(native.build_library, label="clip_bpe")
+    fast, python = native.NativeCLIPTokenizer(), get_tokenizer("ViT-B-32")
+    got, want = fast(captions), python(captions)
+    mismatched = int((got != want).any(axis=1).sum())
+    if mismatched:
+        raise AssertionError(f"the native tokenizer differs from the Python one on "
+                             f"{mismatched} of {len(captions)} captions")
+    auto = _select_tokenizer(dataclasses.replace(config, tokenizer="auto"))
+    if auto.backend != "native":
+        raise AssertionError(f"tokenizer: auto took {auto.backend} where g++ builds the library")
+    rates = {"native": _tokens_per_s(fast, captions), "python": _tokens_per_s(python, captions)}
+    log("phase 36 tokenizer", ok=True, compiler=compiler, library=path.name,
+        compiled=compiled, build_s=f"{build_s:.3f}", captions=len(captions), mismatched=0,
+        rows_per_s=json.dumps({k: round(v, 1) for k, v in rates.items()}),
+        speedup=f"{rates['native'] / rates['python']:.2f}", card=json.dumps(smi))
+    return dict(native=True, rates=rates, build_s=build_s)
+
+
+def _repo_yaml(name: str, directory: str, phase: str, **fields) -> str:
+    """``configs/<name>`` copied into ``directory`` with the fields a smoke
+    run changes (synthetic data, sample counts, epochs, no plots, no
+    resume, JSONL logs and files under ``directory``), each change
+    printed."""
+    import yaml
+
+    with open(os.path.join(REPO, "configs", name)) as fh:
+        config = yaml.safe_load(fh)
+    changes = dict(dataset="synthetic", plot_embeddings=False, resume_checkpoint=False,
+                   log_backend="jsonl", log_dir=os.path.join(directory, "logs"),
+                   checkpoint_dir=os.path.join(directory, "models"), **fields)
+    for key, value in changes.items():
+        log(phase, config=f"configs/{name}", field=key,
+            was=json.dumps(config.get(key, "(default)")), now=json.dumps(value))
+    config.update(changes)
+    path = os.path.join(directory, name)
+    with open(path, "w") as fh:  # flat key: value lines, as configs/*.yaml
+        for key, value in config.items():
+            fh.write(f"{key}: {json.dumps(value)}\n")
+    return path
+
+
+def _cli_in_process(yaml_path: str):
+    """The CLI on ``yaml_path`` in this process with the launches of every
+    step and every eval → (counter, all launches, seconds, peak bytes)."""
+    counter = _PerStepCounts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    try:
+        reset_counts()
+        _run_cli(["--config", yaml_path])
+        launches = read_counts()
+    finally:
+        counter.close()
+    return counter, launches, time.perf_counter() - t, torch.cuda.max_memory_allocated()
+
+
+def _cli_records(directory: str, run: str, steps: int, evals: int, what: str):
+    """The run's records: ``steps`` finite train records and ``evals``
+    finite 13-metric evals → (records, train records, evals, rates)."""
+    records = _jsonl(os.path.join(directory, "logs", f"{run}.jsonl"))
+    step_records = [r for r in records if "train_loss" in r]
+    if len(step_records) != steps or not np.isfinite(
+            [r["train_loss"] for r in step_records]).all():
+        raise AssertionError(f"{what}: expected {steps} finite train records, got {step_records}")
+    return records, step_records, _check_evals(records, evals, what), [
+        r for r in records if "step_time_ms" in r]
+
+
+def phase_cli_rn50_yaml(smi: str, tokenizer: dict, phase23: dict):
+    """Phase 37: ``configs/rn50_tpu_baseline.yaml`` through the CLI
+    (full-width RN50, batch 256, ``anchor``, ``device_augment``, both
+    ``auto`` routes), 2 epochs of 2 steps with one eval batch."""
+    import tempfile
+
+    from sparsify_clip_tpu_torch.data import native_imaging
+    from sparsify_clip_tpu_torch.models.clip import MODEL_REGISTRY
+
+    batch, text = 256, MODEL_REGISTRY["RN50"].text_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _repo_yaml("rn50_tpu_baseline.yaml", tmp, "phase 37 cli",
+                          num_train_samples=RN50_CLI_STEPS * batch,
+                          num_test_samples=RN50_CLI_EVAL_PAIRS, epochs=EXP6_EPOCHS)
+        counter, launches, seconds, peak = _cli_in_process(path)
+        counter.state = None
+        records, steps, evals, rates = _cli_records(
+            tmp, "rn50-tpu-baseline", EXP6_EPOCHS * RN50_CLI_STEPS, EXP6_EPOCHS + 2,
+            "the RN50 baseline YAML")
+    routes = records[0].get("data_routes")
+    want_image = "pil"  # the synthetic set hands out no JPEG bytes
+    want = {"loader": "threads", "tokenizer": "native" if tokenizer["native"] else "python",
+            "image": want_image}
+    if records[0].get("event") != "run_start" or routes != {"train": want, "eval": want}:
+        raise AssertionError(f"the first record's routes {routes}, expected {want} twice")
+    zero = dict.fromkeys(KERNELS, 0)
+    step = dict(zero, mha_fwd=text, mha_bwd=text, infonce_fwd=1, infonce_bwd_dimg=1,
+                infonce_bwd_dtxt=1)
+    per_eval = dict(zero, mha_fwd=text * (RN50_CLI_EVAL_PAIRS // batch))
+    _expect_launches([c for _, c in counter.steps], [step] * len(steps),
+                     "the RN50 baseline's steps")
+    _expect_launches(counter.evals, [per_eval] * (EXP6_EPOCHS + 2), "the RN50 baseline's evals")
+    log("phase 37 cli", ok=True, config="configs/rn50_tpu_baseline.yaml", batch=batch,
+        routes=json.dumps(routes), imaging_library=native_imaging.get_pipeline() is not None,
+        imaging_error=json.dumps(str(native_imaging.build_error() or "")[-200:]),
+        losses=json.dumps([r["train_loss"] for r in steps]), eval_last=json.dumps(evals[-1]),
+        launches_step=json.dumps(step), launches=json.dumps(launches),
+        cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in rates]),
+        phase23_cli_step_ms=json.dumps(phase23["cli_step_ms"]),
+        max_memory_allocated_gib=f"{peak / 2**30:.3f}", seconds=f"{seconds:.3f}",
+        card=json.dumps(smi))
+    return dict(launches=launches, routes=routes)
+
+
+def phase_cli_grain(smi: str, phase19: dict):
+    """Phase 38: ``loader_backend: grain`` through the CLI on phase 19's
+    ViT-B-32 exp-6 YAML, 2 epochs of ``GRAIN_STEPS`` steps."""
+    import dataclasses
+    import tempfile
+
+    from sparsify_clip_tpu_torch.config import load_config
+    from sparsify_clip_tpu_torch.data import dataset_loader
+    from sparsify_clip_tpu_torch.data.grain_loader import GrainDataLoader
+
+    batch, run = EXP6["batch_size"], "exp6-vitb32"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _write_exp6_yaml(tmp, loader_backend="grain",
+                                num_train_samples=GRAIN_STEPS * batch)
+        config = load_config(path)
+        train_loader, test_loader = dataset_loader(config, image_size=224)
+        if not isinstance(train_loader, GrainDataLoader):
+            raise AssertionError(f"loader_backend: grain built {type(train_loader).__name__}")
+        t = time.perf_counter()
+        batches = list(train_loader.epoch(0))
+        loader_ms = (time.perf_counter() - t) / len(batches) * 1e3
+        one = batches[0]
+        if one["images"].dtype != np.float32 or one["images"].shape != (batch, 224, 224, 3) \
+                or one["tokens"].dtype != np.int32 or set(one["captions"]) != {""}:
+            raise AssertionError(f"grain batch {one['images'].dtype} {one['images'].shape} "
+                                 f"{one['tokens'].dtype} captions {set(one['captions'])}")
+        del batches, one
+        counter, launches, seconds, peak = _cli_in_process(path)
+        counter.state = None
+        records, steps, evals, rates = _cli_records(
+            tmp, run, EXP6_EPOCHS * GRAIN_STEPS, EXP6_EPOCHS + 2, "the grain CLI")
+    routes = records[0].get("data_routes")
+    if routes["train"]["loader"] != "grain" or routes["eval"]["loader"] != "grain":
+        raise AssertionError(f"the grain CLI's routes {routes}")
+    zero = dict.fromkeys(KERNELS, 0)
+    warm = dict(zero, mha_fwd=24, mha_bwd=24, lunif_fwd=2, lunif_bwd=2)
+    main = dict(zero, mha_fwd=24, mha_bwd=24, infonce_fwd=1, infonce_bwd_dimg=1,
+                infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
+    per_eval = dict(zero, mha_fwd=24 * (EVAL_PAIRS // batch))
+    _expect_launches(counter.steps, [(k, warm if k < GRAIN_STEPS else main)
+                                     for k in range(EXP6_EPOCHS * GRAIN_STEPS)],
+                     "the grain CLI's steps")
+    _expect_launches(counter.evals, [per_eval] * (EXP6_EPOCHS + 2), "the grain CLI's evals")
+    log("phase 38 cli", ok=True, loader_backend="grain", batch=batch, routes=json.dumps(routes),
+        losses=json.dumps([r["train_loss"] for r in steps]), eval_last=json.dumps(evals[-1]),
+        captions_blank=True, launches=json.dumps(launches),
+        loader_ms_per_batch=f"{loader_ms:.3f}",
+        phase19_loader_ms_per_batch=f"{phase19['loader_ms']:.3f}",
+        cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in rates]),
+        phase19_cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in phase19["rates"]]),
+        max_memory_allocated_gib=f"{peak / 2**30:.3f}", seconds=f"{seconds:.3f}",
+        card=json.dumps(smi))
+    return dict(launches=launches, loader_ms=loader_ms, rates=rates)
+
+
+def phase_l257_kernels(smi: str):
+    """Phase 39, first part: rows 1 and 3 at (VITL14_BATCH, 257, 3072)
+    bf16 (the whole-width route) and row 2 in fp32 at the same shape (the
+    eval twin's, on the head-group route) against their plain versions,
+    under phase 2's and phase 6's tolerances, timed beside SDPA."""
+    from sparsify_clip_tpu_torch.ops.attention import (
+        mha_bwd, mha_bwd_reference, mha_fwd, mha_fwd_head_group,
+        mha_fwd_head_group_reference, mha_fwd_reference, use_head_group,
+    )
+
+    b, l, heads, head_dim = VITL14_BATCH, 257, 16, 64
+    width = heads * head_dim
+    routes = {"bf16": use_head_group(l, 3 * width, 2, heads),
+              "fp32": use_head_group(l, 3 * width, 4, heads)}
+    log("phase 39 route", head_group=json.dumps(routes))
+    if routes != {"bf16": False, "fp32": True}:
+        raise AssertionError(f"ViT-L-14 vision routes {routes}")
+    rng = np.random.default_rng(SEED + 7)
+
+    def normal(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
+
+    results = {}
+    fwd_bound = bound(b * l * 4 * width * 2, 2 * 2 * b * heads * l * l * head_dim, "bfloat16")
+    qkv = normal((b, l, 3 * width), torch.bfloat16)
+    got, got_lse = mha_fwd(qkv, heads, False, with_lse=True)
+    want, want_lse = mha_fwd_reference(qkv, heads, False, with_lse=True)
+    torch.cuda.synchronize()
+    rtol, atol = KERNEL_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(got_lse, want_lse, rtol=1e-5, atol=1e-5)
+    err = (got.float() - want.float()).abs().max().item()
+    del got, want, want_lse
+    ms = cuda_ms(lambda: mha_fwd(qkv, heads, False), iters=20, warmup=3)
+    plain_ms = cuda_ms(lambda: mha_fwd_reference(qkv, heads, False), iters=5, warmup=1)
+    sdpa_ms, library = sdpa_fwd_ms(qkv, heads, False, iters=20, warmup=3)
+    results["mha_fwd/vision-257"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms[library],
+        library=f"sdpa/{library}", bound_ms=fwd_bound[0], bound_by=fwd_bound[1])
+
+    dout = normal((b, l, width), torch.bfloat16)
+    got = mha_bwd(qkv, got_lse, dout, heads, False)
+    want = mha_bwd_reference(qkv, got_lse, dout, heads, False)
+    torch.cuda.synchronize()
+    brtol, batol = BWD_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=brtol, atol=batol)
+    bwd_err = (got.float() - want.float()).abs().max().item()
+    del got, want
+    bwd_ms = cuda_ms(lambda: mha_bwd(qkv, got_lse, dout, heads, False), iters=10, warmup=2)
+    bwd_plain_ms = cuda_ms(lambda: mha_bwd_reference(qkv, got_lse, dout, heads, False),
+                           iters=3, warmup=1)
+    sdpa_bwd, bwd_library = sdpa_bwd_ms(qkv, dout, heads, False, iters=10, warmup=2)
+    bwd_bound = bound(b * l * (3 * width * 2 + width) * 2 + b * l * heads * 4,
+                      5 * 2 * b * heads * l * l * head_dim, "bfloat16")
+    results["mha_bwd/vision-257"] = dict(
+        max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=sdpa_bwd[bwd_library],
+        library=f"sdpa/{bwd_library}", bound_ms=bwd_bound[0], bound_by=bwd_bound[1])
+    del qkv, dout, got_lse
+
+    qkv = normal((b, l, 3 * width), torch.float32)
+    got = mha_fwd_head_group(qkv, heads, False)
+    want = mha_fwd_head_group_reference(qkv, heads, False)
+    torch.cuda.synchronize()
+    frtol, fatol = KERNEL_TOL["float32"]
+    torch.testing.assert_close(got, want, rtol=frtol, atol=fatol)
+    hg_err = (got - want).abs().max().item()
+    del got, want
+    hg_ms = cuda_ms(lambda: mha_fwd_head_group(qkv, heads, False), iters=10, warmup=2)
+    hg_plain_ms = cuda_ms(lambda: mha_fwd_head_group_reference(qkv, heads, False), iters=3,
+                          warmup=1)
+    sdpa_hg, hg_library = sdpa_fwd_ms(qkv, heads, False, iters=10, warmup=2)
+    hg_bound = bound(b * l * 4 * width * 4, 2 * 2 * b * heads * l * l * head_dim, "float32")
+    results["mha_fwd_head_group/vision-fp32-257"] = dict(
+        max_abs_err=hg_err, ms=hg_ms, plain_ms=hg_plain_ms, library_ms=sdpa_hg[hg_library],
+        library=f"sdpa/{hg_library}", bound_ms=hg_bound[0], bound_by=hg_bound[1])
+    del qkv
+    for case, r in results.items():
+        kernel, name = case.split("/")
+        log("phase 39 kernel", kernel=kernel, case=name, shape=json.dumps([b, l, 3 * width]),
+            heads=heads, max_abs_err=r["max_abs_err"], ms=f"{r['ms']:.5f}",
+            plain_ms=f"{r['plain_ms']:.5f}", library_ms=f"{r['library_ms']:.5f}",
+            library=r["library"], bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
+            sdpa_ms=json.dumps({"mha_fwd": sdpa_ms, "mha_bwd": sdpa_bwd,
+                                "mha_fwd_head_group": sdpa_hg}[kernel]),
+            card=json.dumps(smi))
+    return results
+
+
+def _kernel_groups(prof, steps: int, top: int = 5) -> list:
+    """The ``top`` kernel names by device ms a step in a profile."""
+    totals = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or "Memcpy" in e.name \
+                or "Memset" in e.name or getattr(e, "is_user_annotation", False):
+            continue
+        totals[e.name] = totals.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1])[:top]
+    return [{"kernel": name[:90], "ms_per_step": round(us / 1e3 / steps, 3)}
+            for name, us in ranked]
+
+
+def phase_cli_vitl14(smi: str):
+    """Phase 39: ``configs/vitl14_single_chip.yaml`` through the CLI at
+    full width (ViT-L-14, 224, batch 128, ``anchor`` at a fixed
+    temperature, ``device_augment``, no remat), 2 epochs of
+    ``VITL14_STEPS`` steps and ``VITL14_EVAL_PAIRS`` eval pairs, after
+    the L = 257 kernel checks; then two main steps under
+    ``utils.profiling.trace``."""
+    import tempfile
+
+    from sparsify_clip_tpu_torch.config import load_config
+    from sparsify_clip_tpu_torch.utils import profiling
+
+    kernels = phase_l257_kernels(smi)
+    torch.cuda.empty_cache()
+    batch, run = VITL14_BATCH, "vitl14-single-chip"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _repo_yaml("vitl14_single_chip.yaml", tmp, "phase 39 cli",
+                          num_train_samples=VITL14_STEPS * batch,
+                          num_test_samples=VITL14_EVAL_PAIRS, epochs=EXP6_EPOCHS)
+        config = load_config(path)
+        if config.batch_size != batch or config.model != "ViT-L-14":
+            raise AssertionError(f"the YAML trains {config.model} at {config.batch_size}")
+        counter, launches, seconds, peak = _cli_in_process(path)
+        counter.state = None
+        records, steps, evals, rates = _cli_records(
+            tmp, run, EXP6_EPOCHS * VITL14_STEPS, EXP6_EPOCHS + 2, "ViT-L-14")
+        torch.cuda.empty_cache()
+        zero = dict.fromkeys(KERNELS, 0)
+        step = dict(zero, mha_fwd=24 + 12, mha_bwd=24 + 12, infonce_fwd=1, infonce_bwd_dimg=1,
+                    infonce_bwd_dtxt=1)
+        batches = VITL14_EVAL_PAIRS // batch
+        per_eval = dict(zero, mha_fwd_head_group=24 * batches, mha_fwd=12 * batches)
+        _expect_launches([c for _, c in counter.steps], [step] * len(steps),
+                         "the ViT-L-14 CLI's steps")
+        _expect_launches(counter.evals, [per_eval] * (EXP6_EPOCHS + 2),
+                         "the ViT-L-14 CLI's evals")
+        log("phase 39 cli", ok=True, config="configs/vitl14_single_chip.yaml", batch=batch,
+            routes=json.dumps(records[0].get("data_routes")),
+            losses=json.dumps([r["train_loss"] for r in steps]),
+            eval_last=json.dumps(evals[-1]), launches_step=json.dumps(step),
+            launches_eval=json.dumps(per_eval), launches=json.dumps(launches),
+            cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in rates]),
+            cli_pairs_per_s=json.dumps([round(r["pairs_per_sec"], 1) for r in rates]),
+            max_memory_allocated_gib=f"{peak / 2**30:.3f}", seconds=f"{seconds:.3f}",
+            card=json.dumps(smi))
+        prof = _profile_cli_steps(config, VITL14_PROFILE_STEPS,
+                                  tracer=lambda: profiling.trace(os.path.join(tmp, "trace")))
+        trace_files = os.listdir(os.path.join(tmp, "trace"))
+    groups = _kernel_groups(prof.pop("prof"), VITL14_PROFILE_STEPS)
+    log("phase 39 rate", step_ms=json.dumps([round(r["step_time_ms"], 3) for r in rates]),
+        pairs_per_s=json.dumps([round(r["pairs_per_sec"], 1) for r in rates]),
+        max_memory_allocated_gib=f"{peak / 2**30:.3f}",
+        profiled_kernel_ms=f"{prof['kernel_ms']:.3f}", profiled_busy_ms=f"{prof['busy_ms']:.3f}",
+        profiled_wall_ms=f"{prof['wall_ms']:.3f}",
+        idle_share_profiled=f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}",
+        top_kernels=json.dumps(groups), chrome_trace=json.dumps(trace_files),
+        card=json.dumps(smi))
+    if len(trace_files) != 1:
+        raise AssertionError(f"utils.profiling.trace wrote {trace_files}")
+    return dict(launches=launches, kernels=kernels, rates=rates, peak=peak, profile=prof,
+                groups=groups)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -3356,6 +3788,16 @@ def main() -> int:
     remat_rn50 = phase_remat_rn50(smi, exp6_rn50)
     torch.cuda.empty_cache()
     knobs = phase_knobs(smi, exp6)
+    torch.cuda.empty_cache()
+
+    # the host data routes: the native tokenizer, both auto routes through
+    # the RN50 baseline YAML, the grain route, and ViT-L-14 from its YAML
+    tokenizer = phase_native_tokenizer(smi)
+    cli_rn50_yaml = phase_cli_rn50_yaml(smi, tokenizer, cli_rn50)
+    torch.cuda.empty_cache()
+    cli_grain = phase_cli_grain(smi, cli_exp6)
+    torch.cuda.empty_cache()
+    vitl14 = phase_cli_vitl14(smi)
 
     # each row's times are at the case named beside it: the RN50 main
     # path's shape where the kernel runs on it (the text tower's causal
@@ -3390,14 +3832,32 @@ def main() -> int:
         "ln_fast_bwd": ("ops/csrc/ln_qkv.cu",
                         "sparsify_clip_tpu/ops/pallas_ln_qkv.py:135 _vjp_bwd (XLA vjp of the "
                         "twin, no pallas_call)", ln_qkv, "ln_fast_bwd/vision"),
+        # ViT-L-14's vision shape (phase 39): the whole-width pair at L = 257
+        # in bf16, the head-group forward in fp32 (the eval twin)
+        "mha_fwd/vision-257": ("ops/csrc/mha_fwd.cu",
+                               "sparsify_clip_tpu/ops/pallas_attention.py:67",
+                               vitl14["kernels"], "mha_fwd/vision-257"),
+        "mha_bwd/vision-257": ("ops/csrc/mha_bwd.cu",
+                               "sparsify_clip_tpu/ops/pallas_attention.py:95",
+                               vitl14["kernels"], "mha_bwd/vision-257"),
+        "mha_fwd_head_group/fp32-257": ("ops/csrc/mha_fwd.cu",
+                                        "sparsify_clip_tpu/ops/pallas_attention.py:204",
+                                        vitl14["kernels"], "mha_fwd_head_group/vision-fp32-257"),
     }
     # the fused LN+qkv runs in bf16 on the train paths and in fp32 (the twin)
     # on the eval paths: each case counts its own paths' launches
+    # the L = 257 cases count the ViT-L-14 CLI's launches of their kernel
+    # (its vision tower at 257 and its text tower at 77 alike)
+    on_vitl14 = lambda path: path == "cli_vitl14"  # noqa: E731
     counted = {"ln_qkv_fwd": ("ln_qkv_fwd", lambda path: not path.startswith("eval")),
-               "ln_qkv_fwd/fp32": ("ln_qkv_fwd", lambda path: path.startswith("eval"))}
+               "ln_qkv_fwd/fp32": ("ln_qkv_fwd", lambda path: path.startswith("eval")),
+               "mha_fwd/vision-257": ("mha_fwd", on_vitl14),
+               "mha_bwd/vision-257": ("mha_bwd", on_vitl14),
+               "mha_fwd_head_group/fp32-257": ("mha_fwd_head_group", on_vitl14)}
     entries = []
     for name in (*KERNELS[:KERNELS.index("ln_qkv_fwd") + 1], "ln_qkv_fwd/fp32",
-                 *KERNELS[KERNELS.index("ln_qkv_fwd") + 1:]):
+                 *KERNELS[KERNELS.index("ln_qkv_fwd") + 1:], "mha_fwd/vision-257",
+                 "mha_bwd/vision-257", "mha_fwd_head_group/fp32-257"):
         source, replaces, results, case = sources[name]
         r = results[case]
         counter, on_path = counted.get(name, (name, lambda path: True))
@@ -3435,6 +3895,9 @@ def main() -> int:
             "train_remat_rn50": remat_rn50["launches"][counter],
             "train_onehot": knobs["launches"]["onehot_embed"][counter],
             "train_ln_fp32_false": knobs["launches"]["ln_fp32_false"][counter],
+            "cli_rn50_yaml": cli_rn50_yaml["launches"][counter],
+            "cli_grain": cli_grain["launches"][counter],
+            "cli_vitl14": vitl14["launches"][counter],
         }
         by_path = {path: count for path, count in by_path.items() if on_path(path)}
         entries.append({

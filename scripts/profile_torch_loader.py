@@ -12,8 +12,12 @@ the loader's ms a batch (``DataLoader.epoch``, prefetch included) at 1,
 2, 4 and 8 worker threads, each in a child process, once as the
 environment sets BLAS threading and once with ``OPENBLAS_NUM_THREADS=1``
 and ``OMP_NUM_THREADS=1`` (numpy's matrix products in each worker on one
-thread).  Prints one JSON object, with ``nvidia-smi``'s card name and
-power limit when there is a card.
+thread).  Then the grain route (``loader_backend: grain``,
+``data/grain_loader.py``) at 0 (in process), 1, 2, 4 and 8 worker
+processes, each in a child process with one BLAS thread, and the native
+tokenizer's ms for the same 256 captions beside the Python one's (where
+``g++`` builds it).  Prints one JSON object, with ``nvidia-smi``'s card
+name and power limit when there is a card.
 """
 
 from __future__ import annotations
@@ -32,14 +36,18 @@ CONFIG = dict(dataset="synthetic", model="ViT-B-32", batch_size=256, seed=42,
               num_train_samples=2048, num_test_samples=512)
 
 
-def loader_ms(threads: int, batches: int) -> float:
-    """ms a batch of the train loader at ``threads`` workers, after one
-    batch of warm-up (the tokenizer's tables, the resize coefficients)."""
+def loader_ms(threads: int, batches: int, grain: bool = False) -> float:
+    """ms a batch of the train loader at ``threads`` workers (threads, or
+    with ``grain`` worker processes), after one batch of warm-up (the
+    tokenizer's tables, the resize coefficients, the workers' start)."""
     from sparsify_clip_tpu_torch.config import ExperimentConfig
     from sparsify_clip_tpu_torch.data import dataset_loader
 
-    config = ExperimentConfig.from_dict(dict(CONFIG, num_train_samples=256 * (batches + 1)))
+    config = ExperimentConfig.from_dict(dict(CONFIG, num_train_samples=256 * (batches + 1),
+                                             loader_backend="grain" if grain else "threads"))
     loader, _ = dataset_loader(config, image_size=224, num_threads=threads)
+    if grain:
+        loader.num_workers = threads
     it = loader.epoch(0)
     next(it)
     t = time.perf_counter()
@@ -92,8 +100,19 @@ def parts_ms(items: int = 64) -> dict:
     split, pieces = batch_ms(text.pre_tokenize, spaced)
     bpe, _ = batch_ms(lambda ps: [tok.bpe("".join(tok.byte_encoder[b] for b in p.encode()))
                                   for p in ps], pieces)
+    native_ms = None
+    from sparsify_clip_tpu_torch.text import native
+
+    if native.ensure_built() is not None:
+        fast = native.NativeCLIPTokenizer()
+        if not (fast(captions) == tok(captions)).all():
+            raise AssertionError("the native tokenizer differs from the Python one")
+        t = time.perf_counter()
+        fast(captions)
+        native_ms = (time.perf_counter() - t) * 1e3
     return dict(item_ms=item_ms, crop_resize_ms=resize_ms, float_flip_normalize_ms=normalize_ms,
-                tokenize_batch_ms=tokenize_ms, tokenize_parts_batch_ms=dict(
+                tokenize_batch_ms=tokenize_ms, native_tokenize_batch_ms=native_ms,
+                tokenize_parts_batch_ms=dict(
                     basic_clean=basic, whitespace_clean_lower=space, pre_tokenize=split,
                     bytes_and_bpe=bpe))
 
@@ -104,9 +123,10 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--parts-only", action="store_true", help="skip the loader runs")
     ap.add_argument("--child", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--grain", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        print(json.dumps(loader_ms(args.child, args.batches)))
+        print(json.dumps(loader_ms(args.child, args.batches, grain=args.grain)))
         return 0
 
     import numpy as np
@@ -123,6 +143,13 @@ def main() -> int:
                                  capture_output=True, text=True, timeout=1200)
             result["loader_ms_per_batch"][f"threads={threads},blas={blas}"] = json.loads(
                 out.stdout.strip().splitlines()[-1])
+    env = dict(os.environ, OPENBLAS_NUM_THREADS="1", OMP_NUM_THREADS="1")
+    for workers in () if args.parts_only else (0, 1, 2, 4, 8):
+        out = subprocess.run([sys.executable, __file__, "--child", str(workers), "--grain",
+                              "--batches", str(args.batches)], env=env, check=True,
+                             capture_output=True, text=True, timeout=1200)
+        result["loader_ms_per_batch"][f"grain,workers={workers},blas=one"] = json.loads(
+            out.stdout.strip().splitlines()[-1])
     try:
         result["card"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

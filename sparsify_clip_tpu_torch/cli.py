@@ -13,7 +13,9 @@ final eval → final weights npz, logged to ``<log_dir>/<run_name>.jsonl``
 with the JAX CLI's records; with ``plot_embeddings`` (the default) each
 eval pass also writes the reference's UMAP / t-SNE / PCA sphere plots to
 ``<log_dir>/plots/`` on the host (:mod:`sparsify_clip_tpu_torch.viz`) and
-logs them as image records.  ``resume_checkpoint`` resumes weights only
+logs them as image records.  The first record (``run_start``) also
+names the data routes each loader took (``data_routes``: loader,
+tokenizer, image backend).  ``resume_checkpoint`` resumes weights only
 from an ``.npz`` (the reference's semantics) or the full state from
 ``"auto"`` (``<checkpoint_dir>/<run_name>/``) or a directory, data order
 exact.  SIGTERM (``handle_preemption``) finishes the step, saves the
@@ -60,7 +62,6 @@ def apply_smoke_overrides(config: ExperimentConfig) -> ExperimentConfig:
 
 def _check_supported(config: ExperimentConfig) -> None:
     """Refuse what this port does not run before any file is written."""
-    from sparsify_clip_tpu_torch.data.pipeline import check_supported as check_data
     from sparsify_clip_tpu_torch.train import check_supported as check_step
 
     if config.plot_embeddings and importlib.util.find_spec("matplotlib") is None:
@@ -68,7 +69,6 @@ def _check_supported(config: ExperimentConfig) -> None:
             "plot_embeddings: true draws the per-eval plots with matplotlib, which is not "
             "installed; set plot_embeddings: false or run --smoke"
         )
-    check_data(config)
     check_step(config)
 
 
@@ -81,6 +81,7 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
 
     from sparsify_clip_tpu_torch import checkpoints
     from sparsify_clip_tpu_torch.data import dataset_loader
+    from sparsify_clip_tpu_torch.data.pipeline import routes
     from sparsify_clip_tpu_torch.eval import evaluate_model, make_eval_model
     from sparsify_clip_tpu_torch.logging import RunLogger
     from sparsify_clip_tpu_torch.models.clip import MODEL_REGISTRY
@@ -98,13 +99,6 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
     # compilation_cache_dir is accepted and ignored: PyTorch compiles no
     # programs per run (ROADMAP Queue 1, 'Do not port')
 
-    logger = RunLogger(
-        project=config.project_name,
-        run_name=config.run_name,
-        config=config.to_dict(),
-        log_dir=config.log_dir,
-        backend=config.log_backend,
-    )
     set_seed(config.seed)
     print("Config:", config.to_dict())
     print("Experiment:", config.run_name)
@@ -114,7 +108,19 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
 
     print("\nLoading the dataset...")
     train_loader, test_loader = dataset_loader(config, image_size=image_size)
-    print("Dataset loaded.\n")
+    # the routes each loader took (a native library that did not build
+    # falls back as on the JAX side), in the run's first record
+    data_routes = {"train": routes(train_loader), "eval": routes(test_loader)}
+    print("Dataset loaded.", "Routes:", data_routes, "\n")
+
+    logger = RunLogger(
+        project=config.project_name,
+        run_name=config.run_name,
+        config=config.to_dict(),
+        log_dir=config.log_dir,
+        backend=config.log_backend,
+        start={"data_routes": data_routes},
+    )
 
     setup = create_train_setup(config, steps_per_epoch=len(train_loader), device=device,
                                image_size=image_size)

@@ -6,9 +6,9 @@ iterates ``sorted(coco.imgs.keys())``, so ``num_{train,test}_samples``
 head-subsets (sparsify_clip.py:1034-1046) select the same images.
 
 JPEGs decode through PIL, imported at the first decode; the item is the
-decoded (H, W, 3) uint8 RGB array.  Where PIL is not importable the
-decode raises: a native decoder is ROADMAP Queue 1, 'Data without PIL'
-(the COCO JPEGs on the card).
+decoded (H, W, 3) uint8 RGB array.  ``raw_bytes(i)`` hands the undecoded
+JPEG to the native pipeline (:mod:`sparsify_clip_tpu_torch.data.native_imaging`,
+``image_backend: native/auto``), which needs no PIL.
 """
 
 from __future__ import annotations
@@ -21,15 +21,15 @@ import numpy as np
 
 
 def require_decoder():
-    """PIL's ``Image`` module, or a RuntimeError that names the ROADMAP
-    item of the native decoder."""
+    """PIL's ``Image`` module, or a RuntimeError that names the native
+    decoder."""
     try:
         from PIL import Image
     except ImportError as exc:
         raise RuntimeError(
             "dataset: coco decodes JPEGs through PIL, which is not importable here; "
-            "a native JPEG decoder is ROADMAP Queue 1, 'Data without PIL' (the COCO "
-            "JPEGs on the card). Use dataset: synthetic."
+            "image_backend: native decodes them without PIL where libjpeg is installed "
+            "(ROADMAP Queue 1, 'Data without PIL'). Or use dataset: synthetic."
         ) from exc
     return Image
 
@@ -88,6 +88,15 @@ class CocoCaptions:
             img = self.transform(img)
         return img, self.index.captions[i]
 
+    def raw_bytes(self, i: int) -> Optional[bytes]:
+        """Undecoded JPEG bytes for the native image pipeline (None for a
+        non-JPEG file: the loader decodes that item through PIL)."""
+        path = self.image_path(i)
+        if not path.lower().endswith((".jpg", ".jpeg")):
+            return None
+        with open(path, "rb") as fh:
+            return fh.read()
+
 
 class Subset:
     """Head-subset wrapper (torch.utils.data.Subset as used at
@@ -102,3 +111,7 @@ class Subset:
 
     def __getitem__(self, i: int):
         return self.dataset[self.indices[i]]
+
+    def raw_bytes(self, i: int) -> Optional[bytes]:
+        inner = getattr(self.dataset, "raw_bytes", None)
+        return inner(self.indices[i]) if inner is not None else None

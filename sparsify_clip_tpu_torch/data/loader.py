@@ -15,7 +15,19 @@ flips and normalizes them on the card).
 Determinism: the epoch order is a permutation drawn from (seed, epoch),
 and each item's crop, flip and caption draws from (seed, epoch, index,
 train), the JAX loader's streams, so data order, crops, flips and
-captions equal the JAX loader's whatever the thread schedule.  One
+captions equal the JAX loader's whatever the thread schedule.
+
+``image_backend``: ``"pil"`` decodes through PIL and transforms in numpy
+(:mod:`sparsify_clip_tpu_torch.data.transforms`); ``"native"`` decodes a
+JPEG and crops, resizes, flips and normalizes it in one C++ call
+(:mod:`sparsify_clip_tpu_torch.data.native_imaging`) and raises where that
+library cannot be built; ``"auto"`` takes the native library where it
+builds, else the PIL route, as the JAX loader does.  Both routes draw the
+crop, the flip and the caption from the same stream in the same order,
+so the backend never changes the data order, only the resize's
+arithmetic (about 1/255).  An item the native route cannot take (a
+dataset without ``raw_bytes``, a non-JPEG file) takes the PIL route.
+``image_backend_taken`` says which route the loader holds.  One
 process loads every batch: the JAX loader's per-process slices
 (``process_index``/``process_count``) wait for ROADMAP Queue 1, 'Multi-GPU'.
 """
@@ -29,7 +41,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from sparsify_clip_tpu_torch.data.transforms import (
-    resize_bilinear, test_transform, train_transform,
+    resize_bilinear, sample_resized_crop_params, test_transform, train_transform,
 )
 
 
@@ -49,10 +61,11 @@ class DataLoader:
         prefetch: int = 2,
         image_size: int = 224,
         raw_uint8: bool = False,
+        image_backend: str = "pil",
     ):
         """``raw_uint8``: skip the host augmentation; squash-resize each
-        decoded image to ``image_size`` (Pillow's bilinear, to the bit)
-        and ship uint8."""
+        decoded image to ``image_size`` (Pillow's bilinear, to the bit, on
+        the PIL route) and ship uint8."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.tokenizer = tokenizer
@@ -64,6 +77,18 @@ class DataLoader:
         self.prefetch = prefetch
         self.image_size = image_size
         self.raw_uint8 = raw_uint8
+        self._native = None
+        if image_backend in ("native", "auto"):
+            from sparsify_clip_tpu_torch.data import native_imaging
+
+            self._native = native_imaging.get_pipeline()
+            if self._native is None and image_backend == "native":
+                error = native_imaging.build_error()
+                raise RuntimeError(f"image_backend='native' but {error}") from error
+        # native where the library loaded and the dataset hands out JPEG bytes
+        self.image_backend_taken = ("native" if self._native is not None
+                                    and hasattr(dataset, "raw_bytes") else "pil")
+        self.tokenizer_backend = getattr(tokenizer, "backend", type(tokenizer).__name__)
         self._pool = None
         if self.num_threads > 1:
             from concurrent.futures import ThreadPoolExecutor
@@ -76,10 +101,18 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def _item_rng(self, index: int, epoch: int) -> np.random.Generator:
+        return np.random.default_rng(
+            np.random.SeedSequence([self.seed, epoch, index, int(self.train)]))
+
     def _load_item(self, index: int, epoch: int):
-        rng = np.random.default_rng(
-            np.random.SeedSequence([self.seed, epoch, index, int(self.train)])
-        )
+        rng = self._item_rng(index, epoch)
+        if self._native is not None:
+            item = self._load_item_native(index, rng)
+            if item is not None:
+                return item
+            # a fresh stream: a failed native attempt may have drawn from it
+            rng = self._item_rng(index, epoch)
         img, captions = self.dataset[index]
         if self.raw_uint8:
             arr = resize_bilinear(img, (self.image_size, self.image_size))
@@ -90,6 +123,42 @@ class DataLoader:
         # one random caption out of the ≤5 (sparsify_clip.py:1050-1057)
         caption = captions[int(rng.integers(0, len(captions)))] if captions else ""
         return arr, caption
+
+    def _load_item_native(self, index: int, rng: np.random.Generator):
+        """The C++ decode and transform.  Draws from ``rng`` in the PIL
+        route's order (crop, flip, caption); None sends the item to the
+        PIL route (no raw bytes, or a file the library cannot decode)."""
+        raw = getattr(self.dataset, "raw_bytes", None)
+        if raw is None:
+            return None
+        jpeg = raw(index)
+        if jpeg is None:
+            return None
+        try:
+            if self.raw_uint8:
+                arr = self._native.transform(jpeg, self.image_size, uint8=True)
+            elif self.train:
+                h, w = self._native.dims(jpeg)
+                top, left, ch, cw = sample_resized_crop_params(h, w, rng)
+                flip = rng.random() < 0.5
+                arr = self._native.transform(jpeg, self.image_size, crop=(top, left, ch, cw),
+                                             flip=flip)
+            else:
+                arr = self._native.transform(jpeg, self.image_size)
+        except ValueError:
+            return None
+        captions = self._captions_of(index)
+        caption = captions[int(rng.integers(0, len(captions)))] if captions else ""
+        return arr, caption
+
+    def _captions_of(self, index: int):
+        """An item's captions without decoding its image."""
+        ds = self.dataset
+        while hasattr(ds, "indices"):  # a Subset chain
+            index, ds = ds.indices[index], ds.dataset
+        if hasattr(ds, "index"):  # CocoCaptions
+            return ds.index.captions[index]
+        return ds[index][1]
 
     def _make_batch(self, indices: np.ndarray, epoch: int) -> Dict[str, np.ndarray]:
         if self._pool is not None and len(indices) > 1:

@@ -10,14 +10,21 @@ train step augments them on the card (ops/image.py).  ``dataset: "synthetic"`` s
 the procedural set (2048 train and 512 test samples when the counts are
 -1).
 
-The JAX pipeline's other routes raise here and name the ROADMAP item
-they wait for (see ``_NOT_PORTED``).
+The routes fall back as the JAX pipeline's do: ``tokenizer: native``
+takes the C++ BPE (:mod:`sparsify_clip_tpu_torch.text.native`) and raises
+where it cannot be built, ``auto`` takes it where it builds, else the
+Python tokenizer; ``image_backend`` goes to both thread loaders
+(:class:`DataLoader`); ``loader_backend: grain`` returns the grain-route
+loaders (:mod:`sparsify_clip_tpu_torch.data.grain_loader`) before the
+``device_augment`` branch, as the JAX pipeline does.  Each loader names
+the routes it took (``tokenizer_backend``, ``image_backend_taken``);
+:func:`routes` collects them.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, List, Tuple
+from typing import Dict
 
 from sparsify_clip_tpu_torch.config import ExperimentConfig
 from sparsify_clip_tpu_torch.data.coco import CocoCaptions, Subset, require_decoder
@@ -25,33 +32,30 @@ from sparsify_clip_tpu_torch.data.loader import DataLoader
 from sparsify_clip_tpu_torch.data.synthetic import SyntheticCaptions
 from sparsify_clip_tpu_torch.text import get_tokenizer
 
-# Data-pipeline knobs the port does not run yet → what they wait for.
-_NOT_PORTED: List[Tuple[Callable[[ExperimentConfig], bool], str]] = [
-    (lambda c: c.tokenizer in ("native", "auto"),
-     "tokenizer: native/auto (the C++ BPE of text/native.py, ROADMAP Queue 1, 'Tokenizer')"),
-    (lambda c: c.loader_backend == "grain",
-     "loader_backend: grain (ROADMAP Queue 1, 'Data without PIL')"),
-    (lambda c: c.image_backend in ("native", "auto"),
-     "image_backend: native/auto (the native image decoder, "
-     "ROADMAP Queue 1, 'Data without PIL')"),
-]
+
+def _select_tokenizer(config: ExperimentConfig):
+    """The JAX ``_select_tokenizer`` (data/pipeline.py:27-36)."""
+    if config.tokenizer in ("native", "auto"):
+        try:
+            from sparsify_clip_tpu_torch.text.native import NativeCLIPTokenizer
+
+            return NativeCLIPTokenizer(merges_path=config.bpe_vocab_path)
+        except (RuntimeError, OSError):
+            if config.tokenizer == "native":
+                raise
+    return get_tokenizer(config.model, bpe_path=config.bpe_vocab_path)
 
 
-def check_supported(config: ExperimentConfig) -> None:
-    """Raise :class:`NotImplementedError` for the first data knob the
-    port does not run yet."""
-    for unsupported, what in _NOT_PORTED:
-        if unsupported(config):
-            raise NotImplementedError(
-                f"{what} is not ported to sparsify_clip_tpu_torch's data pipeline yet"
-            )
+def routes(loader) -> Dict[str, str]:
+    """The routes a loader took: loader, tokenizer and image backend."""
+    from sparsify_clip_tpu_torch.data.grain_loader import GrainDataLoader
+
+    return {"loader": "grain" if isinstance(loader, GrainDataLoader) else "threads",
+            "tokenizer": loader.tokenizer_backend, "image": loader.image_backend_taken}
 
 
-def dataset_loader(
-    config: ExperimentConfig, image_size: int = 224, num_threads: int = 4
-) -> Tuple[DataLoader, DataLoader]:
-    check_supported(config)
-    tokenizer = get_tokenizer(config.model, bpe_path=config.bpe_vocab_path)
+def dataset_loader(config: ExperimentConfig, image_size: int = 224, num_threads: int = 4):
+    tokenizer = _select_tokenizer(config)
 
     if config.dataset == "synthetic":
         n_train = 2048 if config.num_train_samples == -1 else config.num_train_samples
@@ -59,7 +63,8 @@ def dataset_loader(
         train_ds = SyntheticCaptions(n_train, seed=config.seed)
         test_ds = SyntheticCaptions(n_test, seed=config.seed + 1)
     else:
-        require_decoder()
+        if config.image_backend == "pil" or config.loader_backend == "grain":
+            require_decoder()
         root = config.data_root
         train_ds = CocoCaptions(
             os.path.join(root, "images", "train2017"),
@@ -74,14 +79,28 @@ def dataset_loader(
         if config.num_test_samples != -1:
             test_ds = Subset(test_ds, range(config.num_test_samples))
 
+    if config.loader_backend == "grain":
+        from sparsify_clip_tpu_torch.data.grain_loader import GrainDataLoader
+
+        train_loader = GrainDataLoader(
+            train_ds, config.batch_size, tokenizer, train=True, seed=config.seed,
+            shuffle=True, drop_last=True, image_size=image_size,
+        )
+        test_loader = GrainDataLoader(
+            test_ds, config.batch_size, tokenizer, train=False, seed=config.seed,
+            shuffle=False, drop_last=True, image_size=image_size,
+        )
+        return train_loader, test_loader
+
     train_loader = DataLoader(
         train_ds, config.batch_size, tokenizer, train=True, seed=config.seed,
         shuffle=True, drop_last=True, num_threads=num_threads,
         image_size=config.device_augment_staging if config.device_augment else image_size,
-        raw_uint8=config.device_augment,
+        raw_uint8=config.device_augment, image_backend=config.image_backend,
     )
     test_loader = DataLoader(
         test_ds, config.batch_size, tokenizer, train=False, seed=config.seed,
         shuffle=False, drop_last=True, num_threads=num_threads, image_size=image_size,
+        image_backend=config.image_backend,
     )
     return train_loader, test_loader

@@ -13,12 +13,13 @@ the JAX CLI's keys, and prints a retrieval smoke: with both modalities,
 the top-1 text of the first few images.  The towers compute in bf16 (the
 JAX CLI's), on the card unless ``--device cpu``.
 
-Weights: a ``save_weights`` ``.npz`` of either package.  Images decode
-through PIL, imported at the first decode (as ``data/coco.py``), and take
-the eval transform: Pillow's bilinear squash-resize, to the bit
-(``data/transforms.py``), and CLIP normalization.  The JAX CLI decodes a
-JPEG through its native library where that builds; the native decoder is
-ROADMAP Queue 1, 'Data without PIL'.
+Weights: a ``save_weights`` ``.npz`` of either package.  Images take the
+eval transform (squash-resize and CLIP normalization): a JPEG through the
+native pipeline where its library builds
+(:mod:`sparsify_clip_tpu_torch.data.native_imaging`), as the JAX CLI
+does, any other file (or a JPEG the library cannot decode) through PIL,
+imported at the first decode, and Pillow's bilinear resize, to the bit
+(``data/transforms.py``).
 """
 
 from __future__ import annotations
@@ -40,11 +41,24 @@ def _list_images(path: str) -> List[str]:
 
 
 def _load_image_batch(paths: Sequence[str], image_size: int) -> np.ndarray:
-    """The eval protocol's pixels: decode, squash-resize, normalize."""
+    """The eval protocol's pixels: decode, squash-resize, normalize, a
+    JPEG through the native pipeline where it builds."""
     from sparsify_clip_tpu_torch.data.coco import decode_image
+    from sparsify_clip_tpu_torch.data.native_imaging import get_pipeline
     from sparsify_clip_tpu_torch.data.transforms import test_transform
 
-    return np.stack([test_transform(decode_image(p), image_size) for p in paths])
+    native = get_pipeline()
+    out = np.empty((len(paths), image_size, image_size, 3), np.float32)
+    for i, p in enumerate(paths):
+        if native is not None and p.lower().endswith((".jpg", ".jpeg")):
+            with open(p, "rb") as fh:
+                try:
+                    out[i] = native.transform(fh.read(), image_size)
+                    continue
+                except ValueError:
+                    pass
+        out[i] = test_transform(decode_image(p), image_size)
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:

@@ -26,7 +26,10 @@ class RunLogger:
         config: Optional[Dict[str, Any]] = None,
         log_dir: str = "./logs",
         backend: str = "auto",
+        start: Optional[Dict[str, Any]] = None,
     ):
+        """``start``: fields the ``run_start`` record carries beside the
+        config (the CLI's ``data_routes``)."""
         self.run_name = run_name
         self.step = 0
         self._wandb = None
@@ -44,7 +47,7 @@ class RunLogger:
         safe = run_name.replace("/", "_")
         self._path = os.path.join(log_dir, f"{safe}.jsonl")
         self._fh = open(self._path, "a", buffering=1)
-        self.log({"event": "run_start", "config": config or {}})
+        self.log({"event": "run_start", "config": config or {}, **(start or {})})
 
     @property
     def path(self) -> str:

@@ -159,8 +159,9 @@ def crop_resize(images_u8: torch.Tensor, boxes: Boxes, flips: torch.Tensor,
     (B,) is true.  The JAX ``_crop_resize_one`` (ops/image.py:90-110),
     ``jax.image.scale_and_translate`` with scale size/h and translation
     −top·scale on each axis; the flip reverses the column weights'
-    outputs, the same products in the mirrored order."""
-    _check_images(images_u8)
+    outputs, the same products in the mirrored order.  float32 images are
+    divided by 255 as the uint8 ones (see :func:`augment_batch`)."""
+    _check_images(images_u8, float32_too=True)
     top, left, h, w = (t.float() for t in boxes)
     _, height, width, _ = images_u8.shape
     scale_y, scale_x = size / h, size / w
@@ -183,8 +184,13 @@ def augment_batch(images_u8: torch.Tensor, generator: torch.Generator,
     3): a random-resized crop, a random flip and CLIP normalization, with
     every draw from ``generator`` (on the images' device).  The device
     twin of :func:`sparsify_clip_tpu_torch.data.transforms.train_transform`
-    (the JAX ``augment_batch``)."""
-    _check_images(images_u8)
+    (the JAX ``augment_batch``).
+
+    float32 images are taken as the JAX function takes them, divided by
+    255 like pixels: the grain route ships normalized float32 images under
+    ``device_augment``, and the JAX step augments them so
+    (:mod:`sparsify_clip_tpu_torch.data.grain_loader`)."""
+    _check_images(images_u8, float32_too=True)
     b, height, width, _ = images_u8.shape
     u, u_flip = augment_uniforms(generator, b, images_u8.device)
     boxes = crop_boxes_from_uniforms(u[:, 0], u[:, 1], u[:, 2], u[:, 3], height, width)
@@ -207,7 +213,8 @@ def eval_resize_batch(images_u8: torch.Tensor, size: int = 224) -> torch.Tensor:
     return normalize_batch(images)
 
 
-def _check_images(images: torch.Tensor) -> None:
-    if images.ndim != 4 or images.shape[-1] != 3 or images.dtype != torch.uint8:
+def _check_images(images: torch.Tensor, float32_too: bool = False) -> None:
+    dtypes = (torch.uint8, torch.float32) if float32_too else (torch.uint8,)
+    if images.ndim != 4 or images.shape[-1] != 3 or images.dtype not in dtypes:
         raise ValueError(f"expected uint8 images (B, H, W, 3), got {images.dtype} "
                          f"{tuple(images.shape)}")

@@ -177,6 +177,8 @@ class CLIPTokenizer:
         context_length: tokens per sequence (reference: 77).
     """
 
+    backend = "python"
+
     def __init__(self, bpe_path: Optional[str] = None, context_length: int = CONTEXT_LENGTH):
         self.context_length = context_length
         self.byte_encoder = bytes_to_unicode()

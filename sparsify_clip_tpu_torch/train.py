@@ -50,8 +50,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import time
-from collections import deque
-from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,6 +63,7 @@ from sparsify_clip_tpu_torch.ops.sparsify import make_projection
 from sparsify_clip_tpu_torch.optim import AdamWBf16Mu
 from sparsify_clip_tpu_torch.schedules import get_alpha, get_beta, make_lr_schedule
 from sparsify_clip_tpu_torch.utils.numerics import l2_normalize
+from sparsify_clip_tpu_torch.utils.profiling import ThroughputMeter
 
 Batch = Dict[str, Any]
 Metrics = Dict[str, Union[torch.Tensor, float]]
@@ -397,48 +397,6 @@ def create_train_setup(
     )
 
 
-class _ThroughputMeter:
-    """Windowed pairs/s and step time on the host clock: the JAX package's
-    ``ThroughputMeter`` (sparsify_clip_tpu/utils/profiling.py:25-62).
-
-    Call :meth:`start` at the start of an epoch, then :meth:`step` after
-    each train step.  The window holds the last ``window`` steps: once more
-    have run, the epoch's start, and the first (warm-up) step with it,
-    leave it.  ``n_devices`` is the number of devices one step runs on
-    (one on the port)."""
-
-    def __init__(self, window: int = 50, n_devices: int = 1):
-        self.window = window
-        self.n_devices = n_devices
-        self._times: Deque[Tuple[float, int]] = deque(maxlen=window + 1)
-
-    def start(self) -> None:
-        self._times.clear()
-        self._times.append((time.perf_counter(), 0))
-
-    def step(self, batch_size: int) -> None:
-        self._times.append((time.perf_counter(), batch_size))
-
-    @property
-    def pairs_per_sec(self) -> float:
-        if len(self._times) < 2:
-            return 0.0
-        (t0, _), (t1, _) = self._times[0], self._times[-1]
-        pairs = sum(b for _, b in list(self._times)[1:])
-        return pairs / max(t1 - t0, 1e-9)
-
-    @property
-    def pairs_per_sec_per_chip(self) -> float:
-        return self.pairs_per_sec / self.n_devices
-
-    @property
-    def step_time_ms(self) -> float:
-        if len(self._times) < 2:
-            return 0.0
-        (t0, _), (t1, _) = self._times[0], self._times[-1]
-        return (t1 - t0) / (len(self._times) - 1) * 1000
-
-
 def resolve_soft_targets_provider(spec: str) -> Optional[Callable[[List[str]], Any]]:
     """``"module:attr"`` / ``"module.attr"`` → the host soft-target
     callable (JAX ``resolve_soft_targets_provider``, train.py:595-626).
@@ -551,7 +509,7 @@ def run_training(
         if pending is not None:
             yield pending
 
-    meter = _ThroughputMeter()
+    meter = ThroughputMeter(n_chips=1)  # the step runs on one device
     t0 = time.time()
     stopped = False
     setup.stopped_early = False

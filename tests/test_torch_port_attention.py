@@ -18,7 +18,9 @@ from jax.experimental.pallas import tpu as pltpu
 from sparsify_clip_tpu.ops.pallas_attention import attention_core as jax_attention_core
 from sparsify_clip_tpu.ops.pallas_attention import _run_fwd, mha_pallas
 from sparsify_clip_tpu_torch.ops import _build
-from sparsify_clip_tpu_torch.ops.attention import attention_core, mha_fwd, mha_fwd_reference
+from sparsify_clip_tpu_torch.ops.attention import (
+    attention_core, mha_bwd_reference, mha_fwd, mha_fwd_reference,
+)
 
 SHAPES = [
     (4, 50, 96, 12, False),   # ViT-like: 50 tokens
@@ -27,11 +29,12 @@ SHAPES = [
 ]
 FP32 = dict(rtol=2e-5, atol=2e-6)
 # the CUDA forward's tile edges (query tiles of up to 128 rows, 64-key
-# stages): one short of an edge, on it and one over, and the ViT-L-14-336
-# length; head_dim 8 and 88 (zero-filled to 16), 64 and the widest, 128
+# stages): one short of an edge, on it and one over, ViT-L-14's length
+# (257 = 4 × 64 + 1: a one-key last stage) and ViT-L-14-336's; head_dim 8
+# and 88 (zero-filled to 16), 64 and the widest, 128
 EDGE_SHAPES = [
     (l, head_dim, causal)
-    for l in (63, 64, 65, 127, 128, 129, 577)
+    for l in (63, 64, 65, 127, 128, 129, 257, 577)
     for head_dim in (8, 64, 88, 128)
     for causal in (False, True)
 ]
@@ -148,3 +151,20 @@ def test_ptxas_usage_names_each_kernel(monkeypatch):
          "spill_stores": 4, "spill_loads": 12, "registers": 96, "static_smem": 1024},
     ]
     assert _build.ptxas_usage("no entry functions") == []
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_reference_matches_the_pallas_vjp_at_vit_l14_length(dtype):
+    """Row 3 at ViT-L-14's vision length, L = 257, head_dim 64 (the CUDA
+    backward's 32-row tiles end on a one-row tile), as
+    tests/test_torch_port_train_ops.py holds it at L 5 and 17."""
+    from test_torch_port_train_ops import BF16, FP32 as FP32_GRAD, _attention_inputs, _jax_vjp
+
+    heads = 2
+    qkv, dout = _attention_inputs(257, dtype, b=1, w=heads * 64, seed=257)
+    want = _jax_vjp(qkv, dout, heads, False, dtype)
+    x = torch.from_numpy(qkv).to(getattr(torch, dtype))
+    _, lse = mha_fwd_reference(x, heads, False, with_lse=True)
+    got = mha_bwd_reference(x, lse, torch.from_numpy(dout).to(x.dtype), heads, False)
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               **(FP32_GRAD if dtype == "float32" else BF16))

@@ -173,6 +173,9 @@ def test_smoke_tiny_records_equal_the_jax_clis(tmp_path, monkeypatch, keep_jax_c
     monkeypatch.setattr(cli, "main", functools.partial(cli.main, device="cpu"))
     cli.cli(["--config", SMOKE_TINY, "--smoke"])
     got = _records(tmp_path / "logs" / "smoke-tiny" / "smoke-tiny-smoke.jsonl")
+    # the port's first record also names the data routes its loaders took
+    routes = {"loader": "threads", "tokenizer": "python", "image": "pil"}
+    assert got[0].pop("data_routes") == {"train": routes, "eval": routes}
     assert _shape(got) == _shape(want)
     assert got[0]["config"] == want[0]["config"]
     assert sorted(os.listdir(tmp_path / "models" / "smoke-tiny")) == [
@@ -215,8 +218,19 @@ def test_refusals(tmp_path, monkeypatch):
     assert not os.path.exists("./logs/smoke-tiny/smoke-tiny.jsonl")
     smoke = cli.apply_smoke_overrides(config)
     assert smoke.plot_embeddings is False and smoke.dataset == "synthetic"
-    with pytest.raises(NotImplementedError, match="'Tokenizer'"):
-        cli.main(dataclasses.replace(smoke, tokenizer="native"), device="cpu")
+    # tokenizer: native runs where g++ builds it; where the build fails it
+    # is refused by name before any file is written, as on the JAX side
+    from sparsify_clip_tpu_torch.utils import native_build
+
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CXX", raising=False)
+    logs = tmp_path / "refused"
+    with pytest.raises(RuntimeError, match="native tokenizer library unavailable"):
+        cli.main(dataclasses.replace(smoke, tokenizer="native", log_dir=str(logs)),
+                 device="cpu")
+    monkeypatch.undo()
+    assert not logs.exists()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(smoke)  # the card by default

@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from sparsify_clip_tpu_torch.ops.attention import mha_fwd, mha_fwd_head_group, mha_fwd_reference
+from sparsify_clip_tpu_torch.ops.attention import (
+    mha_bwd, mha_bwd_reference, mha_fwd, mha_fwd_head_group, mha_fwd_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -44,6 +46,7 @@ def _qkv(b, l, heads, head_dim, dtype, device, seed=0):
         (64, 50, 12, 64, False, torch.float32),
         (8, 577, 16, 64, False, torch.bfloat16),    # ViT-L-14-336 vision tower
         (2, 577, 16, 64, True, torch.bfloat16),
+        (16, 257, 16, 64, False, torch.bfloat16),   # ViT-L-14 vision tower (a one-key last stage)
         (4, 130, 3, 64, True, torch.bfloat16),      # ragged last query and key tiles
         (4, 77, 8, 64, True, torch.float32),
         (3, 33, 2, 128, True, torch.float32),       # largest head_dim
@@ -68,13 +71,14 @@ def test_kernel_matches_plain_version(device, b, l, heads, head_dim, causal, dty
 
 
 # the forward's tile edges (query tiles of up to 128 rows, 64-key stages):
-# one short of an edge, on it and one over, and the ViT-L-14-336 length;
+# one short of an edge, on it and one over, ViT-L-14's and ViT-L-14-336's
+# lengths;
 # a last stage of 16 and of 17 keys past 128 rows (the wgmma kernel's
 # 16-key tail and the full stage after it); head_dim 8 and 88 (zero-filled
 # to 16), 64 (the main path's) and 128
 EDGE_CASES = [
     (l, head_dim, causal, dtype)
-    for l in (63, 64, 65, 127, 128, 129, 144, 145, 577)
+    for l in (63, 64, 65, 127, 128, 129, 144, 145, 257, 577)
     for head_dim in (8, 64, 88, 128)
     for causal in (False, True)
     for dtype in (torch.bfloat16, torch.float32)
@@ -195,3 +199,18 @@ def test_kernel_rejects_a_misaligned_view(device, dtype):
     aligned = _qkv(b, l, heads, head_dim, dtype, device)
     torch.testing.assert_close(mha_fwd(aligned, heads)[0].float(),
                                mha_fwd_reference(aligned, heads)[0].float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_matches_plain_version_at_vit_l14_length(device, causal):
+    """Row 3 at ViT-L-14's vision shape, L = 257 with 16 heads of 64 in
+    bf16 (the backward's 32-row tiles end on a one-row tile), under the
+    backward's bf16 tolerance (tests/test_torch_port_cuda_train.py)."""
+    qkv = _qkv(16, 257, 16, 64, torch.bfloat16, device, seed=257)
+    dout = _qkv(16, 257, 16, 64, torch.bfloat16, device, seed=258)[..., :16 * 64].contiguous()
+    _, lse = mha_fwd(qkv, 16, causal, with_lse=True)
+    got = mha_bwd(qkv, lse, dout, 16, causal)
+    want = mha_bwd_reference(qkv, lse, dout, 16, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == qkv.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)

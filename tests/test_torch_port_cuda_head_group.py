@@ -68,6 +68,7 @@ CASES = [
 ] + [
     (8, 577, 16, 64, False, torch.bfloat16),   # the ViT-L-14-336 vision tower
     (2, 577, 16, 64, False, torch.float32),
+    (16, 257, 16, 64, False, torch.float32),   # the ViT-L-14 eval twin's vision tower
     (3, 65, 6, 8, True, torch.bfloat16),       # smallest head_dim
     (3, 65, 6, 8, False, torch.float32),
     (2, 100, 4, 88, False, torch.bfloat16),    # a head_dim that is no multiple of 16
@@ -96,13 +97,14 @@ def test_forward_matches_plain_version(device, b, l, heads, head_dim, causal, dt
 
 
 # the forward's tile edges (query tiles of up to 128 rows, 64-key stages):
-# one short of an edge, on it and one over, and the ViT-L-14-336 length;
+# one short of an edge, on it and one over, ViT-L-14's and ViT-L-14-336's
+# lengths;
 # a last stage of 16 and of 17 keys past 128 rows (the wgmma kernel's
 # 16-key tail and the full stage after it); head_dim 8 and 88 (zero-filled
 # to 16), 64 (the main path's) and 128
 FWD_EDGE_CASES = [
     (l, head_dim, causal, dtype)
-    for l in (63, 64, 65, 127, 128, 129, 144, 145, 577)
+    for l in (63, 64, 65, 127, 128, 129, 144, 145, 257, 577)
     for head_dim in (8, 64, 88, 128)
     for causal in (False, True)
     for dtype in (torch.bfloat16, torch.float32)

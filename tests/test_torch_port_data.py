@@ -1,8 +1,10 @@
 """The port's data path (``sparsify_clip_tpu_torch.data``, no PIL in the
 transforms) against the JAX package's, on the CPU: the numpy bilinear
 resize against Pillow, the train and test transforms, the synthetic set,
-and the loader over two epochs of ``dataset: synthetic`` and of a COCO
-fixture written by the JAX ``write_coco_fixture``.
+the loader over two epochs of ``dataset: synthetic`` and of a COCO
+fixture written by the JAX ``write_coco_fixture``, and each data route
+(native and ``auto`` tokenizer and image backend, grain) against the JAX
+pipeline's.
 
 Tolerances: the resize follows Pillow's fixed-point arithmetic, so
 pixels are compared exactly (tolerance 0), and so are order, tokens and
@@ -131,16 +133,55 @@ def test_loader_reraises_a_producer_error():
     assert isinstance(info.value.__cause__, ValueError)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("tokenizer", "native", "'Tokenizer'"),
-    ("tokenizer", "auto", "'Tokenizer'"),
-    ("loader_backend", "grain", "'Data without PIL'"),
-    ("image_backend", "native", "'Data without PIL'"),
-    ("image_backend", "auto", "'Data without PIL'"),
+@pytest.mark.parametrize("field,value", [
+    ("tokenizer", "native"),
+    ("tokenizer", "auto"),
+    ("loader_backend", "grain"),
+    ("image_backend", "native"),
+    ("image_backend", "auto"),
 ])
-def test_unported_routes_raise_and_name_their_roadmap_item(field, value, item):
-    config = dataclasses.replace(_configs()[1], **{field: value})
-    with pytest.raises(NotImplementedError, match=item):
+def test_the_jax_routes_run_and_name_the_route_taken(tmp_path, field, value):
+    """Each data route the port once refused now runs as the JAX
+    pipeline's does: the tokenizer routes on the synthetic set, the
+    image routes on a COCO fixture (the synthetic set hands out no JPEG
+    bytes), grain on the synthetic set (its order is grain's own, so the
+    rows of an epoch are compared as a multiset)."""
+    fields = {field: value}
+    if field == "image_backend":
+        jax_synthetic.write_coco_fixture(str(tmp_path), num_train=10, num_val=8, image_size=40)
+        fields.update(dataset="coco", data_root=str(tmp_path), num_train_samples=-1,
+                      num_test_samples=-1, batch_size=4)
+    jcfg, pcfg = _configs(**fields)
+    jtrain, jtest = jax_pipeline.dataset_loader(jcfg, image_size=24)
+    ptrain, ptest = pipeline.dataset_loader(pcfg, image_size=24)
+    want = {"loader": "threads", "tokenizer": "python", "image": "pil"}
+    want.update({"tokenizer": {"tokenizer": "native"}, "loader_backend": {"loader": "grain"},
+                 "image_backend": {"image": "native"}}[field])
+    assert pipeline.routes(ptrain) == pipeline.routes(ptest) == want
+    if field == "loader_backend":
+        for jl, pl in ((jtrain, ptrain), (jtest, ptest)):
+            rows = [sorted(b["images"][i].tobytes() + b["tokens"][i].tobytes()
+                           for b in loader.epoch(1) for i in range(len(b["images"])))
+                    for loader in (jl, pl)]
+            assert rows[0] == rows[1]
+        return
+    _assert_same_epochs(jtrain, ptrain)
+    _assert_same_epochs(jtest, ptest)
+
+
+@pytest.mark.parametrize("field", ["tokenizer", "image_backend"])
+def test_a_native_route_refuses_by_name_when_its_build_fails(tmp_path, monkeypatch, field):
+    from sparsify_clip_tpu_torch.data import native_imaging
+    from sparsify_clip_tpu_torch.utils import native_build
+
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(native_imaging, "_pipeline", None)
+    monkeypatch.setattr(native_imaging, "_error", None)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CXX", raising=False)
+    config = dataclasses.replace(_configs()[1], **{field: "native"})
+    match = "native tokenizer library" if field == "tokenizer" else "image_backend='native'"
+    with pytest.raises(RuntimeError, match=match):
         pipeline.dataset_loader(config)
 
 

@@ -49,11 +49,12 @@ SHAPES = [
     (1, 33, 256, 4, True),
 ]
 # the CUDA forward's tile edges (query tiles of up to 128 rows, 64-key
-# stages): one short of an edge, on it and one over, and the ViT-L-14-336
-# length; head_dim 8 and 88 (zero-filled to 16), 64 and the widest, 128
+# stages): one short of an edge, on it and one over, ViT-L-14's length
+# (257 = 4 × 64 + 1: a one-key last stage) and ViT-L-14-336's; head_dim 8
+# and 88 (zero-filled to 16), 64 and the widest, 128
 EDGE_SHAPES = [
     (l, head_dim, causal)
-    for l in (63, 64, 65, 127, 128, 129, 577)
+    for l in (63, 64, 65, 127, 128, 129, 257, 577)
     for head_dim in (8, 64, 88, 128)
     for causal in (False, True)
 ]

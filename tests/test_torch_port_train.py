@@ -279,14 +279,14 @@ def test_throughput_meter_matches_the_jax_meter(monkeypatch):
     import time
 
     from sparsify_clip_tpu.utils.profiling import ThroughputMeter
-    from sparsify_clip_tpu_torch.train import _ThroughputMeter
+    from sparsify_clip_tpu_torch.train import ThroughputMeter as PortMeter  # utils/profiling.py
 
     steps = 120
     gaps = 0.1 + 0.01 * np.random.default_rng(0).random(steps)
     gaps[0] = 5.0  # the first step, with its warm-up
     clock = iter(np.concatenate([[100.0], 100.0 + np.cumsum(gaps)]).repeat(2).tolist())
     monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-    jax_meter, port_meter = ThroughputMeter(window=50, n_chips=1), _ThroughputMeter()
+    jax_meter, port_meter = ThroughputMeter(window=50, n_chips=1), PortMeter(n_chips=1)
     jax_meter.start()
     port_meter.start()
     for i in range(steps):
