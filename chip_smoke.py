@@ -7,7 +7,8 @@ the encode CLI, then the extensions and knobs: the sparse projection
 with the per-eval plots, remat, the one-hot embedding and the LayerNorm
 in the compute type; last the host data routes: the native tokenizer,
 the repository's RN50 and ViT-L-14 YAMLs through the CLI and the grain
-route.
+route; and data-parallel training across processes: the CLI under
+``torchrun`` over NCCL, and 2 and 4 gloo ranks sharing the card.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -120,7 +121,7 @@ Phases, one line each; any failure exits nonzero before the final line:
    of each step (4 ``mha_fwd``, 4 ``mha_bwd``, one of each InfoNCE kernel)
    and of each eval (4 ``mha_fwd``);
 19. the CLI on a YAML written to a temporary directory: full-width
-   ViT-B-32 under exp 6 at batch 256, 2048 synthetic pairs (8 steps an
+   ViT-B-32 under exp 6 at batch 256, 1024 synthetic pairs (4 steps an
    epoch), 512 eval pairs, one warm and one main epoch, a checkpoint
    each epoch.  One train record a step, finite evals before training,
    after each epoch and at the end, an npz each epoch, a final npz and
@@ -223,7 +224,7 @@ Phases, one line each; any failure exits nonzero before the final line:
    equal to the live encoder's on the same decoded pixels;
 32. the CLI on a YAML of full-width ViT-B-32 under exp 6 at batch 256 with
    ``sparse_projection: topk``, ``sparse_topk`` 64, ``sparse_after_epoch``
-   1, 2 epochs of 8 steps on 2048 synthetic pairs, 256 eval pairs, and
+   1, 2 epochs of 4 steps on 1024 synthetic pairs, 256 eval pairs, and
    ``plot_embeddings: true`` where matplotlib is installed (the UMAP,
    t-SNE and PCA PNGs of each of the 4 eval passes, on the host): phase
    19's launches a step, finite evals, the CLI step beside phase 19's;
@@ -291,7 +292,40 @@ Phases, one line each; any failure exits nonzero before the final line:
    InfoNCE kernel a step; 24 fp32 ``mha_fwd_head_group`` and 12 fp32
    ``mha_fwd`` an eval batch; two main steps under
    ``utils.profiling.trace`` (a Chrome trace written), the five largest
-   kernels by device ms, step ms, pairs/s, peak GiB and the idle share.
+   kernels by device ms, step ms, pairs/s, peak GiB and the idle share;
+40. the CLI under ``torchrun --standalone --nproc_per_node=<card count>``
+   (``python -m torch.distributed.run``) over NCCL at world = the card
+   count, on phase 19's YAML (full-width ViT-B-32 exp 6 at global batch
+   256, 2 epochs of 4 steps) with 256 eval pairs: rank 0 (the CLI's entry
+   point wrapped to count each step's launches) is sent SIGTERM after its
+   fifth train record (the first main-phase step, so the counted steps
+   launch rows 1, 3 and 5-9); then ``python -m torch.distributed.run ...
+   -m sparsify_clip_tpu_torch.cli`` resumes with ``resume_checkpoint:
+   "auto"``.  Both first records name ``nccl``, the world size and the
+   loss route (``kernel`` at one rank); at one rank the per-step losses
+   and the final npz are bit-identical to phase 19's run without the
+   launcher, and the steps launch phase 9's kernels;
+41. gloo over card tensors, 2 and then 4 ranks on card 0 under the
+   launcher (NCCL refuses two ranks on one device): the ring losses
+   (``ring_infonce_loss``, ``ring_lunif_loss`` alone and on the
+   centroids, SigLIP on gathered embeddings) at global (256, 512) fp32
+   against the kernels (rows 5-9) and ``siglip_loss`` on the whole batch,
+   value and every gradient, the scalars' included, at the CPU tests'
+   tolerances; full-width ViT-B-32 (2 and 4 ranks) and RN50 (2 ranks,
+   global BatchNorm) exp 6 in fp32 compute, 3 steps at global batch 256
+   against the one-process step on the same batches: the first step's
+   loss within 1e-5 and its gradient directions within phase 9's
+   tolerance, the later losses within 5e-3 (AdamW walks RN50's
+   BatchNorm coordinates whose gradient is rounding noise, a sign a
+   step, each side its own way), the running statistics within phase 9's
+   tolerance, every parameter within AdamW's reach of 3 steps
+   (2·lr·steps and the decay), and
+   every rank's parameters and buffers bit-identical (a sha256); the
+   sharded eval at 2 ranks against the
+   one-process eval, every metric within one 4-decimal step.  The step ms
+   of each world is printed beside the one-process step: gloo moves the
+   bytes of every collective through the host, so these are not
+   multi-GPU speeds.
 
 Phases 6 and 8 also hold the loss kernels at RN50's (256, 1024), the
 main path's shape, and at ViT-L-14-336's (256, 768) of phase 26.  The kernels line reports each kernel at the case its
@@ -305,24 +339,26 @@ ViT-L-14 CLI's launches of its kernel (vision and text towers alike).
 Depth cuts of the ViT-L-14-336 phases: 2 epochs of 4 steps (the
 reference trains 100); the eval set is 256 pairs in 4 batches of 64
 (the reference's 512), evaluated 3 times (before training and after
-each epoch).  Phase 19 trains 2 epochs of 8 steps on 2048 synthetic
-pairs (the reference trains 100 epochs on COCO) and evaluates 512
-pairs 4 times.  RN50 runs at full depth; phases 21-22 train 2 epochs of
+each epoch).  Phase 19 trains 2 epochs of 4 steps on 1024 synthetic
+pairs (the reference trains 100 epochs on COCO; cut from 8 steps an
+epoch to make room for phases 40-41) and evaluates 512 pairs 4 times.  RN50 runs at full depth; phases 21-22 train 2 epochs of
 8 steps (the reference trains 100 on COCO), phase 23 2 of 2 on 512
 synthetic pairs.  Phases 24-27 cut the depth of a run alone: SigLIP 2
 epochs of 4 steps, the GradCache ViT-L-14-336 run 2 of 2 (eval 256 pairs,
 not 512), the two CLIs 2 of 2 with one eval batch of 256.  Phases 28-31
-run ViT-B-32 at full width and depth; phase 30 cuts training as phase 19
-does (2 epochs of 8 steps on 2048 synthetic pairs, 512 eval pairs 4
-times).  Phases 32-35 run at full width: phase 32 cuts training as phase
-19 does with 256 eval pairs (the plots of 512 points take the host
+run ViT-B-32 at full width and depth; phase 30 cuts training to 2
+epochs of 8 steps on 2048 synthetic pairs, 512 eval pairs 4 times.
+Phases 32-35 run at full width: phase 32 cuts training as phase 19 does
+(from 8 steps an epoch, for phases 40-41) with 256 eval pairs (the plots of 512 points take the host
 seconds a pass), phase 33 trains 2 epochs of 2 steps, phases 34-35 a few
 steps.  Phases 36-39 cut depth alone: phase 37 trains 2 epochs of 2
 steps on 512 synthetic pairs with 256 eval pairs (the YAML: 100 epochs
 on COCO, 512 eval pairs), phase 38 2 epochs of 4 steps (phase 19's YAML
 otherwise), phase 39 2 epochs of 4 steps on 512 synthetic pairs with 256
 eval pairs (the YAML: 100 epochs on COCO, 512 eval pairs) and profiles 2
-steps.  The earlier phases run as they did.
+steps.  Phases 40-41 cut depth alone: phase 40 runs phase 19's YAML,
+phase 41 3 steps.  The
+earlier phases run as they did.
 
 The last lines are a JSON object of per-kernel results (time, plain time,
 library time, the card's least time for the work, launches on the main
@@ -336,6 +372,7 @@ repository beside it, the script fails.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -422,8 +459,10 @@ HG_BWD_FP32_TOL = (1e-4, 1e-5)  # rtol, atol relative to the largest entry
 LN_BWD_STEP = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -23}
 LN_BWD_CANCEL = 1e-5            # of the largest entry, y and dx
 LN_BWD_GRAD_TOL = (1e-4, 1e-5)  # dscale, dbias: rtol, atol relative to the largest entry
-# the CLI phases (18-19): exp 6 from a YAML, 8 steps an epoch at batch 256
+# the CLI phases (19, 30, 32): exp 6 from a YAML at batch 256; phases 19
+# and 32 at 4 steps an epoch, phase 30 at 8
 CLI_TRAIN_SAMPLES = 2048
+CLI_EXP6_SAMPLES = 1024
 CLI_PROFILE_STEPS = 4           # main-phase steps under torch.profiler
 CLI_PROCESS_TIMEOUT = 300       # seconds, each child CLI run
 # RN50 through the CLI (phase 23): 2 steps an epoch, one eval batch
@@ -1833,6 +1872,18 @@ def _cli_process(yaml_path: str, log_path: Optional[str] = None, stop_after: int
     return rc, time.perf_counter() - t, seen
 
 
+def _npz_digest(arrays) -> str:
+    """A sha256 of an npz's keys and array bytes (equal only for equal
+    files' contents)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for key in sorted(arrays.keys() if hasattr(arrays, "keys") else arrays.files):
+        h.update(key.encode())
+        h.update(np.ascontiguousarray(arrays[key]).tobytes())
+    return h.hexdigest()
+
+
 def _profile_cli_steps(config, steps: int, tracer=None):
     """The card's own account of the CLI's train loop: ``run_training``
     fed by the CLI's loader (threads, host transforms, tokenizer, the
@@ -1903,13 +1954,13 @@ def phase_cli_exp6(smi: str, device_resident: dict):
     from sparsify_clip_tpu_torch.models.clip import create_model
     from sparsify_clip_tpu_torch.train import batch_to_device
 
-    spe = CLI_TRAIN_SAMPLES // EXP6["batch_size"]
+    spe = CLI_EXP6_SAMPLES // EXP6["batch_size"]
     run = "exp6-vitb32"
     with tempfile.TemporaryDirectory() as tmp:
         main_dir, stop_dir = os.path.join(tmp, "main"), os.path.join(tmp, "stopped")
         os.makedirs(main_dir)
         os.makedirs(stop_dir)
-        yaml_path = _write_exp6_yaml(main_dir)
+        yaml_path = _write_exp6_yaml(main_dir, num_train_samples=CLI_EXP6_SAMPLES)
         config = load_config(yaml_path)
 
         # the loader alone: decode, crop, resize, flip, normalize and
@@ -1982,7 +2033,7 @@ def phase_cli_exp6(smi: str, device_resident: dict):
             idle_share_vs_cli_step=f"{idle:.4f}", card=json.dumps(smi))
 
         # SIGTERM after the third train record, then "auto" resume
-        stop_yaml = _write_exp6_yaml(stop_dir)
+        stop_yaml = _write_exp6_yaml(stop_dir, num_train_samples=CLI_EXP6_SAMPLES)
         stop_log = os.path.join(stop_dir, "logs", f"{run}.jsonl")
         rc, stop_seconds, seen = _cli_process(stop_yaml, stop_log, stop_after=3)
         stopped = _jsonl(stop_log)
@@ -1990,7 +2041,8 @@ def phase_cli_exp6(smi: str, device_resident: dict):
         if rc != 0 or not any(r.get("preempted") for r in stopped) or len(saved) != 1:
             raise AssertionError(f"the SIGTERM run exited {rc} with {saved}")
         stopped_at = len([r for r in stopped if "train_loss" in r])
-        resume_yaml = _write_exp6_yaml(stop_dir, resume_checkpoint="auto")
+        resume_yaml = _write_exp6_yaml(stop_dir, resume_checkpoint="auto",
+                                       num_train_samples=CLI_EXP6_SAMPLES)
         rc, resume_seconds, _ = _cli_process(resume_yaml)
         resumed = [r for r in _jsonl(stop_log) if "train_loss" in r]
         if rc != 0 or len(resumed) != EXP6_EPOCHS * spe:
@@ -2018,7 +2070,8 @@ def phase_cli_exp6(smi: str, device_resident: dict):
     if cosines[worst] < TRAIN_MIN_GRAD_COSINE or loss_gap > TRAIN_LOSS_RTOL:
         raise AssertionError("the resumed run and the uninterrupted run disagree")
     return dict(launches=launches, loader_ms=loader_ms, copy_ms=copy_ms, rates=rates,
-                profile=prof)
+                profile=prof, losses=[r["train_loss"] for r in step_records],
+                npz_digest=_npz_digest(full))
 
 
 def phase_cli_rn50(smi: str):
@@ -2751,10 +2804,11 @@ def phase_cli_sparse(smi: str, phase19: dict):
     from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup
     from sparsify_clip_tpu_torch.utils.numerics import l2_normalize
 
-    spe, batch = CLI_TRAIN_SAMPLES // EXP6["batch_size"], EXP6["batch_size"]
+    spe, batch = CLI_EXP6_SAMPLES // EXP6["batch_size"], EXP6["batch_size"]
     plots = importlib.util.find_spec("matplotlib") is not None
     run = "exp6-topk"
-    sparse = dict(sparse_projection="topk", sparse_topk=SPARSE_TOPK, sparse_after_epoch=1)
+    sparse = dict(sparse_projection="topk", sparse_topk=SPARSE_TOPK, sparse_after_epoch=1,
+                  num_train_samples=CLI_EXP6_SAMPLES)
     with tempfile.TemporaryDirectory() as tmp:
         yaml_path = _write_exp6_yaml(tmp, run_name=run, num_test_samples=SPARSE_EVAL_PAIRS,
                                      plot_embeddings=plots, **sparse)
@@ -3583,6 +3637,548 @@ def phase_cli_vitl14(smi: str):
                 groups=groups)
 
 
+# --------------------------------------------------------------------
+# Phases 40-41: data-parallel training across processes
+# --------------------------------------------------------------------
+
+DP_WORLDS = (2, 4)               # phase 41: gloo ranks on card 0
+DP_STEPS, DP_SPE = 3, 2          # phase 41: 3 steps, 2 an epoch (warm, warm, main)
+DP_LOSS_SHAPE = (256, 512)       # phase 41: the ring losses' global (N, D)
+DP_EVAL_PAIRS = 512              # phase 41: two eval batches of 256
+DP_PROCESS_TIMEOUT = 420         # seconds, each launcher call
+# the CPU tests' tolerances (tests/test_torch_port_dist_losses.py)
+DP_VALUE_RTOL, DP_GRAD_TOL, DP_SCALAR_RTOL = 1e-5, (1e-4, 1e-6), 1e-4
+DP_EVAL_ATOL = 1e-4              # one 4-decimal rounding step
+DP_RING_FNS = ("ring_infonce", "ring_lunif", "ring_lunif_centroids", "gathered_siglip")
+# the data-parallel steps held against one process: (model, compute type,
+# worlds).  ViT-B-32 in bf16 is the users' step; in fp32 the comparison sees
+# the collectives and not bf16 rounding.  RN50 runs fp32 only: in bf16 AdamW
+# walks its BatchNorm coordinates whose gradient is rounding noise (a sign a
+# step, tests/test_torch_port_rn50.py) each side its own way.
+DP_STEP_RUNS = (("ViT-B-32", "bf16", (2,)), ("RN50", "fp32", (2,)), ("ViT-B-32", "fp32", (4,)))
+# the gates of a data-parallel run against one process, each limit above
+# the sound readings on the card, below the readings of the faults it must
+# catch (scripts/dp_gate_faults.py; both in PERF.md §6):
+# - the first step's loss, from the same parameters and batch;
+DP_FIRST_LOSS_RTOL = 1e-5
+# - the later steps' losses, once AdamW has stepped (RN50: its noise
+#   coordinates, above, in fp32 too);
+DP_LATER_LOSS_RTOL = {("ViT-B-32", "bf16"): 5e-4, ("ViT-B-32", "fp32"): 1e-5,
+                      ("RN50", "fp32"): 5e-3}
+# - the first step's gradient, per tensor: its cosine, and its norm by
+#   value (a cosine cannot see a gradient W times or 1/W its size);
+DP_GRAD_NORM_RTOL = {("ViT-B-32", "bf16"): 5e-3, ("ViT-B-32", "fp32"): 1e-4,
+                     ("RN50", "fp32"): 1e-2}
+# - the parameters after the last step: |Δ_W − Δ_1| / |Δ_1| over every
+#   parameter, Δ the change from the seed's parameters;
+DP_UPDATE_RTOL = {("ViT-B-32", "bf16"): 0.2, ("ViT-B-32", "fp32"): 1e-3,
+                  ("RN50", "fp32"): 0.5}
+# - the running statistics: TRAIN_LOSS_RTOL of their largest entry.
+
+
+def _launcher(nproc: int, args, out_dir: str, log_path: Optional[str] = None,
+              stop_after: int = 0):
+    """``python -m torch.distributed.run --standalone --nproc_per_node=N``
+    (``torchrun``) in a child process; with ``stop_after``, SIGTERM to rank
+    0 (its pid in ``out_dir/pid_rank0``) once ``log_path`` holds that many
+    train records.  Returns (exit code, seconds, records seen, output)."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=REPO, WANDB_MODE="disabled", OMP_NUM_THREADS="2")
+    t = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             f"--nproc_per_node={nproc}", *args], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    output, seen = [], None
+    reader = threading.Thread(target=lambda: output.extend(proc.stdout), daemon=True)
+    reader.start()
+    try:
+        while stop_after and proc.poll() is None:
+            n = 0
+            if os.path.exists(log_path):
+                n = sum(1 for r in _jsonl(log_path) if "train_loss" in r)
+            pid_file = os.path.join(out_dir, "pid_rank0")
+            if n >= stop_after and os.path.exists(pid_file):
+                os.kill(int(open(pid_file).read()), signal.SIGTERM)
+                seen = n
+                break
+            time.sleep(0.02)
+        rc = proc.wait(timeout=DP_PROCESS_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    if rc != 0:
+        print("".join(output[-80:]), file=sys.stderr)
+    return rc, time.perf_counter() - t, seen, "".join(output)
+
+
+def cli_rank_main(yaml_path: str, out_dir: str) -> int:
+    """One rank of phase 40: ``sparsify_clip_tpu_torch.cli``'s entry point
+    under the launcher, with the kernels' launches of every step and eval
+    counted and written to ``out_dir/counts_rank<r>.json``."""
+    from sparsify_clip_tpu_torch import cli
+
+    rank = os.environ.get("RANK", "0")
+    with open(os.path.join(out_dir, f"pid_rank{rank}"), "w") as fh:
+        fh.write(str(os.getpid()))
+    counter = _PerStepCounts()
+    try:
+        reset_counts()
+        cli.cli(["--config", yaml_path])
+        launches = read_counts()
+    finally:
+        counter.close()
+    with open(os.path.join(out_dir, f"counts_rank{rank}.json"), "w") as fh:
+        json.dump(dict(launches=launches, steps=counter.steps, evals=counter.evals), fh)
+    return 0
+
+
+def phase_torchrun_nccl(smi: str, phase19: dict):
+    """Phase 40: the CLI under ``torchrun`` at world = the card count over
+    NCCL, on phase 19's YAML (full-width ViT-B-32 exp 6 at global batch
+    256): SIGTERM after the first main-phase train record, then
+    ``resume_checkpoint: "auto"`` through ``python -m
+    torch.distributed.run ... -m sparsify_clip_tpu_torch.cli``; the per-step
+    losses and the final npz against phase 19's run without the launcher
+    (bit-identical at world 1)."""
+    import tempfile
+
+    world = torch.cuda.device_count()
+    run = "exp6-vitb32"
+    spe = CLI_EXP6_SAMPLES // EXP6["batch_size"]
+    # phase 19's YAML with one eval batch and no epoch-end full state (1.8
+    # GB a save), which change no train number: the SIGTERM writes the
+    # full state the resume reads
+    fields = dict(num_train_samples=CLI_EXP6_SAMPLES, num_test_samples=EXP6["batch_size"],
+                  save_checkpoint_every_n_epochs=EXP6_EPOCHS + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = os.path.join(tmp, "logs", f"{run}.jsonl")
+        rc, stop_seconds, seen, out = _launcher(
+            world, [os.path.join(REPO, "chip_smoke.py"), "--cli-rank",
+                    _write_exp6_yaml(tmp, **fields), tmp],
+            tmp, log_path, stop_after=spe + 1)
+        stopped = _jsonl(log_path)
+        saved = sorted(os.listdir(os.path.join(tmp, "models", run)))
+        if rc != 0 or not any(r.get("preempted") for r in stopped) or len(saved) != 1:
+            raise AssertionError(f"phase 40: the torchrun SIGTERM run exited {rc} with {saved}")
+        with open(os.path.join(tmp, "counts_rank0.json")) as fh:
+            counts = json.load(fh)
+        stopped_at = len([r for r in stopped if "train_loss" in r])
+        rc, resume_seconds, _, out = _launcher(
+            world, ["-m", "sparsify_clip_tpu_torch.cli", "--config",
+                    _write_exp6_yaml(tmp, resume_checkpoint="auto", **fields)], tmp)
+        if rc != 0:
+            raise AssertionError(f"phase 40: the torchrun resume exited {rc}")
+        records = _jsonl(log_path)
+        with np.load(os.path.join(tmp, "models", f"{run}.npz")) as f:
+            npz_identical = _npz_digest(f) == phase19["npz_digest"]
+    starts = [r for r in records if r.get("event") == "run_start"]
+    route = "kernel" if world == 1 else "ring"
+    want_parallel = {"world_size": world, "backend": "nccl", "loss_route": route}
+    if len(starts) != 2 or any(r["parallel"] != want_parallel for r in starts):
+        raise AssertionError(f"phase 40: run_start records {[r.get('parallel') for r in starts]}"
+                             f", expected {want_parallel}")
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    want = phase19["losses"]
+    # the stopped run: before training and after each epoch it finished;
+    # the resumed run: before, after each epoch left, and the final one
+    expected = 1 + (stopped_at - 1) // spe + 1 + (EXP6_EPOCHS - stopped_at // spe) + 1
+    evals = _check_evals(records, expected, "the torchrun runs")
+    identical = losses == want
+    zero = dict.fromkeys(KERNELS, 0)
+    warm = dict(zero, mha_fwd=24, mha_bwd=24, lunif_fwd=2, lunif_bwd=2)
+    main = dict(zero, mha_fwd=24, mha_bwd=24, infonce_fwd=1, infonce_bwd_dimg=1,
+                infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
+    if world == 1:  # over several ranks the rings replace the loss kernels
+        _expect_launches([tuple(s) for s in counts["steps"]],
+                         [(k, warm if k < spe else main) for k in range(stopped_at)],
+                         "the torchrun run's steps")
+    log("phase 40 torchrun", world=world, backend="nccl", loss_route=route,
+        sigterm_after_records=seen, stopped_at_step=stopped_at, full_state=json.dumps(saved),
+        losses=json.dumps(losses), losses_without_launcher=json.dumps(want),
+        losses_bit_identical=identical, npz_bit_identical=npz_identical, evals=len(evals),
+        launches=json.dumps(counts["launches"]), stop_run_s=f"{stop_seconds:.3f}",
+        resume_run_s=f"{resume_seconds:.3f}", card=json.dumps(smi))
+    if stopped_at <= spe:
+        raise AssertionError(f"phase 40: the counted run stopped at step {stopped_at}, before "
+                             "a main-phase step")
+    if len(losses) != EXP6_EPOCHS * spe or (world == 1 and not (identical and npz_identical)):
+        raise AssertionError("phase 40: the torchrun run and the run without the launcher "
+                             "disagree")
+    if world > 1 and max(_rel_gap(a, b) for a, b in zip(losses, want)) > TRAIN_LOSS_RTOL:
+        raise AssertionError("phase 40: the NCCL data-parallel losses left phase 9's tolerance")
+    return dict(launches=counts["launches"])
+
+
+def _dp_unit_rows(seed: int):
+    rng = np.random.default_rng(seed)
+    n, d = DP_LOSS_SHAPE
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _dp_ring_losses(mesh, device):
+    """The ring losses (and the gathered SigLIP) on this rank's rows of
+    the global (256, 512) batch → values, scalar gradients and the rows'
+    gradients; at one rank, the kernels (rows 5-9) and ``siglip_loss`` on
+    the whole batch."""
+    from sparsify_clip_tpu_torch.losses import normalized_centroids, siglip_loss
+    from sparsify_clip_tpu_torch.ops.infonce import infonce_loss
+    from sparsify_clip_tpu_torch.ops.lunif import lunif_loss
+    from sparsify_clip_tpu_torch.parallel import dist_losses as dl
+    from sparsify_clip_tpu_torch.parallel.mesh import all_gather
+
+    img_all, txt_all = _dp_unit_rows(SEED + 40), _dp_unit_rows(SEED + 41)
+    rows = slice(None) if mesh is None else mesh.batch_slice(img_all.shape[0])
+    ring = mesh is not None
+    fns = {
+        "ring_infonce": lambda i, t, s: (dl.ring_infonce_loss(i, t, s["T"], mesh) if ring
+                                         else infonce_loss(i, t, s["T"])),
+        "ring_lunif": lambda i, t, s: dl.ring_lunif_loss(i, mesh) if ring else lunif_loss(i),
+        "ring_lunif_centroids": lambda i, t, s: (
+            dl.ring_lunif_loss(dl.global_normalized_centroids(i, t), mesh) if ring
+            else lunif_loss(normalized_centroids(i, t))),
+        "gathered_siglip": lambda i, t, s: siglip_loss(
+            *((all_gather(i, mesh), all_gather(t, mesh)) if ring else (i, t)),
+            s["scale"], s["bias"]),
+    }
+    values, arrays = {}, {}
+    for name, fn in fns.items():
+        i = torch.tensor(img_all[rows], device=device, requires_grad=True)
+        t = torch.tensor(txt_all[rows], device=device, requires_grad=True)
+        scalars = {k: torch.tensor(v, device=device, requires_grad=True)
+                   for k, v in (("T", 0.1), ("scale", 10.0), ("bias", -10.0))}
+        loss = fn(i, t, scalars)
+        loss.backward()
+        values[name] = {"loss": loss.item(),
+                        **{f"d{k}": (0.0 if v.grad is None else v.grad.item())
+                           for k, v in scalars.items()}}
+        arrays[f"{name}/dimg"] = i.grad.cpu().numpy()
+        arrays[f"{name}/dtxt"] = (t.grad if t.grad is not None
+                                  else torch.zeros_like(t)).cpu().numpy()
+    return values, arrays
+
+
+def _dp_steps(model: str, dtype: str, mesh, device, keep: bool = False):
+    """``DP_STEPS`` exp-6 steps of full-width ``model`` at global batch 256
+    on this rank's rows, in ``dtype`` (``"bf16"`` or ``"fp32"``) compute:
+    the losses, the launches a step, the timed steps' ms, a sha256 of the
+    parameters and buffers, and, with ``keep``, the first step's gradients
+    and the final parameters and running statistics on the host (under
+    ``saved``; one process also keeps the seed's parameters)."""
+    from sparsify_clip_tpu_torch.config import ExperimentConfig
+    from sparsify_clip_tpu_torch.data import synthetic_batch
+    from sparsify_clip_tpu_torch.parallel.mesh import digest
+    from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup
+
+    config = ExperimentConfig.from_dict(dict(EXP6, model=model, epochs=EXP6_EPOCHS,
+                                             fp16=dtype == "bf16"))
+    setup = create_train_setup(config, steps_per_epoch=DP_SPE, device=device, mesh=mesh)
+    cfg = setup.model.cfg
+    saved = {}
+    if keep and mesh is None:
+        saved["init"] = {n: p.detach().cpu() for n, p in setup.model.named_parameters()}
+    losses, counts, ms = [], [], []
+    for k in range(DP_STEPS):
+        batch = synthetic_batch(TRAIN_BATCH, cfg.image_size, cfg.context_length, seed=SEED + k)
+        if mesh is not None:
+            batch = {key: v[mesh.batch_slice(TRAIN_BATCH)] for key, v in batch.items()}
+        batch = batch_to_device(batch, device)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        setup.state, metrics = setup.train_step(setup.state, batch)
+        losses.append(float(metrics["train_loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        counts.append(read_counts())
+        if k == 0 and keep:
+            saved["grads"] = {n: p.grad.detach().cpu() for n, p in setup.model.named_parameters()}
+    out = dict(losses=losses, counts=counts, step_ms=ms,
+               digest=digest(list(setup.model.parameters()) + list(setup.model.buffers())))
+    if keep:
+        saved["params"] = {n: p.detach().cpu() for n, p in setup.model.named_parameters()}
+        saved["buffers"] = {n: b.detach().cpu() for n, b in setup.model.named_buffers()}
+        out["saved"] = saved
+    del setup
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_eval(mesh, device):
+    """The 13 metrics of ViT-B-32's fp32 eval twin (from the seed) over
+    ``DP_EVAL_PAIRS`` synthetic pairs, each rank encoding its rows."""
+    from sparsify_clip_tpu_torch.data import synthetic_batch
+    from sparsify_clip_tpu_torch.eval import evaluate_model, make_eval_model
+    from sparsify_clip_tpu_torch.models.clip import create_model
+
+    model = create_model("ViT-B-32", dtype=torch.bfloat16, device=device, seed=SEED,
+                         param_dtype=torch.float32)
+    twin = make_eval_model(model)
+    batches = []
+    for k in range(DP_EVAL_PAIRS // TRAIN_BATCH):
+        batch = synthetic_batch(TRAIN_BATCH, 224, 77, seed=SEED + 20 + k)
+        if mesh is not None:
+            batch = {key: v[mesh.batch_slice(TRAIN_BATCH)] for key, v in batch.items()}
+        batches.append(batch)
+    reset_counts()
+    metrics = evaluate_model(twin, batches, mesh=mesh)
+    launches = read_counts()
+    del model, twin
+    torch.cuda.empty_cache()
+    return metrics, launches
+
+
+def dp_rank_main(plan_path: str) -> int:
+    """One gloo rank of phase 41 on card 0 (under the launcher): the plan's
+    jobs on this rank's rows, written to the plan's directory."""
+    from sparsify_clip_tpu_torch.parallel.mesh import create_mesh
+    from sparsify_clip_tpu_torch.parallel.multihost import (
+        initialize_distributed, shutdown_distributed,
+    )
+
+    with open(plan_path) as fh:
+        plan = json.load(fh)
+    if plan.get("fault"):
+        _dp_fault(plan["fault"])
+    device = initialize_distributed(None, backend="gloo")
+    mesh = create_mesh()
+    out_dir, result = plan["dir"], {"device": str(device), "backend": mesh.backend}
+    if "losses" in plan["jobs"]:
+        result["losses"], arrays = _dp_ring_losses(mesh, device)
+        np.savez(os.path.join(out_dir, f"losses_rank{mesh.rank}.npz"), **arrays)
+    for job in plan["jobs"]:
+        if job.startswith("step:"):  # step:<model>:<dtype>
+            _, model, dtype = job.split(":")
+            result[job] = _dp_steps(model, dtype, mesh, device, keep=mesh.rank == 0)
+            if mesh.rank == 0:  # rank 0's tensors for the comparison
+                torch.save(result[job].pop("saved"), os.path.join(out_dir, f"{model}_{dtype}.pt"))
+    if "eval" in plan["jobs"]:
+        result["eval"], result["eval_launches"] = _dp_eval(mesh, device)
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as fh:
+        json.dump(result, fh)
+    shutdown_distributed()
+    return 0
+
+
+def _dp_fault(name: str) -> None:
+    """Break this rank's data-parallel step on purpose, for
+    ``scripts/dp_gate_faults.py``: ``grad_mean`` averages the gradients
+    over the ranks (DDP's mean: every gradient 1/W of the global loss's),
+    ``no_grad_allreduce`` steps each rank on its own rows' share of the
+    gradient, ``local_bn`` takes RN50's BatchNorm statistics over the
+    rank's rows."""
+    from sparsify_clip_tpu_torch import train
+
+    summed = train.all_reduce_gradients
+    if name == "grad_mean":
+        def mean(params, mesh):
+            params = list(params)
+            summed(params, mesh)
+            for p in params:
+                p.grad.div_(mesh.data)
+        train.all_reduce_gradients = mean
+    elif name == "no_grad_allreduce":
+        train.all_reduce_gradients = lambda params, mesh: None
+    elif name == "local_bn":
+        train.set_data_parallel = lambda model, mesh: None
+    else:
+        raise ValueError(f"unknown fault {name!r}")
+
+
+def _dp_grad_readings(grads_a: dict, grads_b: dict, world: int) -> dict:
+    """Per-tensor first-step gradients of a data-parallel run (a) against
+    one process (b): the worst cosine and the largest relative norm gap,
+    each with its tensor, and that gap if a's gradients were W times or
+    1/W their size (the smaller of the two).  Left out: the attention
+    pool's key bias and the key third of each fused qkv bias (true
+    gradient 0), and a tensor whose gradient is under 1e-4 of the largest
+    tensor gradient's norm (a BatchNorm bias that feeds a conv and another
+    train-mode BatchNorm: its gradient is rounding noise,
+    tests/test_torch_port_rn50.py)."""
+    floor = 1e-4 * max(b.norm().item() for b in grads_b.values())
+    worst, worst_cos, widest, norm_gap, scaled = None, 2.0, None, 0.0, {world: 0.0, 1 / world: 0.0}
+    for name, a in grads_a.items():
+        b = grads_b[name]
+        if name in ZERO_GRADIENT or b.norm().item() < floor:
+            continue
+        if name.endswith("in_proj_bias"):
+            w = a.shape[0] // 3
+            a, b = torch.cat([a[:w], a[2 * w:]]), torch.cat([b[:w], b[2 * w:]])
+        cos = _cosine(a.cuda(), b.cuda())
+        if cos < worst_cos:
+            worst, worst_cos = name, cos
+        ratio = a.norm().item() / b.norm().item()
+        if abs(ratio - 1) > norm_gap:
+            widest, norm_gap = name, abs(ratio - 1)
+        for k in scaled:
+            scaled[k] = max(scaled[k], abs(k * ratio - 1))
+    return dict(min_grad_cosine=worst_cos, min_at=worst, grad_norm_rel_gap=norm_gap,
+                norm_gap_at=widest, grad_norm_rel_gap_if_scaled=min(scaled.values()))
+
+
+def _dp_step_readings(runs: list, got: dict, ref_run: dict, ref: dict, world: int) -> dict:
+    """Every gate's reading of a data-parallel run (``runs``: each rank's
+    results; ``got``: rank 0's tensors) against the one-process run from
+    the same seed and batches (``ref_run``, ``ref``)."""
+    gaps = [_rel_gap(a, b) for a, b in zip(runs[0]["losses"], ref_run["losses"])]
+    num = sum(((got["params"][n] - p).double().square().sum().item()
+               for n, p in ref["params"].items()))
+    den = sum(((p - ref["init"][n]).double().square().sum().item()
+               for n, p in ref["params"].items()))
+    stats = ref["buffers"]
+    return dict(
+        first_loss_rel_gap=gaps[0], later_loss_rel_gap=max(gaps[1:]),
+        **_dp_grad_readings(got["grads"], ref["grads"], world),
+        update_rel_gap=math.sqrt(num / den),
+        stats_max_abs_diff=max(((got["buffers"][n] - b).abs().max().item()
+                                for n, b in stats.items()), default=0.0),
+        stats_scale=max((b.abs().max().item() for b in stats.values()), default=0.0),
+        ranks_bit_identical=len({r["digest"] for r in runs}) == 1)
+
+
+def _dp_gates_fired(key: tuple, r: dict) -> list:
+    """The gates that a data-parallel run's readings ``r`` fire, for
+    (model, dtype) ``key``."""
+    fired = {
+        "ranks_bit_identical": not r["ranks_bit_identical"],
+        "first_loss": r["first_loss_rel_gap"] > DP_FIRST_LOSS_RTOL,
+        "later_loss": r["later_loss_rel_gap"] > DP_LATER_LOSS_RTOL[key],
+        "grad_cosine": r["min_grad_cosine"] < TRAIN_MIN_GRAD_COSINE,
+        "grad_norm": r["grad_norm_rel_gap"] > DP_GRAD_NORM_RTOL[key],
+        "update": r["update_rel_gap"] > DP_UPDATE_RTOL[key],
+        "running_stats": r["stats_max_abs_diff"] > TRAIN_LOSS_RTOL * r["stats_scale"],
+    }
+    return [name for name, bad in fired.items() if bad]
+
+
+def _dp_references(device, step_runs=DP_STEP_RUNS):
+    """The one-process runs phase 41 holds the ranks against: the ring
+    losses on the whole batch, each (model, dtype) step run with its
+    tensors, the eval's metrics, and their seconds."""
+    t = time.perf_counter()
+    losses, arrays = _dp_ring_losses(None, device)
+    steps = {(m, d): _dp_steps(m, d, None, device, keep=True) for m, d, _ in step_runs}
+    saved = {key: run.pop("saved") for key, run in steps.items()}
+    metrics, _ = _dp_eval(None, device)
+    torch.cuda.empty_cache()
+    return dict(losses=losses, arrays=arrays, steps=steps, saved=saved, eval=metrics,
+                seconds=time.perf_counter() - t)
+
+
+def _dp_launch(world: int, jobs: list, fault: Optional[str] = None):
+    """``world`` gloo ranks on card 0 running ``jobs`` (with ``fault``, a
+    broken step) → (each rank's results, its ring-loss arrays, rank 0's
+    step tensors by (model, dtype), seconds)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        plan = os.path.join(tmp, "plan.json")
+        with open(plan, "w") as fh:
+            json.dump(dict(dir=tmp, jobs=jobs, fault=fault), fh)
+        rc, seconds, _, out = _launcher(world, [os.path.join(REPO, "chip_smoke.py"),
+                                                "--dp-rank", plan], tmp)
+        if rc != 0:
+            raise AssertionError(f"phase 41: {world} gloo ranks exited {rc}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        rows = ([dict(np.load(os.path.join(tmp, f"losses_rank{r}.npz"))) for r in range(world)]
+                if "losses" in jobs else [])
+        saved = {}
+        for job in jobs:
+            if job.startswith("step:"):
+                _, model, dtype = job.split(":")
+                saved[(model, dtype)] = torch.load(os.path.join(tmp, f"{model}_{dtype}.pt"))
+    if any(not r["device"].startswith("cuda") or r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"phase 41: ranks on {[r['device'] for r in ranks]}")
+    return ranks, rows, saved, seconds
+
+
+def phase_dp_gloo(smi: str):
+    """Phase 41: 2 and 4 ranks on card 0 over gloo, every tensor on the
+    card: the ring losses against rows 5-9, full-width ViT-B-32 (bf16 at
+    world 2, fp32 at world 4) and RN50 (fp32, world 2) data-parallel steps
+    against the one-process step on the same global batch, and the sharded
+    eval (world 2) against the one-process eval."""
+    ref = _dp_references(torch.device("cuda"))
+    readings, launches, failed = {}, {}, []
+    for world in DP_WORLDS:
+        steps = [(m, d) for m, d, worlds in DP_STEP_RUNS if world in worlds]
+        jobs = (["losses"] + [f"step:{m}:{d}" for m, d in steps]
+                + (["eval"] if world == 2 else []))
+        ranks, rows, saved, seconds = _dp_launch(world, jobs)
+        # 1. the ring losses against the kernels on the whole batch
+        ring = {}
+        for name in DP_RING_FNS:
+            want = ref["losses"][name]
+            values = [r["losses"][name] for r in ranks]
+            dimg = np.concatenate([a[f"{name}/dimg"] for a in rows])
+            dtxt = np.concatenate([a[f"{name}/dtxt"] for a in rows])
+            want_dimg, want_dtxt = ref["arrays"][f"{name}/dimg"], ref["arrays"][f"{name}/dtxt"]
+            err = max(float(np.abs(dimg - want_dimg).max()), float(np.abs(dtxt - want_dtxt).max()))
+            rtol, atol = DP_GRAD_TOL
+            ok = (all(v == values[0] for v in values)
+                  and _rel_gap(values[0]["loss"], want["loss"]) <= DP_VALUE_RTOL
+                  and np.allclose(dimg, want_dimg, rtol=rtol, atol=atol)
+                  and np.allclose(dtxt, want_dtxt, rtol=rtol, atol=atol)
+                  and all(_rel_gap(values[0][k], want[k]) <= DP_SCALAR_RTOL
+                          for k in ("dT", "dscale", "dbias") if want[k] != 0.0))
+            ring[name] = dict(loss=values[0]["loss"], loss_one_process=want["loss"],
+                              max_abs_grad_err=err, ok=ok)
+            if not ok:
+                failed.append(f"{name} at {world} ranks")
+        log(f"phase 41 rings w{world}", ranks=world, backend="gloo", shape=list(DP_LOSS_SHAPE),
+            rings=json.dumps(ring), value_rtol=DP_VALUE_RTOL, grad_tol=list(DP_GRAD_TOL),
+            scalar_rtol=DP_SCALAR_RTOL, seconds=f"{seconds:.3f}")
+        # 2-3. the data-parallel steps against the one-process step
+        for key in steps:
+            model, dtype = key
+            runs = [r[f"step:{model}:{dtype}"] for r in ranks]
+            r = _dp_step_readings(runs, saved[key], ref["steps"][key], ref["saved"][key], world)
+            fired = _dp_gates_fired(key, r)
+            step_ms = float(np.mean(runs[0]["step_ms"][1:]))
+            launches[f"train_dp_gloo_{model}_{dtype}_w{world}"] = {
+                k: sum(c[k] for c in runs[0]["counts"]) for k in KERNELS}
+            readings[f"{model}_{dtype}_w{world}"] = step_ms
+            log(f"phase 41 step {model} {dtype} w{world}", ranks=world, backend="gloo",
+                global_batch=TRAIN_BATCH, steps=DP_STEPS, losses=json.dumps(runs[0]["losses"]),
+                losses_one_process=json.dumps(ref["steps"][key]["losses"]),
+                readings=json.dumps(r), gates_fired=json.dumps(fired),
+                first_rtol=DP_FIRST_LOSS_RTOL, later_rtol=DP_LATER_LOSS_RTOL[key],
+                min_cosine=TRAIN_MIN_GRAD_COSINE, grad_norm_rtol=DP_GRAD_NORM_RTOL[key],
+                update_rtol=DP_UPDATE_RTOL[key], stats_rtol=TRAIN_LOSS_RTOL,
+                launches_first_step=json.dumps(runs[0]["counts"][0]),
+                step_ms=f"{step_ms:.3f}",
+                step_ms_one_process=f"{np.mean(ref['steps'][key]['step_ms'][1:]):.3f}",
+                note="gloo moves every collective's bytes through the host: not a multi-GPU "
+                     "speed", card=json.dumps(smi))
+            # a gradient W times or 1/W its size must fire the norm gate
+            if fired or r["grad_norm_rel_gap_if_scaled"] <= DP_GRAD_NORM_RTOL[key]:
+                failed.append(f"the {model} {dtype} step at {world} ranks: {fired}")
+        # 4. the sharded eval
+        if world == 2:
+            evals = [r["eval"] for r in ranks]
+            gaps = {k: abs(evals[0][k] - ref["eval"][k]) for k in ref["eval"]}
+            log("phase 41 eval w2", ranks=world, pairs=DP_EVAL_PAIRS, metrics=json.dumps(evals[0]),
+                metrics_one_process=json.dumps(ref["eval"]), max_gap=max(gaps.values()),
+                atol=DP_EVAL_ATOL, launches=json.dumps(ranks[0]["eval_launches"]))
+            if (any(e != evals[0] for e in evals) or set(evals[0]) != set(ref["eval"])
+                    or max(gaps.values()) > DP_EVAL_ATOL):
+                failed.append("the sharded eval")
+    log("phase 41 rate", step_ms=json.dumps({k: round(v, 3) for k, v in readings.items()}),
+        step_ms_one_process=json.dumps({f"{m}_{d}": round(float(np.mean(run["step_ms"][1:])), 3)
+                                        for (m, d), run in ref["steps"].items()}),
+        reference_seconds=f"{ref['seconds']:.3f}",
+        note="gloo on one card: not a multi-GPU speed", card=json.dumps(smi))
+    if failed:
+        raise AssertionError(f"phase 41: against one process: {failed}")
+    return dict(launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -3798,6 +4394,13 @@ def main() -> int:
     cli_grain = phase_cli_grain(smi, cli_exp6)
     torch.cuda.empty_cache()
     vitl14 = phase_cli_vitl14(smi)
+    torch.cuda.empty_cache()
+
+    # data-parallel training across processes: the CLI under torchrun over
+    # NCCL at world = the card count, then 2 and 4 gloo ranks on card 0
+    torchrun = phase_torchrun_nccl(smi, cli_exp6)
+    torch.cuda.empty_cache()
+    dp_gloo = phase_dp_gloo(smi)
 
     # each row's times are at the case named beside it: the RN50 main
     # path's shape where the kernel runs on it (the text tower's causal
@@ -3849,6 +4452,8 @@ def main() -> int:
     # the L = 257 cases count the ViT-L-14 CLI's launches of their kernel
     # (its vision tower at 257 and its text tower at 77 alike)
     on_vitl14 = lambda path: path == "cli_vitl14"  # noqa: E731
+    # (the data-parallel paths of phase 41 run ViT-B-32 and RN50: their
+    # attention counts with the whole-width rows, not the L = 257 cases)
     counted = {"ln_qkv_fwd": ("ln_qkv_fwd", lambda path: not path.startswith("eval")),
                "ln_qkv_fwd/fp32": ("ln_qkv_fwd", lambda path: path.startswith("eval")),
                "mha_fwd/vision-257": ("mha_fwd", on_vitl14),
@@ -3898,6 +4503,8 @@ def main() -> int:
             "cli_rn50_yaml": cli_rn50_yaml["launches"][counter],
             "cli_grain": cli_grain["launches"][counter],
             "cli_vitl14": vitl14["launches"][counter],
+            "cli_torchrun_nccl": torchrun["launches"][counter],
+            **{path: counts[counter] for path, counts in dp_gloo["launches"].items()},
         }
         by_path = {path: count for path, count in by_path.items() if on_path(path)}
         entries.append({
@@ -3928,4 +4535,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-rank"]:  # a rank of phase 40, under the launcher
+        sys.exit(cli_rank_main(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 41, under the launcher
+        sys.exit(dp_rank_main(sys.argv[2]))
     sys.exit(main())

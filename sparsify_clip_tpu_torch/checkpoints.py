@@ -36,6 +36,12 @@ model's ``state_dict`` (parameters and BatchNorm running statistics),
 the AdamW state, the temperature, the device-augment generator's state,
 the step and the config, written under a temporary name and then
 renamed.
+
+Over a process group of several ranks (JAX checkpoints.py:102-127) the
+parameters are replicated, so the primary alone writes the weights npz
+and the full state and every rank then waits at a barrier (an
+asynchronous save, at :func:`wait_for_async_saves`); every rank restores
+from the same files.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from sparsify_clip_tpu_torch.parallel.multihost import barrier, is_primary
 
 
 def _identity(a: np.ndarray) -> np.ndarray:
@@ -236,8 +244,10 @@ def save_weights(model: nn.Module, path: str) -> str:
     periodic ``torch.save(model.state_dict())``), readable by the JAX
     ``load_weights`` and by :func:`load_weights`."""
     path = os.path.abspath(os.path.expanduser(path))
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez(path, **collect_host_arrays(model))
+    if is_primary():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, **collect_host_arrays(model))
+    barrier()
     return path
 
 
@@ -285,7 +295,11 @@ def save_full(state, directory: str, config: Optional[Any] = None) -> str:
     AdamW and its moments in their dtypes, temperature, SigLIP's loss
     scalars, the device-augment generator's state, step) and the config as
     ``directory/step_<N>.pt``."""
-    return _write(_snapshot(state, config), _step_path(directory, int(state.step)))
+    path = _step_path(directory, int(state.step))
+    if is_primary():
+        _write(_snapshot(state, config), path)
+    barrier()
+    return path
 
 
 _async_saves: List[threading.Thread] = []
@@ -296,8 +310,10 @@ def save_full_async(state, directory: str, config: Optional[Any] = None) -> str:
     """Non-blocking :func:`save_full`: the state is copied to host memory
     now, and a thread writes the file, so the train loop keeps stepping.
     Call :func:`wait_for_async_saves` before reading the files or exiting."""
+    path = _step_path(directory, int(state.step))
+    if not is_primary():
+        return path
     payload = _snapshot(state, config)
-    path = _step_path(directory, payload["step"])
 
     def write():
         try:
@@ -316,6 +332,7 @@ def wait_for_async_saves() -> None:
     re-raise the first error of one that failed."""
     while _async_saves:
         _async_saves.pop(0).join()
+    barrier()
     if _async_errors:
         exc = _async_errors[0]
         _async_errors.clear()

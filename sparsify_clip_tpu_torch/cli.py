@@ -1,6 +1,7 @@
 """Experiment runner CLI, ported from :mod:`sparsify_clip_tpu.cli`.
 
     python3 -m sparsify_clip_tpu_torch.cli --config <file-or-dir> [--device N] [--smoke]
+    torchrun --standalone --nproc_per_node=N -m sparsify_clip_tpu_torch.cli --config <file>
 
 File mode runs one experiment; directory mode sweeps every ``*.yaml``
 in name order (skipping empty ones).  ``--device N`` trains on
@@ -20,6 +21,15 @@ from an ``.npz`` (the reference's semantics) or the full state from
 ``"auto"`` (``<checkpoint_dir>/<run_name>/``) or a directory, data order
 exact.  SIGTERM (``handle_preemption``) finishes the step, saves the
 full state and exits 0.
+
+Under ``torchrun`` (or ``multihost: true`` with its rendezvous keys) the
+run joins the process group first thing (NCCL on the card, gloo on the
+CPU) and trains data-parallel, one rank a GPU
+(:mod:`sparsify_clip_tpu_torch.parallel`): ``batch_size`` is the global
+batch, each rank loads and encodes its slice, and only the primary
+writes the JSONL, the plots and the files.  ``run_start`` also names the
+world size, the backend and the loss route taken (``parallel``).  A
+SIGTERM to one rank stops every rank at the same step.
 """
 
 from __future__ import annotations
@@ -60,7 +70,7 @@ def apply_smoke_overrides(config: ExperimentConfig) -> ExperimentConfig:
     )
 
 
-def _check_supported(config: ExperimentConfig) -> None:
+def _check_supported(config: ExperimentConfig, world: int = 1) -> None:
     """Refuse what this port does not run before any file is written."""
     from sparsify_clip_tpu_torch.train import check_supported as check_step
 
@@ -69,61 +79,81 @@ def _check_supported(config: ExperimentConfig) -> None:
             "plot_embeddings: true draws the per-eval plots with matplotlib, which is not "
             "installed; set plot_embeddings: false or run --smoke"
         )
-    check_step(config)
+    check_step(config, world)
 
 
 def main(config: ExperimentConfig, image_size: Optional[int] = None,
          device: Union[str, "torch.device", None] = None) -> Dict[str, float]:
     """Full experiment: data → train w/ per-epoch eval → final eval/save
     (reference: main(), sparsify_clip.py:1084-1121).  ``device`` defaults
-    to ``cuda:<config.device_id>``; the CPU runs only when asked for."""
+    to ``cuda:<config.device_id>``, or the rank's card under a launcher;
+    the CPU runs only when asked for (and joins a process group over
+    gloo)."""
     import torch
 
     from sparsify_clip_tpu_torch import checkpoints
     from sparsify_clip_tpu_torch.data import dataset_loader
     from sparsify_clip_tpu_torch.data.pipeline import routes
     from sparsify_clip_tpu_torch.eval import evaluate_model, make_eval_model
-    from sparsify_clip_tpu_torch.logging import RunLogger
+    from sparsify_clip_tpu_torch.logging import NullLogger, RunLogger
+    from sparsify_clip_tpu_torch.losses.dispatch import loss_route
     from sparsify_clip_tpu_torch.models.clip import MODEL_REGISTRY
+    from sparsify_clip_tpu_torch.parallel.mesh import create_mesh
+    from sparsify_clip_tpu_torch.parallel.multihost import (
+        any_process_flag, initialize_distributed, is_primary,
+    )
     from sparsify_clip_tpu_torch.train import create_train_setup, run_training
     from sparsify_clip_tpu_torch.utils.preemption import GracefulShutdown
     from sparsify_clip_tpu_torch.viz import plot_all_methods
 
-    device = torch.device(device if device is not None else f"cuda:{config.device_id}")
+    # first thing: join the process group (a no-op at world 1 without a
+    # launcher); every rank runs this function, and host side effects
+    # (logs, plots, files, prints) belong to the primary
+    cpu = device is not None and torch.device(device).type == "cpu"
+    rank_device = initialize_distributed(config, backend="gloo" if cpu else None)
+    if device is None:
+        device = rank_device if rank_device is not None else f"cuda:{config.device_id}"
+    device = torch.device(device)
+    primary = is_primary()
+    say = print if primary else (lambda *a, **k: None)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("the CLI trains on the card and no CUDA device is available; "
                                "call main(config, device='cpu') to run on the CPU")
         torch.cuda.set_device(device)
-    _check_supported(config)
+    mesh = create_mesh(data=config.mesh_data, model=config.mesh_model)
+    _check_supported(config, mesh.data)
     # compilation_cache_dir is accepted and ignored: PyTorch compiles no
     # programs per run (ROADMAP Queue 1, 'Do not port')
 
     set_seed(config.seed)
-    print("Config:", config.to_dict())
-    print("Experiment:", config.run_name)
+    say("Config:", config.to_dict())
+    say("Experiment:", config.run_name)
 
     if image_size is None:
         image_size = MODEL_REGISTRY[config.model].image_size
 
-    print("\nLoading the dataset...")
+    say("\nLoading the dataset...")
     train_loader, test_loader = dataset_loader(config, image_size=image_size)
     # the routes each loader took (a native library that did not build
     # falls back as on the JAX side), in the run's first record
     data_routes = {"train": routes(train_loader), "eval": routes(test_loader)}
-    print("Dataset loaded.", "Routes:", data_routes, "\n")
+    say("Dataset loaded.", "Routes:", data_routes, "\n")
 
+    parallel = {"world_size": mesh.data, "backend": mesh.backend,
+                "loss_route": loss_route(mesh)}
+    say("Parallel:", parallel)
     logger = RunLogger(
         project=config.project_name,
         run_name=config.run_name,
         config=config.to_dict(),
         log_dir=config.log_dir,
         backend=config.log_backend,
-        start={"data_routes": data_routes},
-    )
+        start={"data_routes": data_routes, "parallel": parallel},
+    ) if primary else NullLogger()
 
     setup = create_train_setup(config, steps_per_epoch=len(train_loader), device=device,
-                               image_size=image_size)
+                               image_size=image_size, mesh=mesh)
 
     start_epoch = 0
     resume_skip = 0  # mid-epoch batches to skip on exact resume
@@ -140,13 +170,13 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
             start_epoch = step // len(train_loader)
             resume_skip = step % len(train_loader)
             resume_end = config.epochs
-            print(f"Resumed full state from {target} at step {step} (epoch {start_epoch}, "
+            say(f"Resumed full state from {target} at step {step} (epoch {start_epoch}, "
                   f"skipping {resume_skip} already-trained batches)")
         else:
             # weights-only resume, the reference's semantics
             # (sparsify_clip.py:719-724): optimizer, schedule and temperature
             # restart from scratch
-            print(f"Resuming weights from {resume_path} at epoch {config.resume_epoch}")
+            say(f"Resuming weights from {resume_path} at epoch {config.resume_epoch}")
             checkpoints.load_weights(setup.model, resume_path)
             start_epoch = config.resume_epoch
 
@@ -168,15 +198,15 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
         this_pass = eval_pass
         eval_pass += 1
         plot_fn = None
-        if config.plot_embeddings:
+        if config.plot_embeddings and primary:
             def plot_fn(txt, img):
                 # the pass counter in the tag: two eval passes inside one
                 # wall-clock second must not overwrite each other
                 plot_all_methods(txt, img, out_dir=os.path.join(config.log_dir, "plots"),
                                  tag=f"{this_pass:04d}_{time.time():.0f}", logger=logger)
         metrics = evaluate_model(eval_model, batches, plot_embeddings=config.plot_embeddings,
-                                 plot_fn=plot_fn)
-        print("Evaluation Results:", metrics, "\n")
+                                 plot_fn=plot_fn, mesh=mesh)
+        say("Evaluation Results:", metrics, "\n")
         logger.log(metrics)
         last_eval = metrics
         return metrics
@@ -189,7 +219,7 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
             logger.log(metrics)
 
     def checkpoint_fn(state, epoch):
-        os.makedirs(config.checkpoint_dir, exist_ok=True)
+        # the primary writes, every rank waits for it (checkpoints.py)
         checkpoints.save_weights(
             state.model,
             os.path.join(config.checkpoint_dir, f"{config.run_name}_epoch_{epoch}.npz"))
@@ -198,7 +228,7 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
             checkpoints.save_full_async(state, full_dir, config)
         else:
             checkpoints.save_full(state, full_dir, config)
-        print(f"Model saved at epoch {epoch}")
+        say(f"Model saved at epoch {epoch}")
 
     def train(stop_fn=None):
         return run_training(
@@ -213,29 +243,31 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
             end_epoch=resume_end,
         )
 
-    print("Training the model...")
+    say("Training the model...")
     if config.handle_preemption:
         with GracefulShutdown() as shutdown:
-            state = train(shutdown.requested_fn)
+            # over several ranks the stop is collective: one rank's SIGTERM
+            # stops every rank after the same step
+            state = train(shutdown.requested_fn if mesh.data == 1
+                          else lambda: any_process_flag(shutdown.requested))
         if setup.stopped_early:
             # the full-state save is written by run_training; make it
             # durable, skip the final eval and leave a resumable run
             checkpoints.wait_for_async_saves()
             logger.log({"preempted": 1.0})
             logger.finish()
-            print("Preempted: training state checkpointed under "
+            say("Preempted: training state checkpointed under "
                   f"{os.path.join(config.checkpoint_dir, config.run_name)}; "
                   'restart with resume_checkpoint: "auto" to continue.')
             return last_eval
     else:
         state = train()
-    print("Training complete.\n")
+    say("Training complete.\n")
 
-    print("Final evaluation of the model...")
+    say("Final evaluation of the model...")
     final_log = eval_fn(state)
-    print("Evaluation complete.\n")
+    say("Evaluation complete.\n")
 
-    os.makedirs(config.checkpoint_dir, exist_ok=True)
     checkpoints.wait_for_async_saves()  # in-flight saves commit before the run ends
     final_path = checkpoints.save_weights(
         state.model, os.path.join(config.checkpoint_dir, f"{config.run_name}.npz"))
@@ -272,13 +304,18 @@ def cli(argv=None) -> None:
             config = apply_smoke_overrides(config)
         main(config, image_size=args.image_size)
 
-    if os.path.isfile(args.config):
-        run(load_config(args.config, args.device))
-    elif os.path.isdir(args.config):
-        for config in load_config_dir(args.config, args.device):
-            run(config)
-    else:
-        parser.error(f"--config path not found: {args.config}")
+    from sparsify_clip_tpu_torch.parallel.multihost import shutdown_distributed
+
+    try:
+        if os.path.isfile(args.config):
+            run(load_config(args.config, args.device))
+        elif os.path.isdir(args.config):
+            for config in load_config_dir(args.config, args.device):
+                run(config)
+        else:
+            parser.error(f"--config path not found: {args.config}")
+    finally:
+        shutdown_distributed()
 
 
 if __name__ == "__main__":

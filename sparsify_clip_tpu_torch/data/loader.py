@@ -27,9 +27,13 @@ crop, the flip and the caption from the same stream in the same order,
 so the backend never changes the data order, only the resize's
 arithmetic (about 1/255).  An item the native route cannot take (a
 dataset without ``raw_bytes``, a non-JPEG file) takes the PIL route.
-``image_backend_taken`` says which route the loader holds.  One
-process loads every batch: the JAX loader's per-process slices
-(``process_index``/``process_count``) wait for ROADMAP Queue 1, 'Multi-GPU'.
+``image_backend_taken`` says which route the loader holds.
+
+``process_count > 1`` (data parallelism over processes): this process
+loads only its contiguous ``batch_size // process_count`` slice of every
+global batch.  The epoch order and every per-item draw are keyed by
+(seed, epoch, global index), so the union of the processes' slices is
+the single-process epoch to the bit.
 """
 
 from __future__ import annotations
@@ -62,10 +66,14 @@ class DataLoader:
         image_size: int = 224,
         raw_uint8: bool = False,
         image_backend: str = "pil",
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         """``raw_uint8``: skip the host augmentation; squash-resize each
         decoded image to ``image_size`` (Pillow's bilinear, to the bit, on
-        the PIL route) and ship uint8."""
+        the PIL route) and ship uint8.  ``process_index`` of
+        ``process_count``: the slice of every global batch this process
+        loads (the JAX loader's checks and messages)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.tokenizer = tokenizer
@@ -77,6 +85,24 @@ class DataLoader:
         self.prefetch = prefetch
         self.image_size = image_size
         self.raw_uint8 = raw_uint8
+        if process_count > 1 and batch_size % process_count:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by "
+                f"{process_count} processes (ragged per-host batches "
+                "would deadlock collectives)"
+            )
+        if not 0 <= process_index < process_count:
+            raise ValueError(
+                f"process_index {process_index} out of range for "
+                f"process_count {process_count}"
+            )
+        if process_count > 1 and not drop_last:
+            raise ValueError(
+                "process_count > 1 requires drop_last=True (a ragged "
+                "final batch cannot split evenly across processes)"
+            )
+        self.process_index = process_index
+        self.process_count = process_count
         self._native = None
         if image_backend in ("native", "auto"):
             from sparsify_clip_tpu_torch.data import native_imaging
@@ -180,6 +206,11 @@ class DataLoader:
             ).permutation(n)
         nb = len(self)
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size] for i in range(nb)]
+        if self.process_count > 1:
+            # this process's contiguous slice of every global batch
+            local = self.batch_size // self.process_count
+            lo = self.process_index * local
+            batches = [idx[lo:lo + local] for idx in batches]
         if not batches:
             return
 

@@ -19,6 +19,12 @@ loaders (:mod:`sparsify_clip_tpu_torch.data.grain_loader`) before the
 ``device_augment`` branch, as the JAX pipeline does.  Each loader names
 the routes it took (``tokenizer_backend``, ``image_backend_taken``);
 :func:`routes` collects them.
+
+Over a process group of W > 1 ranks each rank's loaders load its slice
+of every global batch (``process_index`` / ``process_count``, the JAX
+pipeline's multihost slicing); the grain route carries no slicing and is
+refused there, as ``multihost: true`` refuses it on both sides
+(config.py:400).
 """
 
 from __future__ import annotations
@@ -55,6 +61,14 @@ def routes(loader) -> Dict[str, str]:
 
 
 def dataset_loader(config: ExperimentConfig, image_size: int = 224, num_threads: int = 4):
+    from sparsify_clip_tpu_torch.parallel.multihost import rank, world_size
+
+    # each process loads its slice of every global batch; one process, all
+    process_index, process_count = rank(), world_size()
+    if process_count > 1 and config.loader_backend == "grain":
+        raise ValueError(
+            f"loader_backend: grain over {process_count} processes: the grain route carries "
+            "no per-process batch slicing; use loader_backend: threads or run single-process")
     tokenizer = _select_tokenizer(config)
 
     if config.dataset == "synthetic":
@@ -97,10 +111,12 @@ def dataset_loader(config: ExperimentConfig, image_size: int = 224, num_threads:
         shuffle=True, drop_last=True, num_threads=num_threads,
         image_size=config.device_augment_staging if config.device_augment else image_size,
         raw_uint8=config.device_augment, image_backend=config.image_backend,
+        process_index=process_index, process_count=process_count,
     )
     test_loader = DataLoader(
         test_ds, config.batch_size, tokenizer, train=False, seed=config.seed,
         shuffle=False, drop_last=True, num_threads=num_threads, image_size=image_size,
         image_backend=config.image_backend,
+        process_index=process_index, process_count=process_count,
     )
     return train_loader, test_loader

@@ -9,9 +9,13 @@ The reference's 13-metric dict, with its keys and 4-decimal rounding
 
 Ranks are strictly-greater counts against the ground-truth score, as on
 the JAX side (the reference sorts; the two agree for distinct scores),
-over the similarity ``txt @ img.T`` in fp32 (TF32 off).  Evaluation runs
-on one device; the JAX ``mesh``/multi-host eval waits for ROADMAP Queue 1,
-'Multi-GPU'.
+over the similarity ``txt @ img.T`` in fp32 (TF32 off).
+
+Over a data-parallel ``mesh`` of W > 1 ranks (JAX eval.py:197-246) each
+rank encodes its slice of every eval batch (the loaders hand each rank
+its slice), every rank gathers the whole set in batch order
+(:func:`~sparsify_clip_tpu_torch.parallel.multihost.allgather_to_host`)
+and computes the 13 metrics identically; the CLI's primary logs them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import torch
 
 from sparsify_clip_tpu_torch.metrics.unif_w2 import eval_uniformity
 from sparsify_clip_tpu_torch.models.clip import CLIP
+from sparsify_clip_tpu_torch.parallel.mesh import Mesh
+from sparsify_clip_tpu_torch.parallel.multihost import allgather_to_host
 from sparsify_clip_tpu_torch.utils.numerics import fp32_matmul, l2_normalize
 
 GEOMETRY_KEYS = ("gap", "mean_angular_value_image", "mean_angular_value_text", "uniformity",
@@ -117,10 +123,13 @@ def make_eval_model(model: CLIP, eval_fp32: bool = True) -> CLIP:
     return model.with_dtype(dtype).eval()
 
 
-def encode_eval_set(model: CLIP, batches: Iterable[Dict[str, np.ndarray]]
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def encode_eval_set(model: CLIP, batches: Iterable[Dict[str, np.ndarray]],
+                    mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both towers over every batch, under ``torch.no_grad``, on the
-    model's device → the concatenated **unnormalized** (img, txt)."""
+    model's device → the concatenated **unnormalized** (img, txt).  Over a
+    ``mesh`` of W > 1 ranks the batches are this rank's slices, and each
+    chunk is gathered from every rank (a collective) before the
+    concatenation, so every rank returns the whole set in batch order."""
     img_chunks, txt_chunks = [], []
     with torch.no_grad():
         for batch in batches:
@@ -128,6 +137,11 @@ def encode_eval_set(model: CLIP, batches: Iterable[Dict[str, np.ndarray]]
             tokens = torch.as_tensor(batch["tokens"]).to(model.device)
             img_chunks.append(model.encode_image(images))
             txt_chunks.append(model.encode_text(tokens))
+    if mesh is not None and mesh.data > 1:
+        img_chunks = [torch.from_numpy(allgather_to_host(c, mesh)).to(model.device)
+                      for c in img_chunks]
+        txt_chunks = [torch.from_numpy(allgather_to_host(c, mesh)).to(model.device)
+                      for c in txt_chunks]
     return torch.cat(img_chunks), torch.cat(txt_chunks)
 
 
@@ -136,12 +150,14 @@ def evaluate_model(
     batches: Iterable[Dict[str, np.ndarray]],
     plot_embeddings: bool = False,
     plot_fn: Optional[Callable] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, float]:
     """Sweep the eval set and compute the 13 metrics (reference:
     evaluate_model, sparsify_clip.py:534-676).  ``batches`` yields dicts
-    with ``images`` (B, H, W, 3) and ``tokens`` (B, 77); ``plot_fn(txt,
-    img)`` gets the unnormalized embeddings as numpy arrays."""
-    img, txt = encode_eval_set(model, batches)
+    with ``images`` (B, H, W, 3) and ``tokens`` (B, 77), this rank's
+    slices over a ``mesh`` of several ranks; ``plot_fn(txt, img)`` gets
+    the whole set's unnormalized embeddings as numpy arrays."""
+    img, txt = encode_eval_set(model, batches, mesh)
     if plot_embeddings and plot_fn is not None:
         plot_fn(txt.cpu().numpy(), img.cpu().numpy())
     return compute_all_metrics(img, txt)

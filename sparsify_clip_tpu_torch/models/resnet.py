@@ -29,6 +29,13 @@ elementwise kernels.
 taken (the JAX per-block ``nn.remat``, resnet.py:561-570).  Its
 recompute normalizes by the same batch statistics and leaves the running
 statistics alone: they move once, in the forward, as under JAX's remat.
+
+Over a data-parallel mesh of W > 1 ranks (:func:`set_data_parallel`)
+every train-mode BatchNorm takes its statistics over the **global**
+batch, as the JAX global-view step does (resnet.py:82-83): the fp32 sums
+are all-reduced in the forward and the two per-channel sums of the
+gradient in the backward, and the running statistics stay identical on
+every rank.  One rank runs the single-device code unchanged.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from torch import nn
 from sparsify_clip_tpu_torch.models.layers import (
     _lecun_normal_, _normal_, linear, remat, resolve_remat_policy,
 )
+from sparsify_clip_tpu_torch.parallel.mesh import Mesh, all_reduce_, psum, pvary
 
 
 def _conv(x: torch.Tensor, weight: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -74,6 +82,7 @@ class BatchNormHalf(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.mesh: Optional[Mesh] = None  # set_data_parallel: global statistics
 
     def reset_parameters(self) -> None:
         nn.init.ones_(self.weight)
@@ -95,10 +104,20 @@ class BatchNormHalf(nn.Module):
         momentum step (a checkpoint's recompute)."""
         if self.training:
             xf = x.float()
-            mean = xf.mean((0, 2, 3))
-            var = xf.square().mean((0, 2, 3)) - mean.square()
+            n = x.numel() // x.shape[1]
+            if _spans_ranks(self.mesh):
+                # fp32 sums over the global batch; the backward all-reduces
+                # the gradient's two per-channel sums through the same op
+                sums = torch.stack([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))])
+                sums = pvary(psum(sums, self.mesh), self.mesh)
+                n *= self.mesh.data
+                mean = sums[0] / n
+                var = sums[1] / n - mean.square()
+            else:
+                mean = xf.mean((0, 2, 3))
+                var = xf.square().mean((0, 2, 3)) - mean.square()
             if update_stats:
-                self.update_running_stats(mean, var, x.numel() // x.shape[1])
+                self.update_running_stats(mean, var, n)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
@@ -115,26 +134,47 @@ class FoldedConvBN(torch.autograd.Function):
     E[x xᵀ] · W[:, o]``, with the (K, K) second moment taken in fp32 from
     the exact products of x's values; ``h`` is never materialized.
 
-    ``apply(x, w, scale, bias, eps)``: x (n, K) in the compute type, w
-    (K, C), scale and bias (C,) fp32 → ``(y, mean, var)``: y (n, C) in x's
-    type, and the biased batch mean and variance of ``h``, fp32.  ``mean``
+    ``apply(x, w, scale, bias, eps, mesh)``: x (n, K) in the compute type,
+    w (K, C), scale and bias (C,) fp32 → ``(y, mean, var)``: y (n, C) in
+    x's type, and the biased batch mean and variance of ``h``, fp32.  ``mean``
     and ``var`` feed only the running statistics and are marked
     non-differentiable (the JAX VJP raises when they are differentiated).
     The backward is the JAX side's analytic form: every reduction
     collapses onto ``t = xᵀ g``, and the rest is (K, K) and (K, C) algebra.
+
+    Over W > 1 ranks (``mesh``) the statistics are the global batch's: the
+    forward all-reduces x's sum and (K, K) second moment, the backward the
+    two per-channel sums ``s1 = Σ g`` and ``s2 = Σ g·ĥ``.  Every other term
+    of ``dw`` and the gradients of ``scale`` and ``bias`` are linear in the
+    rows, so each rank returns its rows' share of them (the moments of its
+    own rows over the global count) and the step's gradient all-reduce adds
+    the shares up.
     """
 
     @staticmethod
-    def forward(ctx, x, w, scale, bias, eps: float):
+    def forward(ctx, x, w, scale, bias, eps: float, mesh: Optional[Mesh] = None):
         n = x.shape[0]
         xf = x.float()
-        m_x = xf.mean(0)
-        second = (xf.t() @ xf) / n
+        ranks = _spans_ranks(mesh)
+        if ranks:
+            # this rank's share of the moments, then the global ones
+            n *= mesh.data
+            k = xf.shape[1]
+            m_x_own = xf.sum(0) / n
+            second_own = (xf.t() @ xf) / n
+            moments = all_reduce_(torch.cat([m_x_own, second_own.reshape(-1)]), mesh)
+            m_x, second = moments[:k], moments[k:].view(k, k)
+        else:
+            m_x = xf.mean(0)
+            second = (xf.t() @ xf) / n
         mean = m_x @ w
         var = ((second @ w) * w).sum(0) - mean.square()
         inv = torch.rsqrt(var + eps)
         d = inv * scale
         y = torch.addmm((bias - mean * d).to(x.dtype), x, (w * d).to(x.dtype))
+        if ranks:
+            m_x, second = m_x_own, second_own
+        ctx.mesh, ctx.n = (mesh if ranks else None), n
         ctx.save_for_backward(x, w, scale, m_x, second, mean, inv)
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -142,18 +182,35 @@ class FoldedConvBN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
         x, w, scale, m_x, second, mean, inv = ctx.saved_tensors
-        n, dt = x.shape[0], x.dtype
+        n, dt = ctx.n, x.dtype
         d = inv * scale
         t = x.float().t() @ gy.float()  # (K, C)
         s1 = gy.sum(0, dtype=torch.float32)
         s2 = ((w * t).sum(0) - mean * s1) * inv  # Σ g·ĥ
-        q = inv * d * s2 / n
+        s1_all, s2_all = s1, s2
+        if ctx.mesh is not None:
+            c = s1.shape[0]
+            sums = all_reduce_(torch.cat([s1, s2]), ctx.mesh)
+            s1_all, s2_all = sums[:c], sums[c:]
+        q = inv * d * s2_all / n
         a_small = (w * q) @ w.t()  # (K, K)
-        r = w @ (mean * q - d * s1 / n)  # (K,)
+        r = w @ (mean * q - d * s1_all / n)  # (K,)
         dx = torch.addmm(r.to(dt), gy, (w * d).to(dt).t()) - x @ a_small.to(dt)
-        dw = (t * d - torch.outer(m_x, d * s1)
-              - (second @ w - torch.outer(m_x, mean)) * (inv * d * s2))
-        return dx, dw, s2, s1, None
+        dw = (t * d - torch.outer(m_x, d * s1_all)
+              - (second @ w - torch.outer(m_x, mean)) * (inv * d * s2_all))
+        return dx, dw, s2, s1, None, None
+
+
+def _spans_ranks(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.data > 1
+
+
+def set_data_parallel(model: nn.Module, mesh: Optional[Mesh]) -> None:
+    """Make every :class:`BatchNormHalf` of ``model`` take its train-mode
+    statistics over ``mesh``'s global batch (None: the rank's own batch)."""
+    for module in model.modules():
+        if isinstance(module, BatchNormHalf):
+            module.mesh = mesh
 
 
 def _as_rows(x: torch.Tensor) -> torch.Tensor:
@@ -176,9 +233,10 @@ def conv1x1_bn(x: torch.Tensor, weight: torch.Tensor, bn: BatchNormHalf,
     rows = _as_rows(x)
     w = weight.view(weight.shape[0], -1).t()  # (K, C) fp32
     if bn.training:
-        y, mean, var = FoldedConvBN.apply(rows, w, bn.weight, bn.bias, bn.eps)
+        y, mean, var = FoldedConvBN.apply(rows, w, bn.weight, bn.bias, bn.eps, bn.mesh)
         if update_stats:
-            bn.update_running_stats(mean, var, rows.shape[0])
+            ranks = bn.mesh.data if _spans_ranks(bn.mesh) else 1
+            bn.update_running_stats(mean, var, rows.shape[0] * ranks)
     else:
         inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
         y = torch.addmm((bn.bias - bn.running_mean * inv).to(x.dtype), rows,

@@ -179,7 +179,7 @@ def normalize_batch(images: torch.Tensor) -> torch.Tensor:
 
 
 def augment_batch(images_u8: torch.Tensor, generator: torch.Generator,
-                  size: int = 224) -> torch.Tensor:
+                  size: int = 224, shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """uint8 (B, H, W, 3) → augmented, normalized float32 (B, size, size,
     3): a random-resized crop, a random flip and CLIP normalization, with
     every draw from ``generator`` (on the images' device).  The device
@@ -189,10 +189,17 @@ def augment_batch(images_u8: torch.Tensor, generator: torch.Generator,
     float32 images are taken as the JAX function takes them, divided by
     255 like pixels: the grain route ships normalized float32 images under
     ``device_augment``, and the JAX step augments them so
-    (:mod:`sparsify_clip_tpu_torch.data.grain_loader`)."""
+    (:mod:`sparsify_clip_tpu_torch.data.grain_loader`).
+
+    ``shard=(rank, world)``: the images are rank's rows of a global batch
+    of ``world`` such slices; the generator draws the whole global batch's
+    uniforms and the rank keeps its rows, so W ranks augment as one does."""
     _check_images(images_u8, float32_too=True)
     b, height, width, _ = images_u8.shape
-    u, u_flip = augment_uniforms(generator, b, images_u8.device)
+    rank, world = shard
+    u, u_flip = augment_uniforms(generator, b * world, images_u8.device)
+    if world > 1:
+        u, u_flip = u[rank * b:(rank + 1) * b], u_flip[rank * b:(rank + 1) * b]
     boxes = crop_boxes_from_uniforms(u[:, 0], u[:, 1], u[:, 2], u[:, 3], height, width)
     return normalize_batch(crop_resize(images_u8, boxes, u_flip < 0.5, size))
 

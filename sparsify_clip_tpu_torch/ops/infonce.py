@@ -19,8 +19,10 @@ Z = img·txtᵀ / T with the raw temperature T as the divisor.
 
 The temperature and the incoming gradient stay on the device: the
 kernels read them through pointers, so a step never waits on a host read.
-The multi-device ``ring`` and ``replicate`` routes of ``fused.py`` wait
-for the multi-GPU work (ROADMAP Queue 1, 'Multi-GPU').
+Over several ranks the loss dispatch takes the ``ring`` route of
+``fused.py`` instead (:func:`sparsify_clip_tpu_torch.parallel.dist_losses.ring_infonce_loss`);
+each rank there holds its own rows, so the ``replicate`` route has no
+counterpart.
 """
 
 from __future__ import annotations

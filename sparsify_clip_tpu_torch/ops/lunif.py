@@ -31,8 +31,8 @@ tiles of W, with the norms folded into its first pass; the backward
 takes 32 × 32 tiles, is bound by shared memory's bandwidth inside each
 block and by its two launches.  S
 and the incoming gradient stay on the device, so a step never waits on
-a host read.  The multi-device ``ring`` route of ``fused.py`` waits for
-the multi-GPU work (ROADMAP Queue 1, 'Multi-GPU').
+a host read.  Over several ranks the loss dispatch takes the ring of
+``fused.py`` instead (:func:`sparsify_clip_tpu_torch.parallel.dist_losses.ring_lunif_loss`).
 """
 
 from __future__ import annotations

@@ -39,10 +39,18 @@ holds the model and the optimizer, which a step updates in place; a
 step returns the same state object, so the JAX call shape
 ``state, metrics = train_step(state, batch)`` carries over.
 
-One device: the mesh, sharding, multi-host and pipeline paths wait for
-ROADMAP Queue 1, 'Multi-GPU', and their config knobs raise (see
-``_NOT_PORTED``).  Entry points run on the card unless the
-caller asks for the CPU.
+Data parallelism over processes (:mod:`sparsify_clip_tpu_torch.parallel`):
+with a mesh of W > 1 ranks (``create_train_setup(..., mesh=)``, by
+default the process group's) each rank feeds its rows of the global
+batch, the loss takes the route of
+:mod:`sparsify_clip_tpu_torch.losses.dispatch` (the rings and the gathered
+terms, the same global loss on every rank), a ResNet tower's BatchNorms
+take global statistics, the model's gradients are summed in one flat
+all-reduce and AdamW steps identically on every rank.  One rank runs the
+single-device step unchanged.  ZeRO-1, FSDP, tensor parallelism and GPipe
+wait for ROADMAP Queue 1, 'Multi-GPU', and their config knobs raise (see
+``_NOT_PORTED``).  Entry points run on the card unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
@@ -58,9 +66,11 @@ import torch
 from sparsify_clip_tpu_torch.config import ExperimentConfig
 from sparsify_clip_tpu_torch.losses import LossContext, make_loss_fn
 from sparsify_clip_tpu_torch.models.clip import CLIP, MODEL_REGISTRY, create_model
+from sparsify_clip_tpu_torch.models.resnet import set_data_parallel
 from sparsify_clip_tpu_torch.ops.image import augment_batch
 from sparsify_clip_tpu_torch.ops.sparsify import make_projection
 from sparsify_clip_tpu_torch.optim import AdamWBf16Mu
+from sparsify_clip_tpu_torch.parallel.mesh import Mesh, all_reduce_gradients, create_mesh
 from sparsify_clip_tpu_torch.schedules import get_alpha, get_beta, make_lr_schedule
 from sparsify_clip_tpu_torch.utils.numerics import l2_normalize
 from sparsify_clip_tpu_torch.utils.profiling import ThroughputMeter
@@ -68,32 +78,57 @@ from sparsify_clip_tpu_torch.utils.profiling import ThroughputMeter
 Batch = Dict[str, Any]
 Metrics = Dict[str, Union[torch.Tensor, float]]
 
-# Config knobs the port's step does not run yet → what they wait for.
-_NOT_PORTED: List[Tuple[Callable[[ExperimentConfig], bool], str]] = [
-    (lambda c: c.pipeline, "pipeline (parallel/pipeline.py, ROADMAP Queue 1, 'Multi-GPU')"),
-    (lambda c: c.fsdp, "fsdp (ROADMAP Queue 1, 'Multi-GPU')"),
-    (lambda c: c.mesh_model > 1,
+# Config knobs the port's step does not run yet → what they wait for;
+# each test takes the config and the data-parallel world size.
+_NOT_PORTED: List[Tuple[Callable[[ExperimentConfig, int], bool], str]] = [
+    (lambda c, w: c.pipeline, "pipeline (parallel/pipeline.py, ROADMAP Queue 1, 'Multi-GPU')"),
+    (lambda c, w: c.fsdp, "fsdp (ROADMAP Queue 1, 'Multi-GPU')"),
+    (lambda c, w: c.mesh_model > 1,
      "mesh_model > 1 (tensor parallelism, ROADMAP Queue 1, 'Multi-GPU')"),
-    (lambda c: c.multihost, "multihost (ROADMAP Queue 1, 'Multi-GPU')"),
+    # one rank holds the whole optimizer state: the JAX no-op at dp = 1
+    (lambda c, w: c.shard_opt_state and w > 1,
+     "shard_opt_state over more than one rank (ZeRO-1, ROADMAP Queue 1, 'Multi-GPU')"),
+    (lambda c, w: c.allow_accum_gather and w > 1
+     and (c.batch_size // c.grad_accum_steps) % w != 0,
+     "allow_accum_gather's gathered microbatch layout over more than one rank "
+     "(ROADMAP Queue 1, 'Multi-GPU')"),
 ]
 
 
-def check_supported(config: ExperimentConfig) -> None:
-    """Raise :class:`NotImplementedError` for the first config knob the
-    port's step does not run yet (the multi-device knobs); the loss type
-    is checked by :func:`make_loss_fn`.  Every registry model trains, ViT
-    and ResNet towers alike, under every loss type, GradCache
-    accumulation, either ``adam_mu_dtype``, a ``soft_targets_provider``,
-    ``sparse_projection``, ``remat`` under every ``remat_policy``,
-    ``onehot_embed`` and either ``ln_fp32``;
-    ``allow_accum_gather`` selects nothing on one device (the JAX
-    microbatch layout differs only over a data mesh), and ``stem_s2d`` is
-    accepted as the TPU layout hint it is (see :func:`create_train_setup`)."""
+def check_supported(config: ExperimentConfig, world: int = 1) -> None:
+    """Raise for the first config knob the port's step does not run at
+    data-parallel world size ``world``: :class:`NotImplementedError` for
+    the multi-device knobs not ported yet, :class:`ValueError` for what the
+    JAX step refuses too; the loss type is checked by :func:`make_loss_fn`.
+    Every registry model trains, ViT and ResNet towers alike, under every
+    loss type, GradCache accumulation, either ``adam_mu_dtype``, a
+    ``soft_targets_provider`` (on one rank), ``sparse_projection``,
+    ``remat`` under every ``remat_policy``, ``onehot_embed`` and either
+    ``ln_fp32``, over any number of ranks; ``multihost`` joins the
+    process group (:mod:`sparsify_clip_tpu_torch.parallel.multihost`), and
+    ``stem_s2d`` is accepted as the TPU layout hint it is (see
+    :func:`create_train_setup`)."""
     for unsupported, what in _NOT_PORTED:
-        if unsupported(config):
+        if unsupported(config, world):
             raise NotImplementedError(
                 f"{what} is not ported to sparsify_clip_tpu_torch's train step yet"
             )
+    if world > 1 and config.soft_targets_provider:
+        # the provider reads the captions of the whole batch on one host
+        raise NotImplementedError(
+            "soft_targets_provider runs on a single host: each rank holds only its rows' "
+            f"captions, so it is refused over {world} ranks")
+    if world > 1 and config.grad_accum_steps > 1:
+        mb = config.batch_size // config.grad_accum_steps
+        if mb % world:
+            # JAX train.py:141-156; the dp = 1 layout would gather every
+            # image onto every rank
+            raise ValueError(
+                f"grad_accum_steps={config.grad_accum_steps} gives microbatch {mb}, not "
+                f"divisible by the data-mesh size {world}: the fallback layout all-gathers "
+                "the FULL image batch onto every device, defeating the memory savings. "
+                "Pick grad_accum_steps so that (batch_size // grad_accum_steps) % "
+                "mesh_data == 0, or set allow_accum_gather: true to accept the gather.")
 
 
 @dataclasses.dataclass
@@ -123,19 +158,28 @@ def build_optimizer(params, lr_schedule: Callable[[int], float],
                              weight_decay=0.01)
 
 
+def _to_device(x: Any, device: torch.device) -> torch.Tensor:
+    t = torch.as_tensor(x)
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 def batch_to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
     """The array fields of a host (numpy) or device batch as tensors on
-    ``device``: fp32 images (uint8 staging images stay uint8), integer
-    tokens and, where the batch has them, the fp32 (B, B) ``soft_targets``."""
+    ``device`` (over several ranks, the rank's slice of the global batch):
+    fp32 images (uint8 staging images stay uint8), integer tokens and,
+    where the batch has them, the fp32 (B, B) ``soft_targets``.  Host
+    arrays bound for the card go through pinned memory, so the copy is
+    asynchronous."""
     images = torch.as_tensor(batch["images"])
     fields = {
-        "images": (images if images.dtype == torch.uint8 else images.float()).to(
-            device, non_blocking=True),
-        "tokens": torch.as_tensor(batch["tokens"]).to(device, non_blocking=True),
+        "images": _to_device(images if images.dtype == torch.uint8 else images.float(), device),
+        "tokens": _to_device(batch["tokens"], device),
     }
     if batch.get("soft_targets") is not None:
-        fields["soft_targets"] = torch.as_tensor(batch["soft_targets"], dtype=torch.float32).to(
-            device, non_blocking=True)
+        fields["soft_targets"] = _to_device(
+            torch.as_tensor(batch["soft_targets"], dtype=torch.float32), device)
     return fields
 
 
@@ -143,11 +187,15 @@ class TrainStep:
     """One training step for this experiment's loss_type
     (train.py:109-408): encode → l2_normalize → loss → backward → AdamW →
     metrics, the encoders over ``grad_accum_steps`` microbatches when it
-    is over 1 (:meth:`gradcache`)."""
+    is over 1 (:meth:`gradcache`).  Over a ``mesh`` of W > 1 ranks a batch
+    is the rank's rows of the global batch, and the model's gradients are
+    summed over the ranks before AdamW."""
 
     def __init__(self, config: ExperimentConfig, steps_per_epoch: int, total_steps: int,
-                 lr_schedule: Callable[[int], float], image_size: Optional[int] = None):
-        check_supported(config)
+                 lr_schedule: Callable[[int], float], image_size: Optional[int] = None,
+                 mesh: Optional[Mesh] = None):
+        self.mesh = mesh if mesh is not None else Mesh()
+        check_supported(config, self.mesh.data)
         self.config = config
         # the encoder's input size, which device_augment crops to
         self.image_size = image_size or MODEL_REGISTRY[config.model].image_size
@@ -182,7 +230,9 @@ class TrainStep:
         fields = batch_to_device(batch, state.temperature.device)
         images = fields["images"]
         if config.device_augment:
-            images = augment_batch(images, state.aug_generator, self.image_size)
+            # every rank draws the whole global batch's crops and keeps its rows
+            images = augment_batch(images, state.aug_generator, self.image_size,
+                                   shard=(self.mesh.rank, self.mesh.data))
         state.optimizer.zero_grad(set_to_none=True)
         scalars = {}
         if state.loss_scalars is not None:
@@ -191,7 +241,7 @@ class TrainStep:
                        "logit_bias": state.loss_scalars["logit_bias"]}
         ctx = LossContext(temperature=state.temperature, beta=beta, alpha=alpha,
                           warm=epoch < config.only_lunif_epochs,
-                          soft_targets=fields.get("soft_targets"), **scalars)
+                          soft_targets=fields.get("soft_targets"), mesh=self.mesh, **scalars)
         if config.grad_accum_steps > 1:
             loss, aux = self.gradcache(state.model, images, fields["tokens"], ctx, epoch)
         else:
@@ -206,13 +256,19 @@ class TrainStep:
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        # each rank's encoders saw its rows: its model gradients are its
+        # share.  The temperature's and the loss scalars' are already whole.
+        all_reduce_gradients(state.model.parameters(), self.mesh)
         return loss, aux, beta, alpha
 
     def gradcache(self, model: CLIP, images: torch.Tensor, tokens: torch.Tensor,
                   ctx: LossContext, epoch: int):
         """GradCache accumulation (JAX ``gradcache_value_and_grad``,
-        train.py:246-349), on one device, where microbatch ``i`` is the
-        contiguous slice ``[i·mb, (i+1)·mb)``:
+        train.py:246-349), where microbatch ``i`` is the contiguous slice
+        ``[i·mb, (i+1)·mb)`` of this rank's rows: over W ranks global
+        microbatch ``i`` is every rank's ``i``-th chunk, the JAX
+        shard-aligned layout (train.py:262-264), and a BatchNorm's
+        statistics are that global microbatch's:
 
         1. encode every microbatch without autograd and l2-normalise it;
         2. the loss over the full batch of those embeddings, as leaves
@@ -234,8 +290,9 @@ class TrainStep:
         are undone."""
         a = self.config.grad_accum_steps
         b = images.shape[0]
-        if b % a:
-            raise ValueError(f"global batch {b} not divisible by grad_accum_steps {a}")
+        if (b * self.mesh.data) % a or b % a:
+            raise ValueError(f"global batch {b * self.mesh.data} not divisible by "
+                             f"grad_accum_steps {a}")
         micro = [slice(i * b // a, (i + 1) * b // a) for i in range(a)]
         with torch.no_grad():
             encoded = [model(images[s], tokens[s]) for s in micro]
@@ -317,6 +374,7 @@ def create_train_setup(
     steps_per_epoch: int,
     device: Union[str, torch.device] = "cuda",
     image_size: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> TrainSetup:
     """Assemble model, state and step on ``device`` (the card unless the
     caller asks for the CPU; without a card the default raises).
@@ -333,6 +391,10 @@ def create_train_setup(
     the batch statistics and each train step moves their running
     statistics once, in its one forward (the JAX step's
     ``mutable=["batch_stats"]`` apply, train.py:186-195).
+
+    ``mesh`` is the data-parallel mesh (default: ``create_mesh(
+    config.mesh_data, config.mesh_model)`` over the process group, one rank
+    without one); every rank builds the same weights from ``config.seed``.
 
     ``steps_per_epoch`` comes from the data pipeline (len(train_loader)
     in the reference, sparsify_clip.py:734).  Weights are drawn from
@@ -352,14 +414,17 @@ def create_train_setup(
     num_warmup = int(0.20 * total_steps)  # sparsify_clip.py:735
     schedule = make_lr_schedule(config.learning_rate, num_warmup, total_steps,
                                 config.only_lunif_epochs)
+    if mesh is None:
+        mesh = create_mesh(data=config.mesh_data, model=config.mesh_model)
     train_step = TrainStep(config, steps_per_epoch, total_steps, schedule,
-                           image_size)  # refuses early
+                           image_size, mesh)  # refuses early
     dtype = torch.bfloat16 if config.fp16 else torch.float32
     model = create_model(config.model, dtype=dtype, device=device, seed=config.seed,
                          param_dtype=torch.float32, fused_ln_qkv=config.fused_ln_qkv,
                          image_size=image_size, remat=config.remat,
                          remat_policy=config.remat_policy, ln_fp32=config.ln_fp32,
                          onehot_embed=config.onehot_embed).train()
+    set_data_parallel(model, mesh)
     temperature = torch.tensor(config.anchor_temperature, dtype=torch.float32, device=device)
     temperature.requires_grad_(config.anchor_temperature_learnable)
     loss_scalars = None
@@ -509,7 +574,7 @@ def run_training(
         if pending is not None:
             yield pending
 
-    meter = ThroughputMeter(n_chips=1)  # the step runs on one device
+    meter = ThroughputMeter(n_chips=setup.train_step.mesh.data)  # one device a rank
     t0 = time.time()
     stopped = False
     setup.stopped_early = False

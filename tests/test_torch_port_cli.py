@@ -176,6 +176,8 @@ def test_smoke_tiny_records_equal_the_jax_clis(tmp_path, monkeypatch, keep_jax_c
     # the port's first record also names the data routes its loaders took
     routes = {"loader": "threads", "tokenizer": "python", "image": "pil"}
     assert got[0].pop("data_routes") == {"train": routes, "eval": routes}
+    # and the world size, the backend and the loss route (one rank, no group)
+    assert got[0].pop("parallel") == {"world_size": 1, "backend": None, "loss_route": "kernel"}
     assert _shape(got) == _shape(want)
     assert got[0]["config"] == want[0]["config"]
     assert sorted(os.listdir(tmp_path / "models" / "smoke-tiny")) == [

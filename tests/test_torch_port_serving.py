@@ -328,7 +328,9 @@ def test_port_imports_no_jax():
         modules.append(mod[:-len(".__init__")] if mod.endswith(".__init__") else mod)
     assert {"sparsify_clip_tpu_torch.train", "sparsify_clip_tpu_torch.ops.infonce",
             "sparsify_clip_tpu_torch.ops.image", "sparsify_clip_tpu_torch.export",
-            "sparsify_clip_tpu_torch.encode"} <= set(modules)
+            "sparsify_clip_tpu_torch.encode", "sparsify_clip_tpu_torch.parallel",
+            "sparsify_clip_tpu_torch.parallel.mesh", "sparsify_clip_tpu_torch.parallel.multihost",
+            "sparsify_clip_tpu_torch.parallel.dist_losses"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "class Block:\n"

@@ -197,13 +197,16 @@ def test_unknown_loss_type_raises():
     (dict(multihost=True), "multihost"),
 ])
 def test_knobs_not_ported_yet_raise(knob, match):
-    """The multi-device knobs raise and name themselves; the extension
-    knobs, ported since, build a setup whose model carries them."""
+    """The multi-device knobs not ported yet raise and name themselves; the
+    knobs ported since build a setup that carries them (``multihost``: the
+    step over the process group's mesh, one rank without a group)."""
     cfg = port_config.ExperimentConfig.from_dict(dict(BASE, **knob))
-    if match in ("sparse_projection", "remat", "onehot_embed", "ln_fp32"):
+    if match in ("sparse_projection", "remat", "onehot_embed", "ln_fp32", "multihost"):
         setup = create_train_setup(cfg, steps_per_epoch=4, device="cpu")
         if match == "sparse_projection":
             assert setup.train_step.projection is not None
+        elif match == "multihost":
+            assert setup.config.multihost and setup.train_step.mesh.data == 1
         else:
             assert setup.model.knobs[match] == knob[match]
         return
