@@ -122,19 +122,17 @@ Phases, one line each; any failure exits nonzero before the final line:
    and of each eval (4 ``mha_fwd``);
 19. the CLI on a YAML written to a temporary directory: full-width
    ViT-B-32 under exp 6 at batch 256, 1024 synthetic pairs (4 steps an
-   epoch), 512 eval pairs, one warm and one main epoch, a checkpoint
-   each epoch.  One train record a step, finite evals before training,
-   after each epoch and at the end, an npz each epoch, a final npz and
-   the full-state directory, and the launches of phase 9 in each warm
-   and each main step.  Then the host's loader alone (ms a batch), the
-   host→device copy of a batch, the CLI's step ms and pairs/s from its
-   meter, phase 9's step on a device-resident batch, and a
-   ``torch.profiler`` account of four CLI steps (kernel-busy ms, copy ms,
-   idle share), beside the card.  Last, the same CLI in a child process,
-   sent SIGTERM after its third train record (it must exit 0 with a
-   full-state save), then rerun with ``resume_checkpoint: "auto"``: its
-   final npz is compared with the uninterrupted run's (bit-identical or
-   not, printed) and held within phase 9's bf16 step tolerance;
+   epoch), 256 eval pairs, one warm and one main epoch, a checkpoint
+   after the last epoch.  One train record a step, finite evals before
+   training, after each epoch and at the end, the last epoch's npz, a
+   final npz and the full-state directory, and the launches of phase 9
+   in each warm and each main step.  Then the host's loader alone (ms a
+   batch over its first 2), the host→device copy of a batch, the CLI's
+   step ms and pairs/s from its meter, phase 9's step on a
+   device-resident batch, and a ``torch.profiler`` account of two CLI
+   steps (kernel-busy ms, copy ms,
+   idle share), beside the card (phase 40 sends SIGTERM and resumes
+   this run under the launcher);
 20. build full-width RN50 (the reference's default tower) in bf16 from a
    seed, its BatchNorm parameters and running statistics in fp32, and
    serve 1024 image and 1024 token-row requests from 8 threads with phase
@@ -152,7 +150,8 @@ Phases, one line each; any failure exits nonzero before the final line:
    fp32 twin reading the trained running statistics; step ms, pairs/s,
    peak memory and eval seconds beside the card;
 23. RN50 through the CLI from a YAML: exp 6 at batch 256, 2 epochs of 2
-   steps on synthetic pairs, 256 eval pairs, a checkpoint each epoch; the
+   steps on synthetic pairs, 256 eval pairs, a checkpoint after the last
+   epoch; the
    launches of phase 21 a step and 12 ``mha_fwd`` an eval; the final npz
    holds the JAX RN50 parameter keys and no statistics, and the newest
    ``step_<N>.pt`` holds running statistics equal to the model's;
@@ -209,17 +208,19 @@ Phases, one line each; any failure exits nonzero before the final line:
    prompts, 12 ``mha_fwd``) on 64 images, whose probabilities sum to 1;
 30. the CLI on a YAML of full-width ViT-B-32 under exp 6 at batch 256 with
    ``device_augment: true`` (uint8 staging at 256): 2 epochs of 8 steps on
-   2048 synthetic pairs, 512 eval pairs; phase 9's launches a step, the
+   2048 synthetic pairs, 256 eval pairs, no epoch checkpoint; phase 9's
+   launches a step, the
    loss falling within each epoch (the warm and the main phase's losses
    are different functions); the loader alone, the host→device copy of a
    uint8 batch, the CLI step and a ``torch.profiler`` idle share beside
    phase 19's;
 31. export that ViT-B-32 with a symbolic batch and its weights baked in,
-   and once with ``uint8_input``; load each in a child process that
+   and once with ``uint8_input``; load both in one child process that
    imports only torch and ``sparsify_clip_tpu_torch.ops`` (checked from
    its ``sys.modules``), whose batches of 1, 7 and 64 must agree with the
-   live ``CLIPEncoder`` and launch 12 ``mha_fwd`` a call; then ``python -m
-   sparsify_clip_tpu_torch.encode`` on 64 PNG and JPEG files of several
+   live ``CLIPEncoder`` and launch 12 ``mha_fwd`` a call; then the encode
+   CLI (``sparsify_clip_tpu_torch.encode.main``, in this process) on 64
+   PNG and JPEG files of several
    sizes, written with PIL, and a captions file: its npz holds unit rows
    equal to the live encoder's on the same decoded pixels;
 32. the CLI on a YAML of full-width ViT-B-32 under exp 6 at batch 256 with
@@ -282,7 +283,7 @@ Phases, one line each; any failure exits nonzero before the final line:
    passes no worker count) and the CLI step beside phase 19's;
 39. ``configs/vitl14_single_chip.yaml`` through the CLI at full width
    (ViT-L-14 at 224, batch 128, ``anchor`` at a fixed temperature,
-   ``device_augment``, no remat), 2 epochs of 4 steps, 256 eval pairs.
+   ``device_augment``, no remat), 2 epochs of 2 steps, 128 eval pairs.
    First rows 1 and 3 at (128, 257, 3072) bf16 (the whole-width route at
    L = 257: the forward's last 64-key stage holds one key, the
    backward's last 32-row tile one row) and row 2 in fp32 at (128, 257,
@@ -304,7 +305,9 @@ Phases, one line each; any failure exits nonzero before the final line:
    "auto"``.  Both first records name ``nccl``, the world size and the
    loss route (``kernel`` at one rank); at one rank the per-step losses
    and the final npz are bit-identical to phase 19's run without the
-   launcher, and the steps launch phase 9's kernels;
+   launcher, and the steps launch phase 9's kernels.  Its processes run
+   beside phases 41-42's (driven from a thread, after phase 42's kernel
+   timings), so its seconds are not those of the launcher alone;
 41. gloo over card tensors, 2 and then 4 ranks on card 0 under the
    launcher (NCCL refuses two ranks on one device): the ring losses
    (``ring_infonce_loss``, ``ring_lunif_loss`` alone and on the
@@ -325,7 +328,22 @@ Phases, one line each; any failure exits nonzero before the final line:
    one-process eval, every metric within one 4-decimal step.  The step ms
    of each world is printed beside the one-process step: gloo moves the
    bytes of every collective through the host, so these are not
-   multi-GPU speeds.
+   multi-GPU speeds (and the 4 ranks run while this process reads the 2);
+42. the sharded layouts (ROADMAP Queue 1, 'Multi-GPU'), extra jobs of
+   phase 41's launches: first (before phases 40-41) rows 1, 3, 10 and 11
+   at the tensor-parallel
+   shapes of ViT-B-32 at tp 2 (vision (256, 50, 1152) over 6 heads, text
+   (256, 77, 768) causal over 4; the fused LN+qkv's 3W/tp columns) against
+   their plain versions, timed; then full-width ViT-B-32 exp 6 at global
+   batch 256 for 3 steps: ZeRO-1 at 2 ranks in bf16 (bit-identical to
+   phase 41's data-parallel run, which gives it its gates' readings), FSDP at 2 ranks in
+   bf16 (under phase 41's gates), dp 1 × tp 2 in bf16 with
+   ``fused_ln_qkv`` against the one-process fused step (24 ``mha_fwd``,
+   24 ``mha_bwd``, 24 ``ln_qkv_fwd`` and 24 ``ln_fast_bwd`` a step on each
+   rank, and phase 9's loss kernels), and dp 2 × tp 2 with FSDP at 4 ranks
+   in fp32 against the one-process fp32 step; each run's parameters put
+   back together are bit-identical on every rank.  The script's total
+   seconds and each phase's are printed last before the kernels line.
 
 Phases 6 and 8 also hold the loss kernels at RN50's (256, 1024), the
 main path's shape, and at ViT-L-14-336's (256, 768) of phase 26.  The kernels line reports each kernel at the case its
@@ -341,20 +359,25 @@ reference trains 100); the eval set is 256 pairs in 4 batches of 64
 (the reference's 512), evaluated 3 times (before training and after
 each epoch).  Phase 19 trains 2 epochs of 4 steps on 1024 synthetic
 pairs (the reference trains 100 epochs on COCO; cut from 8 steps an
-epoch to make room for phases 40-41) and evaluates 512 pairs 4 times.  RN50 runs at full depth; phases 21-22 train 2 epochs of
+epoch to make room for phases 40-41) and evaluates 256 pairs 4 times.
+The CLI runs of phases 19, 23 and 27 write the full state and the epoch
+npz after the last epoch only, those of phases 30, 32 and 38 after none
+(each save of ViT-B-32's full state is 1.8 GB); phases 19, 30 and 38
+time the loader alone over 2 batches, phases 19 and 30 profile 2 CLI
+steps.  RN50 runs at full depth; phases 21-22 train 2 epochs of
 8 steps (the reference trains 100 on COCO), phase 23 2 of 2 on 512
 synthetic pairs.  Phases 24-27 cut the depth of a run alone: SigLIP 2
 epochs of 4 steps, the GradCache ViT-L-14-336 run 2 of 2 (eval 256 pairs,
 not 512), the two CLIs 2 of 2 with one eval batch of 256.  Phases 28-31
 run ViT-B-32 at full width and depth; phase 30 cuts training to 2
-epochs of 8 steps on 2048 synthetic pairs, 512 eval pairs 4 times.
+epochs of 8 steps on 2048 synthetic pairs, 256 eval pairs 4 times.
 Phases 32-35 run at full width: phase 32 cuts training as phase 19 does
 (from 8 steps an epoch, for phases 40-41) with 256 eval pairs (the plots of 512 points take the host
 seconds a pass), phase 33 trains 2 epochs of 2 steps, phases 34-35 a few
 steps.  Phases 36-39 cut depth alone: phase 37 trains 2 epochs of 2
 steps on 512 synthetic pairs with 256 eval pairs (the YAML: 100 epochs
 on COCO, 512 eval pairs), phase 38 2 epochs of 4 steps (phase 19's YAML
-otherwise), phase 39 2 epochs of 4 steps on 512 synthetic pairs with 256
+otherwise), phase 39 2 epochs of 2 steps on 256 synthetic pairs with 128
 eval pairs (the YAML: 100 epochs on COCO, 512 eval pairs) and profiles 2
 steps.  Phases 40-41 cut depth alone: phase 40 runs phase 19's YAML,
 phase 41 3 steps.  The
@@ -460,11 +483,16 @@ LN_BWD_STEP = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -23}
 LN_BWD_CANCEL = 1e-5            # of the largest entry, y and dx
 LN_BWD_GRAD_TOL = (1e-4, 1e-5)  # dscale, dbias: rtol, atol relative to the largest entry
 # the CLI phases (19, 30, 32): exp 6 from a YAML at batch 256; phases 19
-# and 32 at 4 steps an epoch, phase 30 at 8
+# and 32 at 4 steps an epoch, phase 30 at 8; one eval batch a pass; the
+# full state and the epoch npz written after the last epoch only (phases
+# 19, 23, 27 read them; 30, 32 and 38 write none: NO_EPOCH_SAVES)
 CLI_TRAIN_SAMPLES = 2048
 CLI_EXP6_SAMPLES = 1024
-CLI_PROFILE_STEPS = 4           # main-phase steps under torch.profiler
-CLI_PROCESS_TIMEOUT = 300       # seconds, each child CLI run
+CLI_EVAL_PAIRS = 256
+CLI_LOADER_BATCHES = 2          # batches of the loader timed alone
+CLI_PROFILE_STEPS = 2           # main-phase steps under torch.profiler
+NO_EPOCH_SAVES = dict(save_checkpoint_every_n_epochs=EXP6_EPOCHS + 1)
+CLI_PROCESS_TIMEOUT = 300       # seconds, phase 31's child process
 # RN50 through the CLI (phase 23): 2 steps an epoch, one eval batch
 RN50_CLI_STEPS = 2
 RN50_CLI_EVAL_PAIRS = 256
@@ -487,8 +515,8 @@ CLI_LOSS_EVAL_PAIRS = 256
 TOKENIZER_CAPTIONS = 4096
 GRAIN_STEPS = 4
 VITL14_BATCH = 128
-VITL14_STEPS = 4
-VITL14_EVAL_PAIRS = 256
+VITL14_STEPS = 2
+VITL14_EVAL_PAIRS = 128
 VITL14_PROFILE_STEPS = 2
 REPO = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
@@ -497,10 +525,27 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
+PHASE_ENDS: dict = {}  # phase number -> seconds at its last line, in order
+
+
 def log(phase: str, **fields) -> None:
     """One line a reading; ``t`` is the seconds since the script started."""
-    fields["t"] = f"{time.perf_counter() - T0:.1f}"
+    t = time.perf_counter() - T0
+    fields["t"] = f"{t:.1f}"
+    words = phase.split()
+    if words[0] == "phase":
+        PHASE_ENDS[words[1]] = t
     print(f"{phase}: " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def phase_seconds() -> dict:
+    """Each phase's seconds, from the line before its first to its last
+    (phases that run inside another count with the one that ends later)."""
+    out, before = {}, 0.0
+    for phase, end in sorted(PHASE_ENDS.items(), key=lambda item: item[1]):
+        out[phase] = round(end - before, 1)
+        before = end
+    return out
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1821,8 +1866,9 @@ def _write_exp6_yaml(directory: str, **fields) -> str:
     import os
 
     config = dict(EXP6, run_name="exp6-vitb32", project_name="chip_smoke",
-                  num_train_samples=CLI_TRAIN_SAMPLES, num_test_samples=EVAL_PAIRS,
-                  epochs=EXP6_EPOCHS, save_checkpoint_every_n_epochs=1, dataset="synthetic",
+                  num_train_samples=CLI_TRAIN_SAMPLES, num_test_samples=CLI_EVAL_PAIRS,
+                  epochs=EXP6_EPOCHS, save_checkpoint_every_n_epochs=EXP6_EPOCHS,
+                  dataset="synthetic",
                   log_backend="jsonl", plot_embeddings=False,
                   log_dir=os.path.join(directory, "logs"),
                   checkpoint_dir=os.path.join(directory, "models"))
@@ -1834,42 +1880,17 @@ def _write_exp6_yaml(directory: str, **fields) -> str:
     return path
 
 
-def _cli_process(yaml_path: str, log_path: Optional[str] = None, stop_after: int = 0):
-    """Run ``python3 -m sparsify_clip_tpu_torch.cli`` in a child process;
-    with ``stop_after``, send it SIGTERM once ``log_path`` holds that many
-    train records.  Returns (exit code, seconds, train records seen at the
-    signal)."""
-    import os
-    import signal
+def _time_loader(loader):
+    """The first ``CLI_LOADER_BATCHES`` batches of ``loader``'s epoch 0
+    alone → (the batches, ms a batch)."""
+    import itertools
 
-    env = dict(os.environ, PYTHONPATH=REPO, WANDB_MODE="disabled")
     t = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "sparsify_clip_tpu_torch.cli", "--config",
-                             yaml_path], cwd=REPO, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    seen = None
-    output = []
-    reader = threading.Thread(target=lambda: output.extend(proc.stdout), daemon=True)
-    reader.start()
-    try:
-        while stop_after and proc.poll() is None:
-            n = 0
-            if os.path.exists(log_path):
-                n = sum(1 for r in _jsonl(log_path) if "train_loss" in r)
-            if n >= stop_after:
-                proc.send_signal(signal.SIGTERM)
-                seen = n
-                break
-            time.sleep(0.02)
-        rc = proc.wait(timeout=CLI_PROCESS_TIMEOUT)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    reader.join(timeout=10)
-    if rc != 0:
-        print("".join(output[-60:]), file=sys.stderr)
-    return rc, time.perf_counter() - t, seen
+    epoch = loader.epoch(0)
+    batches = list(itertools.islice(epoch, CLI_LOADER_BATCHES))
+    ms = (time.perf_counter() - t) / len(batches) * 1e3
+    epoch.close()
+    return batches, ms
 
 
 def _npz_digest(arrays) -> str:
@@ -1942,33 +1963,27 @@ def _profile_cli_steps(config, steps: int, tracer=None):
 
 def phase_cli_exp6(smi: str, device_resident: dict):
     """Phase 19: the CLI on a YAML of full-width ViT-B-32 under exp 6 at
-    batch 256, then SIGTERM and ``resume_checkpoint: "auto"`` in child
-    processes, and where the time of the CLI step goes."""
-    import dataclasses
+    batch 256, and where the time of the CLI step goes (phase 40 sends
+    SIGTERM and resumes under the launcher)."""
     import os
     import tempfile
 
-    from sparsify_clip_tpu_torch.checkpoints import collect_host_arrays
     from sparsify_clip_tpu_torch.config import load_config
     from sparsify_clip_tpu_torch.data import dataset_loader
-    from sparsify_clip_tpu_torch.models.clip import create_model
     from sparsify_clip_tpu_torch.train import batch_to_device
 
     spe = CLI_EXP6_SAMPLES // EXP6["batch_size"]
     run = "exp6-vitb32"
     with tempfile.TemporaryDirectory() as tmp:
-        main_dir, stop_dir = os.path.join(tmp, "main"), os.path.join(tmp, "stopped")
+        main_dir = os.path.join(tmp, "main")
         os.makedirs(main_dir)
-        os.makedirs(stop_dir)
         yaml_path = _write_exp6_yaml(main_dir, num_train_samples=CLI_EXP6_SAMPLES)
         config = load_config(yaml_path)
 
         # the loader alone: decode, crop, resize, flip, normalize and
         # tokenize 256 pairs at 224 px, four threads, as the CLI builds it
         train_loader, _ = dataset_loader(config, image_size=224)
-        t = time.perf_counter()
-        batches = list(train_loader.epoch(0))
-        loader_ms = (time.perf_counter() - t) / len(batches) * 1e3
+        batches, loader_ms = _time_loader(train_loader)
         one = batches[0]
         copy_ms = cuda_ms(lambda: batch_to_device(one, torch.device("cuda")), iters=10, warmup=2)
         del batches
@@ -1991,18 +2006,18 @@ def phase_cli_exp6(smi: str, device_resident: dict):
                                  f"got {step_records}")
         evals = _check_evals(records, EXP6_EPOCHS + 2, "exp 6")  # before, each epoch, final
         models = os.path.join(main_dir, "models")
-        want_files = sorted([run, f"{run}.npz"] + [f"{run}_epoch_{e + 1}.npz"
-                                                   for e in range(EXP6_EPOCHS)])
+        # saved after the last epoch only (save_checkpoint_every_n_epochs)
+        want_files = sorted([run, f"{run}.npz", f"{run}_epoch_{EXP6_EPOCHS}.npz"])
         full_steps = sorted(os.listdir(os.path.join(models, run)))
-        if sorted(os.listdir(models)) != want_files or full_steps != sorted(
-                f"step_{spe * (e + 1)}.pt" for e in range(EXP6_EPOCHS)):
+        if sorted(os.listdir(models)) != want_files or full_steps != [
+                f"step_{spe * EXP6_EPOCHS}.pt"]:
             raise AssertionError(f"files {sorted(os.listdir(models))} {full_steps}")
         zero = dict.fromkeys(KERNELS, 0)
         warm = dict(zero, mha_fwd=24, mha_bwd=24, lunif_fwd=2, lunif_bwd=2)
         main = dict(zero, mha_fwd=24, mha_bwd=24, infonce_fwd=1, infonce_bwd_dimg=1,
                     infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
         want_steps = [(k, warm if k < spe else main) for k in range(EXP6_EPOCHS * spe)]
-        per_eval = dict(zero, mha_fwd=24 * (EVAL_PAIRS // EXP6["batch_size"]))
+        per_eval = dict(zero, mha_fwd=24 * (CLI_EVAL_PAIRS // EXP6["batch_size"]))
         _expect_launches(counter.steps, want_steps, "the exp-6 CLI's steps")
         _expect_launches(counter.evals, [per_eval] * (EXP6_EPOCHS + 2), "the exp-6 CLI's evals")
         total = {k: spe * (warm[k] + main[k]) + (EXP6_EPOCHS + 2) * per_eval[k] for k in KERNELS}
@@ -2032,43 +2047,8 @@ def phase_cli_exp6(smi: str, device_resident: dict):
             idle_share_profiled=f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}",
             idle_share_vs_cli_step=f"{idle:.4f}", card=json.dumps(smi))
 
-        # SIGTERM after the third train record, then "auto" resume
-        stop_yaml = _write_exp6_yaml(stop_dir, num_train_samples=CLI_EXP6_SAMPLES)
-        stop_log = os.path.join(stop_dir, "logs", f"{run}.jsonl")
-        rc, stop_seconds, seen = _cli_process(stop_yaml, stop_log, stop_after=3)
-        stopped = _jsonl(stop_log)
-        saved = sorted(os.listdir(os.path.join(stop_dir, "models", run)))
-        if rc != 0 or not any(r.get("preempted") for r in stopped) or len(saved) != 1:
-            raise AssertionError(f"the SIGTERM run exited {rc} with {saved}")
-        stopped_at = len([r for r in stopped if "train_loss" in r])
-        resume_yaml = _write_exp6_yaml(stop_dir, resume_checkpoint="auto",
-                                       num_train_samples=CLI_EXP6_SAMPLES)
-        rc, resume_seconds, _ = _cli_process(resume_yaml)
-        resumed = [r for r in _jsonl(stop_log) if "train_loss" in r]
-        if rc != 0 or len(resumed) != EXP6_EPOCHS * spe:
-            raise AssertionError(f"the resumed run exited {rc} with {len(resumed)} train records")
-        with np.load(os.path.join(models, f"{run}.npz")) as a, \
-                np.load(os.path.join(stop_dir, "models", f"{run}.npz")) as b:
-            full, after = {k: a[k] for k in a.files}, {k: b[k] for k in b.files}
-    init = collect_host_arrays(create_model(config.model, dtype=torch.bfloat16, device="cuda",
-                                            seed=config.seed, param_dtype=torch.float32))
-    identical = full.keys() == after.keys() and all(np.array_equal(full[k], after[k]) for k in full)
-    # the bf16 step tolerance of phase 9: each tensor's update over the run
-    # in the same direction, and the last losses within TRAIN_LOSS_RTOL
-    cosines = {}
-    for key in full:
-        u, v = (full[key] - init[key]).ravel(), (after[key] - init[key]).ravel()
-        denom = float(np.linalg.norm(u) * np.linalg.norm(v))
-        cosines[key] = 1.0 if denom == 0 else float(u @ v) / denom
-    worst = min(cosines, key=cosines.get)
-    loss_gap = _rel_gap(resumed[-1]["train_loss"], step_records[-1]["train_loss"])
-    log("phase 19 resume", sigterm_after_records=seen, stopped_at_step=stopped_at,
-        full_state=json.dumps(saved), stop_run_s=f"{stop_seconds:.3f}",
-        resume_run_s=f"{resume_seconds:.3f}", bit_identical=identical,
-        min_update_cosine=cosines[worst], min_at=worst, min_cosine=TRAIN_MIN_GRAD_COSINE,
-        last_loss_rel_gap=loss_gap, rtol=TRAIN_LOSS_RTOL)
-    if cosines[worst] < TRAIN_MIN_GRAD_COSINE or loss_gap > TRAIN_LOSS_RTOL:
-        raise AssertionError("the resumed run and the uninterrupted run disagree")
+        with np.load(os.path.join(models, f"{run}.npz")) as a:
+            full = {k: a[k] for k in a.files}
     return dict(launches=launches, loader_ms=loader_ms, copy_ms=copy_ms, rates=rates,
                 profile=prof, losses=[r["train_loss"] for r in step_records],
                 npz_digest=_npz_digest(full))
@@ -2108,10 +2088,10 @@ def phase_cli_rn50(smi: str):
             raise AssertionError(f"RN50 CLI train records {step_records}")
         evals = _check_evals(records, EXP6_EPOCHS + 2, "RN50 exp 6")
         models = os.path.join(tmp, "models")
-        want_files = sorted([run, f"{run}.npz"] + [f"{run}_epoch_{e + 1}.npz"
-                                                   for e in range(EXP6_EPOCHS)])
+        # saved after the last epoch only (save_checkpoint_every_n_epochs)
+        want_files = sorted([run, f"{run}.npz", f"{run}_epoch_{EXP6_EPOCHS}.npz"])
         full_steps = sorted(os.listdir(os.path.join(models, run)))
-        want_steps = sorted(f"step_{RN50_CLI_STEPS * (e + 1)}.pt" for e in range(EXP6_EPOCHS))
+        want_steps = [f"step_{RN50_CLI_STEPS * EXP6_EPOCHS}.pt"]
         if sorted(os.listdir(models)) != want_files or full_steps != want_steps:
             raise AssertionError(f"RN50 files {sorted(os.listdir(models))} {full_steps}")
         with np.load(os.path.join(models, f"{run}.npz")) as data:
@@ -2513,12 +2493,10 @@ def phase_cli_augment(smi: str, phase19: dict):
     run = "exp6-vitb32-augment"
     with tempfile.TemporaryDirectory() as tmp:
         yaml_path = _write_exp6_yaml(tmp, run_name=run, device_augment=True,
-                                     device_augment_staging=IMAGE_STAGING)
+                                     device_augment_staging=IMAGE_STAGING, **NO_EPOCH_SAVES)
         config = load_config(yaml_path)
         train_loader, _ = dataset_loader(config, image_size=224)
-        t = time.perf_counter()
-        batches = list(train_loader.epoch(0))
-        loader_ms = (time.perf_counter() - t) / len(batches) * 1e3
+        batches, loader_ms = _time_loader(train_loader)
         one = batches[0]
         if one["images"].dtype != np.uint8 or one["images"].shape[1:] != (
                 IMAGE_STAGING, IMAGE_STAGING, 3):
@@ -2546,7 +2524,7 @@ def phase_cli_augment(smi: str, phase19: dict):
     warm = dict(zero, mha_fwd=24, mha_bwd=24, lunif_fwd=2, lunif_bwd=2)
     main = dict(zero, mha_fwd=24, mha_bwd=24, infonce_fwd=1, infonce_bwd_dimg=1,
                 infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
-    per_eval = dict(zero, mha_fwd=24 * (EVAL_PAIRS // EXP6["batch_size"]))
+    per_eval = dict(zero, mha_fwd=24 * (CLI_EVAL_PAIRS // EXP6["batch_size"]))
     _expect_launches(counter.steps, [(k, warm if k < spe else main)
                                      for k in range(EXP6_EPOCHS * spe)], "phase 30's steps")
     _expect_launches(counter.evals, [per_eval] * (EXP6_EPOCHS + 2), "phase 30's evals")
@@ -2581,39 +2559,85 @@ import torch
 import sparsify_clip_tpu_torch.ops
 from sparsify_clip_tpu_torch.ops import attention
 
-artifact, inputs, out = sys.argv[1:4]
+import os
 result = {}
-for kind in ("image", "text"):
-    program = torch.export.load(f"{artifact}/{kind}_encoder.pt2").module()
+args = sys.argv[1:]
+for artifact, inputs, out in zip(args[0::3], args[1::3], args[2::3]):
+    mine = result[os.path.basename(artifact)] = {}
     with np.load(inputs) as data:
-        batches = {k: data[k] for k in data.files if k.startswith(kind)}
-    for key, x in sorted(batches.items()):
-        before = attention.mha_fwd.launches
-        with torch.inference_mode():
-            y = program(torch.from_numpy(x).cuda())
-        torch.cuda.synchronize()
-        result[key] = dict(launches=attention.mha_fwd.launches - before)
-        np.save(f"{out}/{key}.npy", y.cpu().numpy())
+        arrays = {k: data[k] for k in data.files}
+    for kind in ("image", "text"):
+        batches = {k: x for k, x in arrays.items() if k.startswith(kind)}
+        if not batches:
+            continue
+        program = torch.export.load(f"{artifact}/{kind}_encoder.pt2").module()
+        for key, x in sorted(batches.items()):
+            before = attention.mha_fwd.launches
+            with torch.inference_mode():
+                y = program(torch.from_numpy(x).cuda())
+            torch.cuda.synchronize()
+            mine[key] = dict(launches=attention.mha_fwd.launches - before)
+            np.save(f"{out}/{key}.npy", y.cpu().numpy())
 result["modules"] = sorted(m for m in sys.modules if m.startswith("sparsify_clip"))
 print(json.dumps(result))
 """
 
 
-def phase_export(smi: str, model):
-    """Phase 31: full-width bf16 ViT-B-32 exported with a symbolic batch
-    (weights baked in), once with ``uint8_input``; each loaded in a child
-    process that imports torch and the port's op module alone, whose
-    batches of 1, 7 and 64 must agree with the live encoder and launch 12
-    ``mha_fwd`` a call; then ``python -m sparsify_clip_tpu_torch.encode``
-    on a folder of 64 PNG and JPEG files and a captions file, whose npz
-    must hold unit rows equal to the live encoder's."""
-    import os
-    import tempfile
+def _encode_cli(model, encoder, tmp: str, rng):
+    """Phase 31's encode CLI on ``ENCODE_FILES`` PNG and JPEG files of
+    several sizes and a captions file in ``tmp`` → (its npz's arrays, the
+    live encoder's image and text rows, the captions, the files, seconds,
+    what it printed)."""
+    import contextlib
+    import io
 
     from PIL import Image
 
     from sparsify_clip_tpu_torch import encode
     from sparsify_clip_tpu_torch.checkpoints import save_weights
+
+    cfg = model.cfg
+    folder = os.path.join(tmp, "images")
+    os.makedirs(folder)
+    for i in range(ENCODE_FILES):
+        h, w = (224, 224) if i % 4 == 0 else (int(rng.integers(100, 640)),
+                                               int(rng.integers(100, 640)))
+        pixels = rng.integers(0, 256, (h, w, 3), np.uint8)
+        Image.fromarray(pixels).save(os.path.join(folder, f"img_{i:02d}.png" if i % 2
+                                                  else f"img_{i:02d}.jpg"), quality=95)
+    captions = [f"a photo of a {c} number {i}" for i, c in enumerate(ZERO_SHOT_CLASSES * 3)]
+    texts = os.path.join(tmp, "captions.txt")
+    with open(texts, "w") as fh:
+        fh.write("\n".join(captions) + "\n")
+    weights = save_weights(model, os.path.join(tmp, "weights.npz"))
+    npz = os.path.join(tmp, "embeddings.npz")
+    printed = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        encode.main(["--model", cfg.name, "--weights", weights, "--images", folder,
+                     "--texts", texts, "--out", npz])
+    encode_s = time.perf_counter() - t
+    with np.load(npz) as data:
+        got = {k: data[k] for k in data.files}
+    files = list(got["image_files"])
+    want_img = encode_direct(encoder.encode_images,
+                             encode._load_image_batch(files, cfg.image_size), 64)
+    want_txt = encoder.encode_texts(list(got["texts"])).cpu().numpy()
+    return got, want_img, want_txt, captions, files, encode_s, printed
+
+
+def phase_export(smi: str, model):
+    """Phase 31: full-width bf16 ViT-B-32 exported with a symbolic batch
+    (weights baked in), once with ``uint8_input``; both loaded in one child
+    process that imports torch and the port's op module alone, whose
+    batches of 1, 7 and 64 must agree with the live encoder and launch 12
+    ``mha_fwd`` a call; then the encode CLI
+    (``sparsify_clip_tpu_torch.encode.main``, what ``python -m`` runs) on a
+    folder of 64 PNG and JPEG files and a captions file, whose npz must
+    hold unit rows equal to the live encoder's."""
+    import os
+    import tempfile
+
     from sparsify_clip_tpu_torch.export import save_exported
     from sparsify_clip_tpu_torch.inference import CLIPEncoder
     from sparsify_clip_tpu_torch.text import get_tokenizer
@@ -2626,6 +2650,7 @@ def phase_export(smi: str, model):
     launches = dict.fromkeys(KERNELS, 0)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
+        exported, child_args = {}, []
         for name, uint8_input in (("symbolic", False), ("symbolic_uint8", True)):
             artifact = os.path.join(tmp, name)
             t = time.perf_counter()
@@ -2650,17 +2675,33 @@ def phase_export(smi: str, model):
             np.savez(path, **inputs)
             outputs = os.path.join(tmp, f"{name}_outputs")
             os.makedirs(outputs)
-            t = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-c", _EXPORT_CHILD, artifact, path, outputs],
-                                  cwd=REPO, env=env, capture_output=True, text=True,
-                                  timeout=CLI_PROCESS_TIMEOUT)
-            child_s = time.perf_counter() - t
-            if proc.returncode != 0:
-                raise AssertionError(f"phase 31 {name}: the child failed:\n{proc.stderr[-4000:]}")
-            result = json.loads(proc.stdout.strip().splitlines()[-1])
-            bad_modules = [m for m in result["modules"] if m.startswith((
-                "sparsify_clip_tpu_torch.models", "sparsify_clip_tpu_torch.export",
-                "sparsify_clip_tpu."))]
+            child_args += [artifact, path, outputs]
+            exported[name] = dict(export_s=export_s, size_mb=size_mb, want=want, outputs=outputs)
+        # the child loads both artifacts while this process runs the encode CLI
+        t = time.perf_counter()
+        streams = [os.path.join(tmp, f"child.{k}") for k in ("out", "err")]
+        with open(streams[0], "w") as out_fh, open(streams[1], "w") as err_fh:
+            child = subprocess.Popen([sys.executable, "-c", _EXPORT_CHILD, *child_args],
+                                     cwd=REPO, env=env, stdout=out_fh, stderr=err_fh)
+            try:
+                encoded = _encode_cli(model, encoder, tmp, rng)
+                child.wait(timeout=CLI_PROCESS_TIMEOUT)
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+        child_s = time.perf_counter() - t
+        with open(streams[0]) as out_fh, open(streams[1]) as err_fh:
+            stdout, stderr = out_fh.read(), err_fh.read()
+        if child.returncode != 0:
+            raise AssertionError(f"phase 31: the child failed:\n{stderr[-4000:]}")
+        results = json.loads(stdout.strip().splitlines()[-1])
+        bad_modules = [m for m in results["modules"] if m.startswith((
+            "sparsify_clip_tpu_torch.models", "sparsify_clip_tpu_torch.export",
+            "sparsify_clip_tpu."))]
+        for name, e in exported.items():
+            export_s, size_mb, want, outputs = e["export_s"], e["size_mb"], e["want"], e["outputs"]
+            result = results[name]
             errs, cosines = {}, {}
             for key, w in want.items():
                 got = np.load(os.path.join(outputs, f"{key}.npy"))
@@ -2674,45 +2715,16 @@ def phase_export(smi: str, model):
                                          f"expected {layers}")
                 launches["mha_fwd"] += result[key]["launches"]
             log("phase 31 export", ok=not bad_modules, artifact=name, batches=list(EXPORT_BATCHES),
-                export_s=f"{export_s:.3f}", child_s=f"{child_s:.3f}", size_mib=f"{size_mb:.1f}",
-                max_abs_err=json.dumps(errs), min_cosine=json.dumps(cosines),
-                launches=json.dumps({k: v["launches"] for k, v in result.items()
-                                     if k != "modules"}),
-                child_modules=json.dumps(result["modules"]), card=json.dumps(smi))
+                export_s=f"{export_s:.3f}", child_s_both=f"{child_s:.3f}",
+                size_mib=f"{size_mb:.1f}", max_abs_err=json.dumps(errs),
+                min_cosine=json.dumps(cosines),
+                launches=json.dumps({k: v["launches"] for k, v in result.items()}),
+                child_modules=json.dumps(results["modules"]), card=json.dumps(smi))
             if bad_modules or min(cosines.values()) < MIN_COSINE:
                 raise AssertionError(f"phase 31 {name}: modules {bad_modules}, cosines {cosines}")
             out[name] = dict(export_s=export_s, child_s=child_s)
 
-        # the encode CLI on 64 PNG and JPEG files of several sizes
-        folder = os.path.join(tmp, "images")
-        os.makedirs(folder)
-        for i in range(ENCODE_FILES):
-            h, w = (224, 224) if i % 4 == 0 else (int(rng.integers(100, 640)),
-                                                   int(rng.integers(100, 640)))
-            pixels = rng.integers(0, 256, (h, w, 3), np.uint8)
-            Image.fromarray(pixels).save(os.path.join(folder, f"img_{i:02d}.png" if i % 2
-                                                      else f"img_{i:02d}.jpg"), quality=95)
-        captions = [f"a photo of a {c} number {i}" for i, c in
-                    enumerate(ZERO_SHOT_CLASSES * 3)]
-        texts = os.path.join(tmp, "captions.txt")
-        with open(texts, "w") as fh:
-            fh.write("\n".join(captions) + "\n")
-        weights = save_weights(model, os.path.join(tmp, "weights.npz"))
-        npz = os.path.join(tmp, "embeddings.npz")
-        t = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "sparsify_clip_tpu_torch.encode", "--model",
-                               cfg.name, "--weights", weights, "--images", folder, "--texts",
-                               texts, "--out", npz], cwd=REPO, env=env, capture_output=True,
-                              text=True, timeout=CLI_PROCESS_TIMEOUT)
-        encode_s = time.perf_counter() - t
-        if proc.returncode != 0:
-            raise AssertionError(f"phase 31 encode CLI failed:\n{proc.stderr[-4000:]}")
-        with np.load(npz) as data:
-            got = {k: data[k] for k in data.files}
-        files = list(got["image_files"])
-        want_img = encode_direct(encoder.encode_images,
-                                 encode._load_image_batch(files, cfg.image_size), 64)
-        want_txt = encoder.encode_texts(list(got["texts"])).cpu().numpy()
+    got, want_img, want_txt, captions, files, encode_s, printed = encoded
     rows = np.concatenate([got["image_embeddings"], got["text_embeddings"]])
     norms = np.linalg.norm(rows, axis=-1)
     cos = min(min_cosine(got["image_embeddings"], want_img),
@@ -2723,7 +2735,8 @@ def phase_export(smi: str, model):
     log("phase 31 encode", ok=ok, images=len(files), texts=len(got["texts"]),
         keys=json.dumps(sorted(got)), min_cos_vs_live=cos,
         max_norm_err=float(np.abs(norms - 1).max()), seconds=f"{encode_s:.3f}",
-        retrieval=json.dumps([ln for ln in proc.stdout.splitlines() if ln.startswith("image ")]))
+        retrieval=json.dumps([ln for ln in printed.getvalue().splitlines()
+                              if ln.startswith("image ")]))
     if not ok:
         raise AssertionError("phase 31: the encode CLI's npz disagrees with the live encoder")
     return dict(launches=launches, **out)
@@ -2811,7 +2824,7 @@ def phase_cli_sparse(smi: str, phase19: dict):
                   num_train_samples=CLI_EXP6_SAMPLES)
     with tempfile.TemporaryDirectory() as tmp:
         yaml_path = _write_exp6_yaml(tmp, run_name=run, num_test_samples=SPARSE_EVAL_PAIRS,
-                                     plot_embeddings=plots, **sparse)
+                                     plot_embeddings=plots, **sparse, **NO_EPOCH_SAVES)
         config = load_config(yaml_path)
         counter = _PerStepCounts()
         t = time.perf_counter()
@@ -3431,14 +3444,12 @@ def phase_cli_grain(smi: str, phase19: dict):
     batch, run = EXP6["batch_size"], "exp6-vitb32"
     with tempfile.TemporaryDirectory() as tmp:
         path = _write_exp6_yaml(tmp, loader_backend="grain",
-                                num_train_samples=GRAIN_STEPS * batch)
+                                num_train_samples=GRAIN_STEPS * batch, **NO_EPOCH_SAVES)
         config = load_config(path)
         train_loader, test_loader = dataset_loader(config, image_size=224)
         if not isinstance(train_loader, GrainDataLoader):
             raise AssertionError(f"loader_backend: grain built {type(train_loader).__name__}")
-        t = time.perf_counter()
-        batches = list(train_loader.epoch(0))
-        loader_ms = (time.perf_counter() - t) / len(batches) * 1e3
+        batches, loader_ms = _time_loader(train_loader)
         one = batches[0]
         if one["images"].dtype != np.float32 or one["images"].shape != (batch, 224, 224, 3) \
                 or one["tokens"].dtype != np.int32 or set(one["captions"]) != {""}:
@@ -3456,7 +3467,7 @@ def phase_cli_grain(smi: str, phase19: dict):
     warm = dict(zero, mha_fwd=24, mha_bwd=24, lunif_fwd=2, lunif_bwd=2)
     main = dict(zero, mha_fwd=24, mha_bwd=24, infonce_fwd=1, infonce_bwd_dimg=1,
                 infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
-    per_eval = dict(zero, mha_fwd=24 * (EVAL_PAIRS // batch))
+    per_eval = dict(zero, mha_fwd=24 * (CLI_EVAL_PAIRS // batch))
     _expect_launches(counter.steps, [(k, warm if k < GRAIN_STEPS else main)
                                      for k in range(EXP6_EPOCHS * GRAIN_STEPS)],
                      "the grain CLI's steps")
@@ -3675,6 +3686,31 @@ DP_UPDATE_RTOL = {("ViT-B-32", "bf16"): 0.2, ("ViT-B-32", "fp32"): 1e-3,
                   ("RN50", "fp32"): 0.5}
 # - the running statistics: TRAIN_LOSS_RTOL of their largest entry.
 
+# Phase 42: the sharded layouts, extra jobs of phase 41's launches, each
+# (name, world, model, compute type, config fields); held against the
+# one-process step of the same model, type and fused_ln_qkv
+DP_LAYOUT_RUNS = (
+    ("zero1", 2, "ViT-B-32", "bf16", dict(shard_opt_state=True)),
+    ("fsdp", 2, "ViT-B-32", "bf16", dict(fsdp=True)),
+    ("tp2_fused", 2, "ViT-B-32", "bf16", dict(mesh_model=2, fused_ln_qkv=True)),
+    ("dp2tp2_fsdp", 4, "ViT-B-32", "fp32", dict(mesh_model=2, fsdp=True)),
+)
+# ZeRO-1 and FSDP split no product: phase 41's gates of their model and
+# type.  Tensor parallelism splits the row-parallel products' sums over
+# the model ranks (in bf16 each partial product is rounded before the fp32
+# sum): its own gates, each still below a gradient W times or 1/W its size
+# layouts held bit for bit to the plain data-parallel step of their model
+# and type in the same launch: they take its tensors' readings and save none
+DP_SAME_AS_STEP = ("zero1",)
+DP_TP_GATES = {
+    "tp2_fused": dict(first=TRAIN_LOSS_RTOL, later=TRAIN_LOSS_RTOL, grad_norm=5e-2, update=0.5),
+    "dp2tp2_fsdp": dict(first=1e-5, later=1e-4, grad_norm=1e-3, update=5e-2),
+}
+# ViT-B-32 at tp 2: (name, batch, L, local heads, causal) of rows 1 and 3,
+# (name, rows, W, local columns) of rows 10 and 11
+TP_ATTENTION = (("vision", 256, 50, 6, False), ("text", 256, 77, 4, True))
+TP_LN_QKV = (("vision", 256 * 50, 768, 1152), ("text", 256 * 77, 512, 768))
+
 
 def _launcher(nproc: int, args, out_dir: str, log_path: Optional[str] = None,
               stop_after: int = 0):
@@ -3684,14 +3720,8 @@ def _launcher(nproc: int, args, out_dir: str, log_path: Optional[str] = None,
     train records.  Returns (exit code, seconds, records seen, output)."""
     import signal
 
-    env = dict(os.environ, PYTHONPATH=REPO, WANDB_MODE="disabled", OMP_NUM_THREADS="2")
-    t = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                             f"--nproc_per_node={nproc}", *args], cwd=REPO, env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    output, seen = [], None
-    reader = threading.Thread(target=lambda: output.extend(proc.stdout), daemon=True)
-    reader.start()
+    launch = _launch(nproc, args)
+    proc, seen = launch["proc"], None
     try:
         while stop_after and proc.poll() is None:
             n = 0
@@ -3703,15 +3733,49 @@ def _launcher(nproc: int, args, out_dir: str, log_path: Optional[str] = None,
                 seen = n
                 break
             time.sleep(0.02)
-        rc = proc.wait(timeout=DP_PROCESS_TIMEOUT)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    reader.join(timeout=10)
-    if rc != 0:
-        print("".join(output[-80:]), file=sys.stderr)
-    return rc, time.perf_counter() - t, seen, "".join(output)
+    except BaseException:
+        _launch_stop(launch)
+        raise
+    rc, seconds, output = _launch_wait(launch)
+    return rc, seconds, seen, output
+
+
+def _launch(nproc: int, args) -> dict:
+    """Start ``torchrun --standalone --nproc_per_node=N args`` in a child
+    process, its output read on a thread; :func:`_launch_wait` ends it."""
+    env = dict(os.environ, PYTHONPATH=REPO, WANDB_MODE="disabled", OMP_NUM_THREADS="2")
+    t = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             f"--nproc_per_node={nproc}", *args], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    output: list = []
+    reader = threading.Thread(target=lambda: output.extend(proc.stdout), daemon=True)
+    reader.start()
+    return dict(proc=proc, output=output, reader=reader, t=t, result=None)
+
+
+def _launch_stop(launch: dict) -> None:
+    proc = launch["proc"]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _launch_wait(launch: dict):
+    """Wait for a :func:`_launch` (at most ``DP_PROCESS_TIMEOUT`` seconds;
+    a launch past it is killed) → (exit code, seconds, output)."""
+    if launch["result"] is None:
+        try:
+            rc = launch["proc"].wait(timeout=DP_PROCESS_TIMEOUT)
+        finally:
+            _launch_stop(launch)
+        seconds = time.perf_counter() - launch["t"]
+        launch["reader"].join(timeout=10)
+        output = launch["output"]
+        if rc != 0:
+            print("".join(output[-80:]), file=sys.stderr)
+        launch["result"] = (rc, seconds, "".join(output))
+    return launch["result"]
 
 
 def cli_rank_main(yaml_path: str, out_dir: str) -> int:
@@ -3861,28 +3925,57 @@ def _dp_ring_losses(mesh, device):
     return values, arrays
 
 
-def _dp_steps(model: str, dtype: str, mesh, device, keep: bool = False):
-    """``DP_STEPS`` exp-6 steps of full-width ``model`` at global batch 256
-    on this rank's rows, in ``dtype`` (``"bf16"`` or ``"fp32"``) compute:
-    the losses, the launches a step, the timed steps' ms, a sha256 of the
-    parameters and buffers, and, with ``keep``, the first step's gradients
-    and the final parameters and running statistics on the host (under
-    ``saved``; one process also keeps the seed's parameters)."""
-    from sparsify_clip_tpu_torch.config import ExperimentConfig
+_DP_BATCHES: dict = {}  # (image size, context, step) -> the global batch of that step
+
+
+def _dp_batch(cfg, k: int) -> dict:
+    """The global batch of step ``k`` of ``_dp_steps`` for a model of
+    ``cfg``'s input shapes, made once a process (every run here reads it)."""
     from sparsify_clip_tpu_torch.data import synthetic_batch
+
+    key = (cfg.image_size, cfg.context_length, k)
+    if key not in _DP_BATCHES:
+        _DP_BATCHES[key] = synthetic_batch(TRAIN_BATCH, cfg.image_size, cfg.context_length,
+                                           seed=SEED + k)
+    return _DP_BATCHES[key]
+
+
+def _dp_steps(model: str, dtype: str, mesh, device, keep: bool = False,
+              fields: Optional[dict] = None):
+    """``DP_STEPS`` exp-6 steps of full-width ``model`` at global batch 256
+    on this rank's rows, in ``dtype`` (``"bf16"`` or ``"fp32"``) compute,
+    with the config ``fields`` (a layout, ``fused_ln_qkv``): the losses,
+    the launches a step, the timed steps' ms, a sha256 of the parameters
+    and buffers, and, with ``keep``, the first step's gradients and the
+    final parameters and running statistics on the host (under ``saved``;
+    one process also keeps the seed's parameters).  A laid-out model's
+    parameters and gradients are put back together first (every rank
+    takes part)."""
+    from sparsify_clip_tpu_torch.checkpoints import full_parameters
+    from sparsify_clip_tpu_torch.config import ExperimentConfig
     from sparsify_clip_tpu_torch.parallel.mesh import digest
     from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup
 
+    t0 = time.perf_counter()
     config = ExperimentConfig.from_dict(dict(EXP6, model=model, epochs=EXP6_EPOCHS,
-                                             fp16=dtype == "bf16"))
+                                             fp16=dtype == "bf16", **(fields or {})))
     setup = create_train_setup(config, steps_per_epoch=DP_SPE, device=device, mesh=mesh)
+    setup_s = time.perf_counter() - t0
     cfg = setup.model.cfg
+    layout = getattr(setup.model, "layout", None)
+
+    def full_grads():
+        named = setup.model.named_parameters()
+        if layout is None:
+            return {n: p.grad.detach().cpu() for n, p in named}
+        return {n: layout.full(n, p.grad.detach()).cpu() for n, p in named}
+
     saved = {}
     if keep and mesh is None:
         saved["init"] = {n: p.detach().cpu() for n, p in setup.model.named_parameters()}
     losses, counts, ms = [], [], []
     for k in range(DP_STEPS):
-        batch = synthetic_batch(TRAIN_BATCH, cfg.image_size, cfg.context_length, seed=SEED + k)
+        batch = _dp_batch(cfg, k)
         if mesh is not None:
             batch = {key: v[mesh.batch_slice(TRAIN_BATCH)] for key, v in batch.items()}
         batch = batch_to_device(batch, device)
@@ -3894,12 +3987,16 @@ def _dp_steps(model: str, dtype: str, mesh, device, keep: bool = False):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
         counts.append(read_counts())
-        if k == 0 and keep:
-            saved["grads"] = {n: p.grad.detach().cpu() for n, p in setup.model.named_parameters()}
+        if k == 0 and (keep or layout is not None):
+            grads = full_grads()
+            if keep:
+                saved["grads"] = grads
+    params = full_parameters(setup.model)
     out = dict(losses=losses, counts=counts, step_ms=ms,
-               digest=digest(list(setup.model.parameters()) + list(setup.model.buffers())))
+               digest=digest([params[n] for n in sorted(params)]
+                             + list(setup.model.buffers())), setup_s=setup_s)
     if keep:
-        saved["params"] = {n: p.detach().cpu() for n, p in setup.model.named_parameters()}
+        saved["params"] = {n: p.detach().cpu() for n, p in params.items()}
         saved["buffers"] = {n: b.detach().cpu() for n, b in setup.model.named_buffers()}
         out["saved"] = saved
     del setup
@@ -3943,24 +4040,51 @@ def dp_rank_main(plan_path: str) -> int:
         plan = json.load(fh)
     if plan.get("fault"):
         _dp_fault(plan["fault"])
+    t = time.perf_counter()
     device = initialize_distributed(None, backend="gloo")
     mesh = create_mesh()
     out_dir, result = plan["dir"], {"device": str(device), "backend": mesh.backend}
+    seconds = result["seconds"] = {"init": time.perf_counter() - t}
+    t = time.perf_counter()
     if "losses" in plan["jobs"]:
         result["losses"], arrays = _dp_ring_losses(mesh, device)
         np.savez(os.path.join(out_dir, f"losses_rank{mesh.rank}.npz"), **arrays)
+        seconds["losses"], t = time.perf_counter() - t, time.perf_counter()
     for job in plan["jobs"]:
         if job.startswith("step:"):  # step:<model>:<dtype>
             _, model, dtype = job.split(":")
             result[job] = _dp_steps(model, dtype, mesh, device, keep=mesh.rank == 0)
             if mesh.rank == 0:  # rank 0's tensors for the comparison
                 torch.save(result[job].pop("saved"), os.path.join(out_dir, f"{model}_{dtype}.pt"))
+            seconds[job], t = time.perf_counter() - t, time.perf_counter()
+    for job in plan["jobs"]:
+        if job.startswith("layout:"):  # layout:<name> of DP_LAYOUT_RUNS
+            name, _, model, dtype, fields = _layout_run(job.split(":")[1])
+            lmesh = create_mesh(model=fields.get("mesh_model", 1))
+            keep = lmesh.rank == 0 and name not in DP_SAME_AS_STEP
+            result[job] = _dp_steps(model, dtype, lmesh, device, keep=keep, fields=fields)
+            result[job]["mesh"] = [lmesh.data, lmesh.model]
+            if keep:
+                torch.save(result[job].pop("saved"), os.path.join(out_dir, f"layout_{name}.pt"))
+            else:
+                result[job].pop("saved", None)
+            seconds[job], t = time.perf_counter() - t, time.perf_counter()
     if "eval" in plan["jobs"]:
         result["eval"], result["eval_launches"] = _dp_eval(mesh, device)
+        seconds["eval"] = time.perf_counter() - t
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as fh:
         json.dump(result, fh)
     shutdown_distributed()
     return 0
+
+
+def _layout_run(name: str):
+    return next(run for run in DP_LAYOUT_RUNS if run[0] == name)
+
+
+def _layout_reference_key(model: str, dtype: str, fields: dict) -> tuple:
+    """The one-process run a layout run is held against."""
+    return (model, dtype, "fused") if fields.get("fused_ln_qkv") else (model, dtype)
 
 
 def _dp_fault(name: str) -> None:
@@ -4039,28 +4163,42 @@ def _dp_step_readings(runs: list, got: dict, ref_run: dict, ref: dict, world: in
         ranks_bit_identical=len({r["digest"] for r in runs}) == 1)
 
 
-def _dp_gates_fired(key: tuple, r: dict) -> list:
+def _dp_gates(key: tuple) -> dict:
+    """Phase 41's limits for (model, dtype) ``key``."""
+    return dict(first=DP_FIRST_LOSS_RTOL, later=DP_LATER_LOSS_RTOL[key],
+                grad_norm=DP_GRAD_NORM_RTOL[key], update=DP_UPDATE_RTOL[key])
+
+
+def _dp_gates_fired(key: tuple, r: dict, gates: Optional[dict] = None) -> list:
     """The gates that a data-parallel run's readings ``r`` fire, for
-    (model, dtype) ``key``."""
+    (model, dtype) ``key`` (or the limits ``gates``)."""
+    g = gates or _dp_gates(key)
     fired = {
         "ranks_bit_identical": not r["ranks_bit_identical"],
-        "first_loss": r["first_loss_rel_gap"] > DP_FIRST_LOSS_RTOL,
-        "later_loss": r["later_loss_rel_gap"] > DP_LATER_LOSS_RTOL[key],
+        "first_loss": r["first_loss_rel_gap"] > g["first"],
+        "later_loss": r["later_loss_rel_gap"] > g["later"],
         "grad_cosine": r["min_grad_cosine"] < TRAIN_MIN_GRAD_COSINE,
-        "grad_norm": r["grad_norm_rel_gap"] > DP_GRAD_NORM_RTOL[key],
-        "update": r["update_rel_gap"] > DP_UPDATE_RTOL[key],
+        "grad_norm": r["grad_norm_rel_gap"] > g["grad_norm"],
+        "update": r["update_rel_gap"] > g["update"],
         "running_stats": r["stats_max_abs_diff"] > TRAIN_LOSS_RTOL * r["stats_scale"],
     }
     return [name for name, bad in fired.items() if bad]
 
 
-def _dp_references(device, step_runs=DP_STEP_RUNS):
+def _dp_references(device, step_runs=DP_STEP_RUNS, layout_runs=DP_LAYOUT_RUNS):
     """The one-process runs phase 41 holds the ranks against: the ring
     losses on the whole batch, each (model, dtype) step run with its
-    tensors, the eval's metrics, and their seconds."""
+    tensors (and the fused one phase 42's ``layout_runs`` need), the
+    eval's metrics, and their seconds."""
     t = time.perf_counter()
     losses, arrays = _dp_ring_losses(None, device)
     steps = {(m, d): _dp_steps(m, d, None, device, keep=True) for m, d, _ in step_runs}
+    # phase 42's tensor-parallel run takes the fused LN+qkv
+    for _, _, model, dtype, fields in layout_runs:
+        key = _layout_reference_key(model, dtype, fields)
+        if key not in steps:
+            steps[key] = _dp_steps(model, dtype, None, device, keep=True,
+                                   fields=dict(fused_ln_qkv=bool(fields.get("fused_ln_qkv"))))
     saved = {key: run.pop("saved") for key, run in steps.items()}
     metrics, _ = _dp_eval(None, device)
     torch.cuda.empty_cache()
@@ -4072,14 +4210,25 @@ def _dp_launch(world: int, jobs: list, fault: Optional[str] = None):
     """``world`` gloo ranks on card 0 running ``jobs`` (with ``fault``, a
     broken step) → (each rank's results, its ring-loss arrays, rank 0's
     step tensors by (model, dtype), seconds)."""
+    return _dp_launch_finish(_dp_launch_start(world, jobs, fault))
+
+
+def _dp_launch_start(world: int, jobs: list, fault: Optional[str] = None) -> dict:
+    """Start :func:`_dp_launch`'s ranks; :func:`_dp_launch_finish` reads them."""
     import tempfile
 
-    with tempfile.TemporaryDirectory() as tmp:
-        plan = os.path.join(tmp, "plan.json")
-        with open(plan, "w") as fh:
-            json.dump(dict(dir=tmp, jobs=jobs, fault=fault), fh)
-        rc, seconds, _, out = _launcher(world, [os.path.join(REPO, "chip_smoke.py"),
-                                                "--dp-rank", plan], tmp)
+    tmp = tempfile.TemporaryDirectory()
+    plan = os.path.join(tmp.name, "plan.json")
+    with open(plan, "w") as fh:
+        json.dump(dict(dir=tmp.name, jobs=jobs, fault=fault), fh)
+    launch = _launch(world, [os.path.join(REPO, "chip_smoke.py"), "--dp-rank", plan])
+    return dict(launch=launch, tmp=tmp, world=world, jobs=jobs)
+
+
+def _dp_launch_finish(pending: dict):
+    world, jobs, tmp = pending["world"], pending["jobs"], pending["tmp"].name
+    try:
+        rc, seconds, _ = _launch_wait(pending["launch"])
         if rc != 0:
             raise AssertionError(f"phase 41: {world} gloo ranks exited {rc}")
         ranks = []
@@ -4093,9 +4242,177 @@ def _dp_launch(world: int, jobs: list, fault: Optional[str] = None):
             if job.startswith("step:"):
                 _, model, dtype = job.split(":")
                 saved[(model, dtype)] = torch.load(os.path.join(tmp, f"{model}_{dtype}.pt"))
+            if job.startswith("layout:") and job.split(":")[1] not in DP_SAME_AS_STEP:
+                name = job.split(":")[1]
+                saved[name] = torch.load(os.path.join(tmp, f"layout_{name}.pt"))
+    finally:
+        pending["tmp"].cleanup()
     if any(not r["device"].startswith("cuda") or r["backend"] != "gloo" for r in ranks):
         raise AssertionError(f"phase 41: ranks on {[r['device'] for r in ranks]}")
     return ranks, rows, saved, seconds
+
+
+def phase_tp_kernels(smi: str):
+    """Phase 42, first part: rows 1 and 3 at ViT-B-32's tensor-parallel
+    shapes at tp 2 (each rank's heads) and rows 10 and 11 at its local
+    3W/tp columns, in bf16, against their plain versions under phase 2's,
+    phase 6's and phase 15's tolerances, timed beside their library
+    yardsticks and their bound."""
+    from sparsify_clip_tpu_torch.ops.attention import (
+        mha_bwd, mha_bwd_reference, mha_fwd, mha_fwd_reference,
+    )
+    from sparsify_clip_tpu_torch.ops.ln_qkv import (
+        ln_fast_bwd, ln_fast_bwd_reference, ln_qkv_fwd, ln_qkv_reference,
+    )
+
+    F = torch.nn.functional
+    rng = np.random.default_rng(SEED + 42)
+    dt = torch.bfloat16
+
+    def normal(shape, std=1.0, dtype=dt):
+        return torch.from_numpy((std * rng.standard_normal(shape)).astype(np.float32)).to(
+            "cuda", dtype)
+
+    results = {}
+    rtol, atol = KERNEL_TOL["bfloat16"]
+    for name, b, l, heads, causal in TP_ATTENTION:
+        head_dim = 64
+        width = heads * head_dim
+        pairs = b * heads * attention_pairs(l, causal)
+        qkv = normal((b, l, 3 * width))
+        got, got_lse = mha_fwd(qkv, heads, causal, with_lse=True)
+        want, want_lse = mha_fwd_reference(qkv, heads, causal, with_lse=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+        torch.testing.assert_close(got_lse, want_lse, rtol=1e-5, atol=1e-5)
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want, want_lse
+        ms = cuda_ms(lambda: mha_fwd(qkv, heads, causal), iters=20, warmup=3)
+        plain_ms = cuda_ms(lambda: mha_fwd_reference(qkv, heads, causal), iters=5, warmup=1)
+        sdpa_ms, library = sdpa_fwd_ms(qkv, heads, causal, iters=20, warmup=3)
+        fb = bound(b * l * 4 * width * 2, 2 * 2 * pairs * head_dim, "bfloat16")
+        results[f"mha_fwd/tp2-{name}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms[library],
+            library=f"sdpa/{library}", bound_ms=fb[0], bound_by=fb[1],
+            shape=[b, l, 3 * width], heads=heads, causal=causal)
+        dout = normal((b, l, width))
+        got = mha_bwd(qkv, got_lse, dout, heads, causal)
+        want = mha_bwd_reference(qkv, got_lse, dout, heads, causal)
+        torch.cuda.synchronize()
+        brtol, batol = BWD_TOL["bfloat16"]
+        torch.testing.assert_close(got.float(), want.float(), rtol=brtol, atol=batol)
+        bwd_err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        bwd_ms = cuda_ms(lambda: mha_bwd(qkv, got_lse, dout, heads, causal), iters=10, warmup=2)
+        bwd_plain = cuda_ms(lambda: mha_bwd_reference(qkv, got_lse, dout, heads, causal),
+                            iters=3, warmup=1)
+        sdpa_bwd, bwd_library = sdpa_bwd_ms(qkv, dout, heads, causal, iters=10, warmup=2)
+        bb = bound(b * l * (3 * width * 2 + width) * 2 + b * l * heads * 4,
+                   5 * 2 * pairs * head_dim, "bfloat16")
+        results[f"mha_bwd/tp2-{name}"] = dict(
+            max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain,
+            library_ms=sdpa_bwd[bwd_library], library=f"sdpa/{bwd_library}",
+            bound_ms=bb[0], bound_by=bb[1], shape=[b, l, 3 * width], heads=heads, causal=causal)
+        del qkv, dout, got_lse
+
+    eps = 1e-5
+    for name, n, w, cols in TP_LN_QKV:
+        x = normal((n, w))
+        scale, bias = 1 + normal((w,), 0.1, torch.float32), normal((w,), 0.1, torch.float32)
+        weight = normal((cols, w), w ** -0.5, torch.float32)
+        kbias = normal((cols,), 0.1, torch.float32)
+        args = (x, scale, bias, weight, kbias, eps, dt)
+        got, want = ln_qkv_fwd(*args), ln_qkv_reference(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+        err = (got.float() - want.float()).abs().max().item()
+        if got.shape != (n, cols) or not torch.equal(got, ln_qkv_fwd(*args)):
+            raise AssertionError(f"ln_qkv_fwd/tp2-{name}: shape {tuple(got.shape)} or two runs "
+                                 "differ")
+        del got, want
+        ms = cuda_ms(lambda: ln_qkv_fwd(*args), iters=20, warmup=2)
+        plain_ms = cuda_ms(lambda: ln_qkv_reference(*args), iters=20, warmup=2)
+        sc, bi, wt, kb = (t.to(dt) for t in (scale, bias, weight, kbias))
+        library_ms = cuda_ms(lambda: F.linear(F.layer_norm(x, (w,), sc, bi, eps), wt, kb),
+                             iters=20, warmup=2)
+        lb = bound((n * w + cols * w + cols + n * cols) * 2 + 2 * w * 4, 2 * n * w * cols,
+                   "bfloat16")
+        results[f"ln_qkv_fwd/tp2-{name}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            library="F.linear(F.layer_norm(x)), two calls", bound_ms=lb[0], bound_by=lb[1],
+            shape=[n, w, cols])
+        # the backward's LayerNorm at the rank's rows: dy = g·W over its columns
+        dy = torch.matmul(normal((n, cols)), weight.to(dt))
+        bargs = (x, dy, scale, bias, eps, dt)
+        got, want = ln_fast_bwd(*bargs), ln_fast_bwd_reference(*bargs)
+        torch.cuda.synchronize()
+        errs = {}
+        for part, a, ref in zip(("y", "dx", "dscale", "dbias"), got, want):
+            big = ref.float().abs().max().item()
+            tol = (dict(rtol=LN_BWD_STEP["bfloat16"], atol=LN_BWD_CANCEL * big)
+                   if part in ("y", "dx")
+                   else dict(rtol=LN_BWD_GRAD_TOL[0], atol=LN_BWD_GRAD_TOL[1] * big))
+            torch.testing.assert_close(a.float(), ref.float(),
+                                       msg=f"ln_fast_bwd/tp2-{name} {part}", **tol)
+            errs[part] = (a.float() - ref.float()).abs().max().item()
+        del got, want
+        bwd_ms = cuda_ms(lambda: ln_fast_bwd(*bargs), iters=20, warmup=2)
+        bwd_plain = cuda_ms(lambda: ln_fast_bwd_reference(*bargs), iters=5, warmup=2)
+        mean_rstd = torch.native_layer_norm(x, [w], sc, bi, eps)[1:]
+
+        def library():
+            torch.ops.aten.native_layer_norm_backward(dy, x, [w], *mean_rstd, sc, bi,
+                                                      [True, True, True])
+            F.layer_norm(x, (w,), sc, bi, eps)
+
+        bwd_library = cuda_ms(library, iters=20, warmup=2)
+        bbound = bound(4 * n * w * 2 + 4 * w * 4, 14 * n * w, "bfloat16")
+        results[f"ln_fast_bwd/tp2-{name}"] = dict(
+            max_abs_err=errs["dx"], ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_library,
+            library="native_layer_norm_backward + F.layer_norm, two calls",
+            bound_ms=bbound[0], bound_by=bbound[1], shape=[n, w])
+        del x, dy, args, bargs, weight, wt, mean_rstd
+    for case, r in results.items():
+        kernel, name = case.split("/")
+        log("phase 42 kernel", kernel=kernel, case=name, shape=json.dumps(r["shape"]),
+            max_abs_err=r["max_abs_err"], ms=f"{r['ms']:.5f}", plain_ms=f"{r['plain_ms']:.5f}",
+            library_ms=f"{r['library_ms']:.5f}", library=r["library"],
+            bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"], card=json.dumps(smi))
+    torch.cuda.empty_cache()
+    return results
+
+
+class _Background:
+    """``fn(*args)`` on a thread from now; :meth:`join` returns its result
+    or raises what it raised."""
+
+    def __init__(self, fn, *args):
+        self.result, self.error = None, None
+
+        def run():
+            try:
+                self.result = fn(*args)
+            except BaseException as e:  # re-raised in join
+                self.error = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+def _dp_jobs(world: int):
+    """Phase 41's and 42's runs at ``world`` ranks → (the (model, dtype)
+    steps, the layout runs, the jobs of the launch)."""
+    steps = [(m, d) for m, d, worlds in DP_STEP_RUNS if world in worlds]
+    layouts = [run for run in DP_LAYOUT_RUNS if run[1] == world]
+    jobs = (["losses"] + [f"step:{m}:{d}" for m, d in steps]
+            + (["eval"] if world == 2 else []) + [f"layout:{run[0]}" for run in layouts])
+    return steps, layouts, jobs
 
 
 def phase_dp_gloo(smi: str):
@@ -4103,80 +4420,149 @@ def phase_dp_gloo(smi: str):
     card: the ring losses against rows 5-9, full-width ViT-B-32 (bf16 at
     world 2, fp32 at world 4) and RN50 (fp32, world 2) data-parallel steps
     against the one-process step on the same global batch, and the sharded
-    eval (world 2) against the one-process eval."""
+    eval (world 2) against the one-process eval.  Phase 42 runs in the
+    same launches: the sharded layouts of ``DP_LAYOUT_RUNS``.  Each
+    launch after the first runs while this process reads the one before."""
     ref = _dp_references(torch.device("cuda"))
     readings, launches, failed = {}, {}, []
-    for world in DP_WORLDS:
-        steps = [(m, d) for m, d, worlds in DP_STEP_RUNS if world in worlds]
-        jobs = (["losses"] + [f"step:{m}:{d}" for m, d in steps]
-                + (["eval"] if world == 2 else []))
-        ranks, rows, saved, seconds = _dp_launch(world, jobs)
-        # 1. the ring losses against the kernels on the whole batch
-        ring = {}
-        for name in DP_RING_FNS:
-            want = ref["losses"][name]
-            values = [r["losses"][name] for r in ranks]
-            dimg = np.concatenate([a[f"{name}/dimg"] for a in rows])
-            dtxt = np.concatenate([a[f"{name}/dtxt"] for a in rows])
-            want_dimg, want_dtxt = ref["arrays"][f"{name}/dimg"], ref["arrays"][f"{name}/dtxt"]
-            err = max(float(np.abs(dimg - want_dimg).max()), float(np.abs(dtxt - want_dtxt).max()))
-            rtol, atol = DP_GRAD_TOL
-            ok = (all(v == values[0] for v in values)
-                  and _rel_gap(values[0]["loss"], want["loss"]) <= DP_VALUE_RTOL
-                  and np.allclose(dimg, want_dimg, rtol=rtol, atol=atol)
-                  and np.allclose(dtxt, want_dtxt, rtol=rtol, atol=atol)
-                  and all(_rel_gap(values[0][k], want[k]) <= DP_SCALAR_RTOL
-                          for k in ("dT", "dscale", "dbias") if want[k] != 0.0))
-            ring[name] = dict(loss=values[0]["loss"], loss_one_process=want["loss"],
-                              max_abs_grad_err=err, ok=ok)
-            if not ok:
-                failed.append(f"{name} at {world} ranks")
-        log(f"phase 41 rings w{world}", ranks=world, backend="gloo", shape=list(DP_LOSS_SHAPE),
-            rings=json.dumps(ring), value_rtol=DP_VALUE_RTOL, grad_tol=list(DP_GRAD_TOL),
-            scalar_rtol=DP_SCALAR_RTOL, seconds=f"{seconds:.3f}")
-        # 2-3. the data-parallel steps against the one-process step
-        for key in steps:
-            model, dtype = key
-            runs = [r[f"step:{model}:{dtype}"] for r in ranks]
-            r = _dp_step_readings(runs, saved[key], ref["steps"][key], ref["saved"][key], world)
-            fired = _dp_gates_fired(key, r)
-            step_ms = float(np.mean(runs[0]["step_ms"][1:]))
-            launches[f"train_dp_gloo_{model}_{dtype}_w{world}"] = {
-                k: sum(c[k] for c in runs[0]["counts"]) for k in KERNELS}
-            readings[f"{model}_{dtype}_w{world}"] = step_ms
-            log(f"phase 41 step {model} {dtype} w{world}", ranks=world, backend="gloo",
-                global_batch=TRAIN_BATCH, steps=DP_STEPS, losses=json.dumps(runs[0]["losses"]),
-                losses_one_process=json.dumps(ref["steps"][key]["losses"]),
-                readings=json.dumps(r), gates_fired=json.dumps(fired),
-                first_rtol=DP_FIRST_LOSS_RTOL, later_rtol=DP_LATER_LOSS_RTOL[key],
-                min_cosine=TRAIN_MIN_GRAD_COSINE, grad_norm_rtol=DP_GRAD_NORM_RTOL[key],
-                update_rtol=DP_UPDATE_RTOL[key], stats_rtol=TRAIN_LOSS_RTOL,
-                launches_first_step=json.dumps(runs[0]["counts"][0]),
-                step_ms=f"{step_ms:.3f}",
-                step_ms_one_process=f"{np.mean(ref['steps'][key]['step_ms'][1:]):.3f}",
-                note="gloo moves every collective's bytes through the host: not a multi-GPU "
-                     "speed", card=json.dumps(smi))
-            # a gradient W times or 1/W its size must fire the norm gate
-            if fired or r["grad_norm_rel_gap_if_scaled"] <= DP_GRAD_NORM_RTOL[key]:
-                failed.append(f"the {model} {dtype} step at {world} ranks: {fired}")
-        # 4. the sharded eval
-        if world == 2:
-            evals = [r["eval"] for r in ranks]
-            gaps = {k: abs(evals[0][k] - ref["eval"][k]) for k in ref["eval"]}
-            log("phase 41 eval w2", ranks=world, pairs=DP_EVAL_PAIRS, metrics=json.dumps(evals[0]),
-                metrics_one_process=json.dumps(ref["eval"]), max_gap=max(gaps.values()),
-                atol=DP_EVAL_ATOL, launches=json.dumps(ranks[0]["eval_launches"]))
-            if (any(e != evals[0] for e in evals) or set(evals[0]) != set(ref["eval"])
-                    or max(gaps.values()) > DP_EVAL_ATOL):
-                failed.append("the sharded eval")
+    pending = _dp_launch_start(DP_WORLDS[0], _dp_jobs(DP_WORLDS[0])[2])
+    try:
+        for i, world in enumerate(DP_WORLDS):
+            steps, layouts, _ = _dp_jobs(world)
+            ranks, rows, saved, seconds = _dp_launch_finish(pending)
+            pending = (_dp_launch_start(DP_WORLDS[i + 1], _dp_jobs(DP_WORLDS[i + 1])[2])
+                       if i + 1 < len(DP_WORLDS) else None)
+            _dp_check_world(smi, world, steps, layouts, ranks, rows, saved, seconds, ref,
+                            readings, launches, failed)
+    finally:
+        if pending is not None:
+            _launch_stop(pending["launch"])
+            pending["tmp"].cleanup()
     log("phase 41 rate", step_ms=json.dumps({k: round(v, 3) for k, v in readings.items()}),
-        step_ms_one_process=json.dumps({f"{m}_{d}": round(float(np.mean(run["step_ms"][1:])), 3)
-                                        for (m, d), run in ref["steps"].items()}),
+        step_ms_one_process=json.dumps({"_".join(key): round(float(np.mean(run["step_ms"][1:])), 3)
+                                        for key, run in ref["steps"].items()}),
         reference_seconds=f"{ref['seconds']:.3f}",
-        note="gloo on one card: not a multi-GPU speed", card=json.dumps(smi))
+        note="gloo on one card, the ranks beside phase 40's: not a multi-GPU speed",
+        card=json.dumps(smi))
     if failed:
         raise AssertionError(f"phase 41: against one process: {failed}")
     return dict(launches=launches)
+
+
+def _dp_check_world(smi: str, world: int, steps, layouts, ranks, rows, saved, seconds, ref,
+                    readings: dict, launches: dict, failed: list) -> None:
+    """Phase 41's and 42's readings of the launch at ``world`` ranks against
+    the one-process references ``ref``, logged; into ``readings`` each
+    run's step ms, into ``launches`` its launches, into ``failed`` what
+    failed."""
+    # 1. the ring losses against the kernels on the whole batch
+    ring = {}
+    for name in DP_RING_FNS:
+        want = ref["losses"][name]
+        values = [r["losses"][name] for r in ranks]
+        dimg = np.concatenate([a[f"{name}/dimg"] for a in rows])
+        dtxt = np.concatenate([a[f"{name}/dtxt"] for a in rows])
+        want_dimg, want_dtxt = ref["arrays"][f"{name}/dimg"], ref["arrays"][f"{name}/dtxt"]
+        err = max(float(np.abs(dimg - want_dimg).max()), float(np.abs(dtxt - want_dtxt).max()))
+        rtol, atol = DP_GRAD_TOL
+        ok = (all(v == values[0] for v in values)
+              and _rel_gap(values[0]["loss"], want["loss"]) <= DP_VALUE_RTOL
+              and np.allclose(dimg, want_dimg, rtol=rtol, atol=atol)
+              and np.allclose(dtxt, want_dtxt, rtol=rtol, atol=atol)
+              and all(_rel_gap(values[0][k], want[k]) <= DP_SCALAR_RTOL
+                      for k in ("dT", "dscale", "dbias") if want[k] != 0.0))
+        ring[name] = dict(loss=values[0]["loss"], loss_one_process=want["loss"],
+                          max_abs_grad_err=err, ok=ok)
+        if not ok:
+            failed.append(f"{name} at {world} ranks")
+    log(f"phase 41 rings w{world}", ranks=world, backend="gloo", shape=list(DP_LOSS_SHAPE),
+        rings=json.dumps(ring), value_rtol=DP_VALUE_RTOL, grad_tol=list(DP_GRAD_TOL),
+        scalar_rtol=DP_SCALAR_RTOL, seconds=f"{seconds:.3f}",
+        rank0_seconds=json.dumps({k: round(v, 3) for k, v in ranks[0]["seconds"].items()}))
+    # 2-3. the data-parallel steps against the one-process step
+    step_readings = {}
+    for key in steps:
+        model, dtype = key
+        runs = [r[f"step:{model}:{dtype}"] for r in ranks]
+        r = step_readings[key] = _dp_step_readings(runs, saved[key], ref["steps"][key],
+                                                   ref["saved"][key], world)
+        fired = _dp_gates_fired(key, r)
+        step_ms = float(np.mean(runs[0]["step_ms"][1:]))
+        launches[f"train_dp_gloo_{model}_{dtype}_w{world}"] = {
+            k: sum(c[k] for c in runs[0]["counts"]) for k in KERNELS}
+        readings[f"{model}_{dtype}_w{world}"] = step_ms
+        log(f"phase 41 step {model} {dtype} w{world}", ranks=world, backend="gloo",
+            global_batch=TRAIN_BATCH, steps=DP_STEPS, losses=json.dumps(runs[0]["losses"]),
+            losses_one_process=json.dumps(ref["steps"][key]["losses"]),
+            readings=json.dumps(r), gates_fired=json.dumps(fired),
+            first_rtol=DP_FIRST_LOSS_RTOL, later_rtol=DP_LATER_LOSS_RTOL[key],
+            min_cosine=TRAIN_MIN_GRAD_COSINE, grad_norm_rtol=DP_GRAD_NORM_RTOL[key],
+            update_rtol=DP_UPDATE_RTOL[key], stats_rtol=TRAIN_LOSS_RTOL,
+            launches_first_step=json.dumps(runs[0]["counts"][0]),
+            step_ms=f"{step_ms:.3f}",
+            step_ms_one_process=f"{np.mean(ref['steps'][key]['step_ms'][1:]):.3f}",
+            note="gloo moves every collective's bytes through the host: not a multi-GPU "
+                 "speed", card=json.dumps(smi))
+        # a gradient W times or 1/W its size must fire the norm gate
+        if fired or r["grad_norm_rel_gap_if_scaled"] <= DP_GRAD_NORM_RTOL[key]:
+            failed.append(f"the {model} {dtype} step at {world} ranks: {fired}")
+    # 4. the sharded eval
+    if world == 2:
+        evals = [r["eval"] for r in ranks]
+        gaps = {k: abs(evals[0][k] - ref["eval"][k]) for k in ref["eval"]}
+        log("phase 41 eval w2", ranks=world, pairs=DP_EVAL_PAIRS, metrics=json.dumps(evals[0]),
+            metrics_one_process=json.dumps(ref["eval"]), max_gap=max(gaps.values()),
+            atol=DP_EVAL_ATOL, launches=json.dumps(ranks[0]["eval_launches"]))
+        if (any(e != evals[0] for e in evals) or set(evals[0]) != set(ref["eval"])
+                or max(gaps.values()) > DP_EVAL_ATOL):
+            failed.append("the sharded eval")
+    # phase 42: the sharded layouts against the one-process step
+    for name, _, model, dtype, fields in layouts:
+        runs = [r[f"layout:{name}"] for r in ranks]
+        key, ref_key = (model, dtype), _layout_reference_key(model, dtype, fields)
+        gates = DP_TP_GATES.get(name) or _dp_gates(key)
+        if name in DP_SAME_AS_STEP:  # the plain step's readings (held bit for bit below)
+            r = dict(step_readings[key],
+                     ranks_bit_identical=len({run["digest"] for run in runs}) == 1)
+        else:
+            r = _dp_step_readings(runs, saved[name], ref["steps"][ref_key],
+                                  ref["saved"][ref_key], world)
+        fired = _dp_gates_fired(key, r, gates)
+        problems = list(fired)
+        if r["grad_norm_rel_gap_if_scaled"] <= gates["grad_norm"]:
+            problems.append("a gradient W times or 1/W its size passes the norm gate")
+        plain = ranks[0].get(f"step:{model}:{dtype}")
+        same_as_dp = (plain is not None and runs[0]["losses"] == plain["losses"]
+                      and runs[0]["digest"] == plain["digest"])
+        if name == "zero1" and not same_as_dp:
+            problems.append("ZeRO-1 is not bit-identical to the data-parallel step")
+        if fields.get("mesh_model", 1) > 1 and fields.get("fused_ln_qkv"):
+            blocks = dict(mha_fwd=24, mha_bwd=24, ln_qkv_fwd=24, ln_fast_bwd=24)
+            zero = dict.fromkeys(KERNELS, 0)
+            warm = dict(zero, **blocks, lunif_fwd=2, lunif_bwd=2)
+            main = dict(zero, **blocks, infonce_fwd=1, infonce_bwd_dimg=1,
+                        infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
+            want = [warm if k < DP_SPE else main for k in range(DP_STEPS)]
+            bad = [rank for rank, run in enumerate(runs) if run["counts"] != want]
+            if bad:
+                problems.append(f"ranks {bad} launched {[runs[b]['counts'] for b in bad]}, "
+                                f"expected {want} a step")
+        step_ms = float(np.mean(runs[0]["step_ms"][1:]))
+        launches[f"train_dp_gloo_{name}"] = {
+            k: sum(c[k] for c in runs[0]["counts"]) for k in KERNELS}
+        readings[f"{name}_w{world}"] = step_ms
+        log(f"phase 42 layout {name}", ranks=world, mesh=json.dumps(runs[0]["mesh"]),
+            fields=json.dumps(fields), model=model, dtype=dtype, backend="gloo",
+            global_batch=TRAIN_BATCH, steps=DP_STEPS, losses=json.dumps(runs[0]["losses"]),
+            losses_one_process=json.dumps(ref["steps"][ref_key]["losses"]),
+            bit_identical_to_dp_step=same_as_dp, readings=json.dumps(r),
+            gates=json.dumps(gates), gates_fired=json.dumps(fired),
+            launches_a_step=json.dumps(runs[0]["counts"]), step_ms=f"{step_ms:.3f}",
+            step_ms_one_process=f"{np.mean(ref['steps'][ref_key]['step_ms'][1:]):.3f}",
+            note="gloo moves every collective's bytes through the host: not a multi-GPU "
+                 "speed", card=json.dumps(smi))
+        if problems:
+            failed.append(f"phase 42 {name} at {world} ranks: {problems}")
 
 
 def main() -> int:
@@ -4396,11 +4782,16 @@ def main() -> int:
     vitl14 = phase_cli_vitl14(smi)
     torch.cuda.empty_cache()
 
-    # data-parallel training across processes: the CLI under torchrun over
-    # NCCL at world = the card count, then 2 and 4 gloo ranks on card 0
-    torchrun = phase_torchrun_nccl(smi, cli_exp6)
-    torch.cuda.empty_cache()
-    dp_gloo = phase_dp_gloo(smi)
+    # data-parallel training across processes: rows 1, 3, 10 and 11 at the
+    # tensor-parallel shapes, timed alone; then the CLI under torchrun over
+    # NCCL at world = the card count (its processes driven from a thread)
+    # beside 2 and 4 gloo ranks on card 0
+    tp_kernels = phase_tp_kernels(smi)
+    torchrun = _Background(phase_torchrun_nccl, smi, cli_exp6)
+    try:
+        dp_gloo = phase_dp_gloo(smi)
+    finally:
+        torchrun = torchrun.join()
 
     # each row's times are at the case named beside it: the RN50 main
     # path's shape where the kernel runs on it (the text tower's causal
@@ -4446,6 +4837,17 @@ def main() -> int:
         "mha_fwd_head_group/fp32-257": ("ops/csrc/mha_fwd.cu",
                                         "sparsify_clip_tpu/ops/pallas_attention.py:204",
                                         vitl14["kernels"], "mha_fwd_head_group/vision-fp32-257"),
+        # ViT-B-32 at tp 2 (phase 42): each rank's heads and 3W/tp columns
+        "mha_fwd/tp2": ("ops/csrc/mha_fwd.cu", "sparsify_clip_tpu/ops/pallas_attention.py:67",
+                        tp_kernels, "mha_fwd/tp2-vision"),
+        "mha_bwd/tp2": ("ops/csrc/mha_bwd.cu", "sparsify_clip_tpu/ops/pallas_attention.py:95",
+                        tp_kernels, "mha_bwd/tp2-vision"),
+        "ln_qkv_fwd/tp2": ("ops/csrc/ln_qkv.cu", "sparsify_clip_tpu/ops/pallas_ln_qkv.py:55",
+                           tp_kernels, "ln_qkv_fwd/tp2-vision"),
+        "ln_fast_bwd/tp2": ("ops/csrc/ln_qkv.cu",
+                            "sparsify_clip_tpu/ops/pallas_ln_qkv.py:135 _vjp_bwd (XLA vjp of the "
+                            "twin, no pallas_call)", tp_kernels,
+                            "ln_fast_bwd/tp2-vision"),
     }
     # the fused LN+qkv runs in bf16 on the train paths and in fp32 (the twin)
     # on the eval paths: each case counts its own paths' launches
@@ -4454,7 +4856,10 @@ def main() -> int:
     on_vitl14 = lambda path: path == "cli_vitl14"  # noqa: E731
     # (the data-parallel paths of phase 41 run ViT-B-32 and RN50: their
     # attention counts with the whole-width rows, not the L = 257 cases)
+    on_tp = lambda path: path == "train_dp_gloo_tp2_fused"  # noqa: E731
     counted = {"ln_qkv_fwd": ("ln_qkv_fwd", lambda path: not path.startswith("eval")),
+               "mha_fwd/tp2": ("mha_fwd", on_tp), "mha_bwd/tp2": ("mha_bwd", on_tp),
+               "ln_qkv_fwd/tp2": ("ln_qkv_fwd", on_tp), "ln_fast_bwd/tp2": ("ln_fast_bwd", on_tp),
                "ln_qkv_fwd/fp32": ("ln_qkv_fwd", lambda path: path.startswith("eval")),
                "mha_fwd/vision-257": ("mha_fwd", on_vitl14),
                "mha_bwd/vision-257": ("mha_bwd", on_vitl14),
@@ -4462,7 +4867,8 @@ def main() -> int:
     entries = []
     for name in (*KERNELS[:KERNELS.index("ln_qkv_fwd") + 1], "ln_qkv_fwd/fp32",
                  *KERNELS[KERNELS.index("ln_qkv_fwd") + 1:], "mha_fwd/vision-257",
-                 "mha_bwd/vision-257", "mha_fwd_head_group/fp32-257"):
+                 "mha_bwd/vision-257", "mha_fwd_head_group/fp32-257", "mha_fwd/tp2",
+                 "mha_bwd/tp2", "ln_qkv_fwd/tp2", "ln_fast_bwd/tp2"):
         source, replaces, results, case = sources[name]
         r = results[case]
         counter, on_path = counted.get(name, (name, lambda path: True))
@@ -4524,6 +4930,8 @@ def main() -> int:
             "library": r.get("library"),
             "case": case,
         })
+    log("total", seconds=f"{time.perf_counter() - T0:.1f}", limit_s=1200,
+        phase_seconds=json.dumps(phase_seconds()))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

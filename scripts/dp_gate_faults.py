@@ -55,7 +55,7 @@ def main() -> int:
     faults = args.faults.split(",")
     cs.phase_build()
     runs = sorted({key for f in faults for key in FAULTS[f]})
-    ref = cs._dp_references(torch.device("cuda"), [(m, d, (WORLD,)) for m, d in runs])
+    ref = cs._dp_references(torch.device("cuda"), [(m, d, (WORLD,)) for m, d in runs], ())
     for fault in faults:
         keys = FAULTS[fault]
         ranks, _, saved, seconds = cs._dp_launch(

@@ -38,10 +38,16 @@ the step and the config, written under a temporary name and then
 renamed.
 
 Over a process group of several ranks (JAX checkpoints.py:102-127) the
-parameters are replicated, so the primary alone writes the weights npz
-and the full state and every rank then waits at a barrier (an
-asynchronous save, at :func:`wait_for_async_saves`); every rank restores
-from the same files.
+primary alone writes the weights npz and the full state and every rank
+then waits at a barrier (an asynchronous save, at
+:func:`wait_for_async_saves`); every rank restores from the same files.
+A model laid out over the mesh (tensor parallelism, FSDP, ZeRO-1's
+moments; ``model.layout``,
+:class:`~sparsify_clip_tpu_torch.parallel.sharding.Layout`) is put back
+together first, every rank taking part, so the files hold the model of
+one process at full shape under the same keys, whatever the layout that
+wrote them; loading one (:func:`load_jax_params`, :func:`restore_full`)
+keeps each rank's pieces.
 """
 
 from __future__ import annotations
@@ -56,6 +62,9 @@ import torch
 from torch import nn
 
 from sparsify_clip_tpu_torch.parallel.multihost import barrier, is_primary
+from sparsify_clip_tpu_torch.parallel.sharding import (
+    full_optimizer_state, layout_of, load_optimizer_state,
+)
 
 
 def _identity(a: np.ndarray) -> np.ndarray:
@@ -135,15 +144,22 @@ def load_jax_params(model: nn.Module, flat: Mapping[str, np.ndarray],
                     batch_stats: Optional[Mapping[str, np.ndarray]] = None) -> nn.Module:
     """Fill every parameter of ``model`` from a JAX flat param dict and,
     when ``batch_stats`` (the JAX ``batch_stats`` collection, flat) is
-    given, every BatchNorm running statistic from it."""
+    given, every BatchNorm running statistic from it.  A laid-out model
+    (``model.layout``) keeps each rank's pieces of the full arrays."""
     params, buffers = dict(model.named_parameters()), dict(model.named_buffers())
-    loads = [(params, _convert(flat, params, "parameters"))]
+    layout = layout_of(model)
+    shapes = params if layout is None else {
+        n: torch.empty(layout.placements[n].full_shape, device="meta") for n in params}
+    loads = [(params, _convert(flat, shapes, "parameters"))]
     if batch_stats is not None:
         loads.append((buffers, _convert(batch_stats, buffers, "buffers")))
     with torch.no_grad():
         for targets, arrays in loads:
             for name, arr in arrays.items():
-                targets[name].copy_(torch.from_numpy(arr))
+                value = torch.from_numpy(arr)
+                if layout is not None and name in layout.placements:
+                    value = layout.local(name, value)
+                targets[name].copy_(value)
     return model
 
 
@@ -213,10 +229,18 @@ def jax_paths(model: nn.Module) -> Dict[str, Tuple[str, Callable[[np.ndarray], n
     return out
 
 
+def full_parameters(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's parameters at full shape by name: a laid-out model's
+    put together (a collective), else the parameters themselves."""
+    layout = layout_of(model)
+    return dict(model.named_parameters()) if layout is None else layout.full_params(model)
+
+
 def collect_host_arrays(model: nn.Module) -> Dict[str, np.ndarray]:
     """The model's parameters as the JAX flat dict ``{slash/path: fp32
-    ndarray}``, in the JAX layouts."""
-    params = dict(model.named_parameters())
+    ndarray}``, in the JAX layouts, at full shape (a collective for a
+    laid-out model)."""
+    params = full_parameters(model)
     return {path: np.ascontiguousarray(fn(params[name].detach().float().cpu().numpy()))
             for name, (path, fn) in jax_paths(model).items()}
 
@@ -244,9 +268,11 @@ def save_weights(model: nn.Module, path: str) -> str:
     periodic ``torch.save(model.state_dict())``), readable by the JAX
     ``load_weights`` and by :func:`load_weights`."""
     path = os.path.abspath(os.path.expanduser(path))
+    if is_primary() or layout_of(model) is not None:  # every rank gathers a laid-out one
+        arrays = collect_host_arrays(model)
     if is_primary():
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        np.savez(path, **collect_host_arrays(model))
+        np.savez(path, **arrays)
     barrier()
     return path
 
@@ -266,10 +292,18 @@ def _to_host(obj: Any) -> Any:
 
 
 def _snapshot(state, config: Optional[Any] = None) -> Dict[str, Any]:
+    """The full state on the host; a laid-out model's put together first
+    (a collective)."""
+    layout = layout_of(state.model)
+    if layout is None:
+        model, optimizer = state.model.state_dict(), state.optimizer.state_dict()
+    else:
+        model = layout.full_state_dict(state.model)
+        optimizer = full_optimizer_state(state, layout)
     return {
         "step": int(state.step),
-        "model": _to_host(state.model.state_dict()),
-        "optimizer": _to_host(state.optimizer.state_dict()),
+        "model": _to_host(model),
+        "optimizer": _to_host(optimizer),
         "temperature": _to_host(state.temperature),
         "loss_scalars": _to_host(state.loss_scalars),
         "aug_generator": (None if state.aug_generator is None
@@ -296,8 +330,10 @@ def save_full(state, directory: str, config: Optional[Any] = None) -> str:
     scalars, the device-augment generator's state, step) and the config as
     ``directory/step_<N>.pt``."""
     path = _step_path(directory, int(state.step))
+    if is_primary() or layout_of(state.model) is not None:  # every rank gathers a laid-out one
+        payload = _snapshot(state, config)
     if is_primary():
-        _write(_snapshot(state, config), path)
+        _write(payload, path)
     barrier()
     return path
 
@@ -311,9 +347,10 @@ def save_full_async(state, directory: str, config: Optional[Any] = None) -> str:
     now, and a thread writes the file, so the train loop keeps stepping.
     Call :func:`wait_for_async_saves` before reading the files or exiting."""
     path = _step_path(directory, int(state.step))
+    if is_primary() or layout_of(state.model) is not None:  # every rank gathers a laid-out one
+        payload = _snapshot(state, config)
     if not is_primary():
         return path
-    payload = _snapshot(state, config)
 
     def write():
         try:
@@ -358,8 +395,8 @@ def latest_step(directory: str) -> Optional[int]:
 
 def restore_full(directory_or_path: str, state):
     """Restore a :func:`save_full` checkpoint into ``state`` (a TrainState
-    of the same model and optimizer, e.g. a fresh one) in place, and
-    return it.  A directory restores its latest step."""
+    of the same model and optimizer, e.g. a fresh one, in any layout) in
+    place, and return it.  A directory restores its latest step."""
     path = os.path.abspath(os.path.expanduser(directory_or_path))
     if os.path.isdir(path):
         steps = _steps(path)
@@ -367,8 +404,13 @@ def restore_full(directory_or_path: str, state):
             raise FileNotFoundError(f"no step_*.pt checkpoints under {path}")
         path = steps[-1][1]
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    layout = layout_of(state.model)
+    if layout is None:
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
+    else:  # each rank keeps its pieces of the full state
+        layout.load_state_dict(state.model, payload["model"])
+        load_optimizer_state(state, layout, payload["optimizer"])
     with torch.no_grad():
         state.temperature.copy_(payload["temperature"])
         for name, value in (payload.get("loss_scalars") or {}).items():

@@ -99,6 +99,7 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
     from sparsify_clip_tpu_torch.losses.dispatch import loss_route
     from sparsify_clip_tpu_torch.models.clip import MODEL_REGISTRY
     from sparsify_clip_tpu_torch.parallel.mesh import create_mesh
+    from sparsify_clip_tpu_torch.parallel.sharding import layout_of
     from sparsify_clip_tpu_torch.parallel.multihost import (
         any_process_flag, initialize_distributed, is_primary,
     )
@@ -140,7 +141,7 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
     data_routes = {"train": routes(train_loader), "eval": routes(test_loader)}
     say("Dataset loaded.", "Routes:", data_routes, "\n")
 
-    parallel = {"world_size": mesh.data, "backend": mesh.backend,
+    parallel = {"world_size": mesh.world, "backend": mesh.backend,
                 "loss_route": loss_route(mesh)}
     say("Parallel:", parallel)
     logger = RunLogger(
@@ -185,7 +186,9 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
     eval_pass = 0
     # the fp32 twin over the training parameters (the reference evaluates
     # with no autocast, sparsify_clip.py:563-593)
-    eval_model = make_eval_model(setup.model, config.eval_fp32)
+    # (a model laid out over the mesh gives a twin of full copies: one a pass)
+    eval_model = (make_eval_model(setup.model, config.eval_fp32)
+                  if layout_of(setup.model) is None else None)
 
     def eval_fn(state):
         nonlocal last_eval, eval_pass
@@ -204,7 +207,8 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
                 # wall-clock second must not overwrite each other
                 plot_all_methods(txt, img, out_dir=os.path.join(config.log_dir, "plots"),
                                  tag=f"{this_pass:04d}_{time.time():.0f}", logger=logger)
-        metrics = evaluate_model(eval_model, batches, plot_embeddings=config.plot_embeddings,
+        twin = eval_model or make_eval_model(state.model, config.eval_fp32)
+        metrics = evaluate_model(twin, batches, plot_embeddings=config.plot_embeddings,
                                  plot_fn=plot_fn, mesh=mesh)
         say("Evaluation Results:", metrics, "\n")
         logger.log(metrics)
@@ -248,7 +252,7 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
         with GracefulShutdown() as shutdown:
             # over several ranks the stop is collective: one rank's SIGTERM
             # stops every rank after the same step
-            state = train(shutdown.requested_fn if mesh.data == 1
+            state = train(shutdown.requested_fn if mesh.world == 1
                           else lambda: any_process_flag(shutdown.requested))
         if setup.stopped_early:
             # the full-state save is written by run_training; make it

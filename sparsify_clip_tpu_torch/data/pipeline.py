@@ -63,8 +63,11 @@ def routes(loader) -> Dict[str, str]:
 def dataset_loader(config: ExperimentConfig, image_size: int = 224, num_threads: int = 4):
     from sparsify_clip_tpu_torch.parallel.multihost import rank, world_size
 
-    # each process loads its slice of every global batch; one process, all
-    process_index, process_count = rank(), world_size()
+    # each data rank loads its slice of every global batch, and the ranks
+    # of a model group the same slice (world rank = data rank · model +
+    # model rank, parallel/mesh.py); one process, all
+    model = max(1, config.mesh_model)
+    process_index, process_count = rank() // model, max(1, world_size() // model)
     if process_count > 1 and config.loader_backend == "grain":
         raise ValueError(
             f"loader_backend: grain over {process_count} processes: the grain route carries "

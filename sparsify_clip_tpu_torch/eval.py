@@ -29,6 +29,7 @@ from sparsify_clip_tpu_torch.metrics.unif_w2 import eval_uniformity
 from sparsify_clip_tpu_torch.models.clip import CLIP
 from sparsify_clip_tpu_torch.parallel.mesh import Mesh
 from sparsify_clip_tpu_torch.parallel.multihost import allgather_to_host
+from sparsify_clip_tpu_torch.parallel.sharding import layout_of
 from sparsify_clip_tpu_torch.utils.numerics import fp32_matmul, l2_normalize
 
 GEOMETRY_KEYS = ("gap", "mean_angular_value_image", "mean_angular_value_text", "uniformity",
@@ -116,8 +117,14 @@ def make_eval_model(model: CLIP, eval_fp32: bool = True) -> CLIP:
     buffer tensors (not copies), so every eval sees the weights and the
     BatchNorm running statistics of that moment, as the JAX CLI passes
     ``batch_stats`` to ``evaluate_model`` (cli.py:196-198).  The reference
-    evaluates with no autocast (sparsify_clip.py:563-593)."""
+    evaluates with no autocast (sparsify_clip.py:563-593).  A model laid
+    out over the mesh (``model.layout``) gives a twin of one process over
+    full copies of its parameters, those of this moment: call it again
+    for later weights (a collective)."""
     dtype = torch.float32 if eval_fp32 else model.dtype
+    layout = layout_of(model)
+    if layout is not None:
+        return layout.full_model(model, dtype).eval()
     if model.dtype == dtype and not model.training:
         return model
     return model.with_dtype(dtype).eval()

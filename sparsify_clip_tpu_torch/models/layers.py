@@ -22,6 +22,11 @@ Conventions carried over from the JAX towers:
   (non-reentrant) when a gradient is taken: the backward recomputes the
   block's forward, kernels included, from its saved input; a
   ``remat_policy`` keeps chosen intermediates (:func:`resolve_remat_policy`);
+* under tensor parallelism (:mod:`sparsify_clip_tpu_torch.parallel.tensor`,
+  a module's ``tp`` mesh) the attention keeps its model rank's heads and
+  the MLP its block of hidden units; the split products take Megatron's
+  f before and g after them, and the attention route is the one of the
+  whole width;
 * ``ln_fp32: false`` is flax's ``nn.LayerNorm(dtype=x.dtype)`` in the
   blocks (:class:`LayerNorm`), and such a block takes the unfused route
   even with ``fused_ln_qkv`` (the JAX condition ``fused_ln_qkv and
@@ -45,6 +50,7 @@ from torch import nn
 
 from sparsify_clip_tpu_torch.ops.attention import attention_core
 from sparsify_clip_tpu_torch.ops.ln_qkv import ln_qkv_core
+from sparsify_clip_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 Activation = Callable[[torch.Tensor], torch.Tensor]
 
@@ -188,8 +194,23 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
+def row_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+               tp) -> torch.Tensor:
+    """:func:`linear` of a row-parallel weight over the ``tp`` mesh's model
+    axis: the partial products summed over the model group, then the
+    (replicated) bias once.  Without a split, :func:`linear` itself."""
+    if tp is None or tp.model == 1:
+        return linear(x, weight, bias)
+    y = reduce_from_model(linear(x, weight), tp)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
 class MultiHeadAttention(nn.Module):
-    """Packed in_proj → attention core → out_proj."""
+    """Packed in_proj → attention core → out_proj.  Under tensor
+    parallelism (``tp``, set by ``apply_tensor_parallel``) ``heads`` is
+    the model rank's share of them."""
+
+    tp = None  # the mesh whose model axis splits the heads
 
     def __init__(self, width: int, heads: int, causal: bool = False):
         super().__init__()
@@ -207,16 +228,22 @@ class MultiHeadAttention(nn.Module):
         nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to_model(x, self.tp)
         return self.attend(linear(x, self.in_proj_weight, self.in_proj_bias))
 
     def attend(self, qkv: torch.Tensor) -> torch.Tensor:
         """Attention core and out_proj over a packed (B, L, 3W) qkv, for a
         block whose fused LN+qkv kernel already produced it."""
-        ctx = attention_core(qkv, self.heads, self.causal)
-        return linear(ctx, self.out_proj.weight, self.out_proj.bias)
+        if self.tp is None or self.tp.model == 1:
+            ctx = attention_core(qkv, self.heads, self.causal)
+        else:  # the route of the whole width, as the JAX kernel sees it
+            ctx = attention_core(qkv, self.heads, self.causal, tp=self.tp.model)
+        return row_linear(ctx, self.out_proj.weight, self.out_proj.bias, self.tp)
 
 
 class MLP(nn.Module):
+    tp = None  # the mesh whose model axis splits the hidden units
+
     def __init__(self, width: int, hidden: int, act: Activation):
         super().__init__()
         self.act = act
@@ -231,8 +258,8 @@ class MLP(nn.Module):
         nn.init.zeros_(self.c_proj.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.act(linear(x, self.c_fc.weight, self.c_fc.bias))
-        return linear(h, self.c_proj.weight, self.c_proj.bias)
+        h = self.act(linear(copy_to_model(x, self.tp), self.c_fc.weight, self.c_fc.bias))
+        return row_linear(h, self.c_proj.weight, self.c_proj.bias, self.tp)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -263,7 +290,11 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused_ln_qkv and self.ln_1.fp32:
-            qkv = ln_qkv_core(x, self.ln_1.weight, self.ln_1.bias, self.attn.in_proj_weight,
+            # under tensor parallelism the kernel's LayerNorm gradients are
+            # partial sums over the local columns: f sums them, as x's
+            tp = self.attn.tp
+            qkv = ln_qkv_core(copy_to_model(x, tp), copy_to_model(self.ln_1.weight, tp),
+                              copy_to_model(self.ln_1.bias, tp), self.attn.in_proj_weight,
                               self.attn.in_proj_bias, self.ln_1.eps)
             attn = self.attn.attend(qkv)
         else:

@@ -48,9 +48,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from sparsify_clip_tpu_torch.models.layers import (
-    _lecun_normal_, _normal_, linear, remat, resolve_remat_policy,
+    _lecun_normal_, _normal_, linear, remat, resolve_remat_policy, row_linear,
 )
 from sparsify_clip_tpu_torch.parallel.mesh import Mesh, all_reduce_, psum, pvary
+from sparsify_clip_tpu_torch.parallel.tensor import copy_to_model
 
 
 def _conv(x: torch.Tensor, weight: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -283,15 +284,19 @@ class Bottleneck(nn.Module):
             _lecun_normal_(self.downsample[0].weight, self.downsample[0].weight[0].numel(), gen)
             self.downsample[1].reset_parameters()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.remat and torch.is_grad_enabled()):
-            return self._forward(x, True)
+    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        return self._forward(x, update_stats)
+
+    def checkpointed(self, x: torch.Tensor) -> torch.Tensor:
+        """The block under :func:`remat`: the recompute calls the module
+        again (so a sharded block gathers its weights again) and leaves the
+        running statistics alone."""
         calls = []
 
         def run(x):
             # the first call is the forward, a later one the recompute
             calls.append(None)
-            return self._forward(x, len(calls) == 1)
+            return self(x, len(calls) == 1)
 
         return remat(run, self.policy, x)
 
@@ -312,7 +317,13 @@ class Bottleneck(nn.Module):
 class AttentionPool2d(nn.Module):
     """Spatial attention pooling whose query is the mean over positions
     (the JAX ``AttentionPool2d``, resnet.py:449-489): scores in fp32 from
-    compute-dtype q and k, the softmax in fp32, cast back before attn·v."""
+    compute-dtype q and k, the softmax in fp32, cast back before attn·v.
+    Under tensor parallelism (``tp``) ``c_proj`` is row-parallel, as the
+    JAX rules split it: each model rank multiplies its block of the
+    (replicated) pooled features by its rows of the weight, and the
+    partial products are summed."""
+
+    tp = None  # the mesh whose model axis splits c_proj's input features
 
     def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int, output_dim: int):
         super().__init__()
@@ -343,7 +354,11 @@ class AttentionPool2d(nn.Module):
         scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * head_dim ** -0.5
         attn = scores.softmax(-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, 1, c)
-        return linear(out, self.c_proj.weight, self.c_proj.bias)[:, 0]
+        if self.tp is not None and self.tp.model > 1:
+            part = c // self.tp.model
+            lo = self.tp.model_rank * part
+            out = copy_to_model(out, self.tp)[..., lo:lo + part]
+        return row_linear(out, self.c_proj.weight, self.c_proj.bias, self.tp)[:, 0]
 
 
 def feature_size(image_size: int, stages: int) -> int:
@@ -416,5 +431,5 @@ class ModifiedResNet(nn.Module):
         x = torch.relu(self.bn3(_conv(x, self.conv3.weight, padding=1)))
         x = F.avg_pool2d(x, 2)
         for block in self.blocks():
-            x = block(x)
+            x = block.checkpointed(x) if block.remat and torch.is_grad_enabled() else block(x)
         return self.attnpool(x).float()

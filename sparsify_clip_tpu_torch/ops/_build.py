@@ -247,9 +247,9 @@ def library() -> ctypes.CDLL:
             lib.sparsify_lunif_bwd_scratch.restype = ctypes.c_longlong
             lib.sparsify_ln_qkv_fwd.argtypes = [
                 p, p, p,        # x, LayerNorm scale, LayerNorm bias (fp32)
-                p, p, p,        # weight (3W, W), bias (3W,), out (N, 3W)
+                p, p, p,        # weight (C, W), bias (C,), out (N, C): C = 3W or 3W / tp
                 p,              # row statistics scratch (N, 2) fp32
-                i, i, f,        # n, width, eps
+                i, i, i, f,     # n, width, C, eps
                 i,              # dtype (0 fp32, 1 bf16)
                 p,              # cudaStream_t
             ]

@@ -433,14 +433,18 @@ def _context_like(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
     return qkv.new_empty((b, l, w3 // 3))
 
 
-def attention_core(qkv: torch.Tensor, heads: int, causal: bool = False) -> torch.Tensor:
+def attention_core(qkv: torch.Tensor, heads: int, causal: bool = False,
+                   tp: int = 1) -> torch.Tensor:
     """The towers' attention core: packed (B, L, 3W) qkv → (B, L, W)
     context.  Long sequences (:func:`use_head_group`) take the head-group
     pair through :class:`MhaHeadGroupFunction`, the rest the whole-width
     pair through :class:`MhaFunction`.  Without a gradient to take, the
-    route's forward runs alone, as its custom op, and no LSE is written."""
+    route's forward runs alone, as its custom op, and no LSE is written.
+    Under tensor parallelism over ``tp`` model ranks ``qkv`` holds this
+    rank's ``heads`` of ``heads · tp``, and the route is the whole width's,
+    as the JAX kernel sees the whole qkv (pallas_attention.py:389-417)."""
     grad = torch.is_grad_enabled() and qkv.requires_grad
-    if use_head_group(qkv.shape[1], qkv.shape[2], qkv.element_size(), heads):
+    if use_head_group(qkv.shape[1], qkv.shape[2] * tp, qkv.element_size(), heads * tp):
         if grad:
             return MhaHeadGroupFunction.apply(qkv, heads, causal)
         return mha_fwd_head_group_op(qkv, heads, causal)

@@ -270,7 +270,7 @@ ln_qkv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
                     const __grid_constant__ CUtensorMap tmap_w, const float2* __restrict__ stats,
                     const float* __restrict__ scale, const float* __restrict__ bias,
                     const __nv_bfloat16* __restrict__ kb, __nv_bfloat16* __restrict__ out, int N,
-                    int W) {
+                    int W, int W3) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes of the shared address
   unsigned char* ring =
@@ -283,7 +283,6 @@ ln_qkv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
   uint64_t* full = reinterpret_cast<uint64_t*>(bias_s + kpad);
   uint64_t* empty = full + kWgStages;
 
-  const int W3 = 3 * W;
   const int nk = kpad / kWgK;
   const int col_tiles = cdiv(W3, kWgCols);
   const int tiles = cdiv(N, kWgRows) * col_tiles;
@@ -407,7 +406,7 @@ ln_qkv_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
     __syncwarp();
     for (int i = lane; i < 16 * kOutChunks; i += 32) {
       const int rr = i / kOutChunks, c = i - rr * kOutChunks;
-      const int r = wrow + rr, row = r0 + r, col = c0 + c * 8;  // 3W is a multiple of 24
+      const int r = wrow + rr, row = r0 + r, col = c0 + c * 8;  // W3 is a multiple of 8
       if (row < N && col < W3) {
         *reinterpret_cast<uint4*>(out + (int64_t)row * W3 + col) =
             *reinterpret_cast<const uint4*>(out_s + r * kOutRowBytes + ((c ^ (r & 7)) << 4));
@@ -487,12 +486,11 @@ __global__ void __launch_bounds__(kF32Threads, 2)
 ln_qkv_fp32_kernel(const float* __restrict__ x, const float2* __restrict__ stats,
                    const float* __restrict__ scale, const float* __restrict__ bias,
                    const float* __restrict__ w, const float* __restrict__ kb,
-                   float* __restrict__ out, int N, int W) {
+                   float* __restrict__ out, int N, int W, int W3) {
   __shared__ __align__(16) float a_s[2][kF32K][kF32Stride];  // normalized rows, k-major
   __shared__ __align__(16) float b_s[2][kF32K][kF32Stride];  // weight rows, k-major
   __shared__ float2 st_s[kF32Tile];
 
-  const int W3 = 3 * W;
   const int c0 = blockIdx.x * kF32Tile, r0 = blockIdx.y * kF32Tile;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int nk = cdiv(W, kF32K);
@@ -572,7 +570,7 @@ ln_qkv_fp32_kernel(const float* __restrict__ x, const float2* __restrict__ stats
     if (row >= N) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int col = c0 + h * 64 + tx * 4;  // a multiple of 4; so is 3W
+      const int col = c0 + h * 64 + tx * 4;  // a multiple of 4; so is W3
       if (col < W3) {
         *reinterpret_cast<float4*>(out + (int64_t)row * W3 + col) = make_float4(
             acc[i][4 * h] + __ldg(kb + col), acc[i][4 * h + 1] + __ldg(kb + col + 1),
@@ -725,11 +723,11 @@ int launch_stats(const void* x, float2* stats, int n, int width, float eps, cuda
 }
 
 int launch_wgmma(const void* x, const float2* stats, const float* scale, const float* bias,
-                 const void* w, const void* kb, void* out, int n, int width,
+                 const void* w, const void* kb, void* out, int n, int width, int cols,
                  cudaStream_t stream) {
   CUtensorMap mx, mw;
   if (!bf16_tensor_map(&mx, x, n, width, kWgRows) ||
-      !bf16_tensor_map(&mw, w, 3 * width, width, kWgCols))
+      !bf16_tensor_map(&mw, w, cols, width, kWgCols))
     return (int)cudaErrorInvalidValue;
   const size_t smem = wgmma_smem_bytes(round_up(width, kWgK));
   const cudaError_t err = cudaFuncSetAttribute(
@@ -737,10 +735,10 @@ int launch_wgmma(const void* x, const float2* stats, const float* scale, const f
   if (err != cudaSuccess) return (int)err;
   const int sms = sm_count();
   if (sms < 0) return -sms;
-  const int tiles = cdiv(n, kWgRows) * cdiv(3 * width, kWgCols);
+  const int tiles = cdiv(n, kWgRows) * cdiv(cols, kWgCols);
   ln_qkv_wgmma_kernel<<<tiles < sms ? tiles : sms, kWgThreads, smem, stream>>>(
       mx, mw, stats, scale, bias, static_cast<const __nv_bfloat16*>(kb),
-      static_cast<__nv_bfloat16*>(out), n, width);
+      static_cast<__nv_bfloat16*>(out), n, width, cols);
   return (int)cudaGetLastError();
 }
 
@@ -772,23 +770,24 @@ bool bad_shape(int n, int width, int dtype) {
 // boundary (16-byte loads and TMA); the wrapper checks it.
 
 // The forward: the row statistics into `stats` ((N, 2) fp32 scratch), then
-// the product.
+// the product with the (cols, W) weight: cols is 3W, or a tensor-parallel
+// rank's 3W / tp, a multiple of 8.
 extern "C" int sparsify_ln_qkv_fwd(const void* x, const float* scale, const float* bias,
                                    const void* w, const void* kb, void* out, void* stats, int n,
-                                   int width, float eps, int dtype, void* stream) {
-  if (bad_shape(n, width, dtype)) return (int)cudaErrorInvalidValue;
+                                   int width, int cols, float eps, int dtype, void* stream) {
+  if (bad_shape(n, width, dtype) || cols <= 0 || cols % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* st = static_cast<float2*>(stats);
   if (dtype == 1) {
     const int err = launch_stats<__nv_bfloat16>(x, st, n, width, eps, s);
-    return err ? err : launch_wgmma(x, st, scale, bias, w, kb, out, n, width, s);
+    return err ? err : launch_wgmma(x, st, scale, bias, w, kb, out, n, width, cols, s);
   }
   const int err = launch_stats<float>(x, st, n, width, eps, s);
   if (err) return err;
-  const dim3 grid(cdiv(3 * width, kF32Tile), cdiv(n, kF32Tile));
+  const dim3 grid(cdiv(cols, kF32Tile), cdiv(n, kF32Tile));
   ln_qkv_fp32_kernel<<<grid, kF32Threads, 0, s>>>(
       static_cast<const float*>(x), st, scale, bias, static_cast<const float*>(w),
-      static_cast<const float*>(kb), static_cast<float*>(out), n, width);
+      static_cast<const float*>(kb), static_cast<float*>(out), n, width, cols);
   return (int)cudaGetLastError();
 }
 

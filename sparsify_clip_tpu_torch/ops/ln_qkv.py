@@ -90,9 +90,10 @@ def _normalized_rows(x2d, scale, bias, eps, dtype) -> torch.Tensor:
 def ln_qkv_reference(x2d: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      weight: torch.Tensor, kbias: torch.Tensor, eps: float = 1e-5,
                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Plain PyTorch fused LN+qkv → (N, 3W) in ``dtype`` (x's type by
+    """Plain PyTorch fused LN+qkv → (N, C) in ``dtype`` (x's type by
     default), from x (N, W), the LayerNorm's scale and bias (W,), the
-    in_proj weight (3W, W) and bias (3W,)."""
+    in_proj weight (C, W) and bias (C,): C = 3W, or under tensor
+    parallelism a rank's 3W / tp."""
     dtype = dtype or x2d.dtype
     y = _normalized_rows(x2d, scale, bias, eps, dtype)
     return torch.matmul(y, weight.to(dtype).t()) + kbias.to(dtype)
@@ -113,7 +114,8 @@ def _check_kernel(x2d, scale, bias, weight, kbias, dtype) -> None:
     """What the kernel takes (a CPU tensor takes the plain version before
     this check): CUDA tensors on one device, x (N, W) contiguous in
     ``dtype``, bf16 or fp32, N >= 1, W a multiple of 8 up to
-    :data:`MAX_WIDTH`, the weight (3W, W) and the biases to match."""
+    :data:`MAX_WIDTH`, the weight (C, W) with C a multiple of 8 (3W, or a
+    tensor-parallel rank's 3W / tp) and the biases to match."""
     if x2d.device.type != "cuda":
         raise ValueError(f"ln_qkv_fwd runs on cpu or cuda tensors, got {x2d.device}")
     if any(t.device != x2d.device for t in (scale, bias, weight, kbias)):
@@ -129,11 +131,13 @@ def _check_kernel(x2d, scale, bias, weight, kbias, dtype) -> None:
     if n == 0 or w % 8 or not 0 < w <= MAX_WIDTH:
         raise ValueError(f"ln_qkv_fwd kernel takes N >= 1 and W a multiple of 8 up to "
                          f"{MAX_WIDTH}, got {tuple(x2d.shape)}")
-    if tuple(weight.shape) != (3 * w, w) or tuple(kbias.shape) != (3 * w,) or \
-            tuple(scale.shape) != (w,) or tuple(bias.shape) != (w,):
+    cols = weight.shape[0] if weight.ndim == 2 else 0
+    if tuple(weight.shape) != (cols, w) or cols == 0 or cols % 8 or \
+            tuple(kbias.shape) != (cols,) or tuple(scale.shape) != (w,) or \
+            tuple(bias.shape) != (w,):
         raise ValueError(
-            f"ln_qkv_fwd takes scale and bias ({w},), weight ({3 * w}, {w}) and kbias "
-            f"({3 * w},), got {tuple(scale.shape)}, {tuple(bias.shape)}, "
+            f"ln_qkv_fwd takes scale and bias ({w},), weight (C, {w}) and kbias (C,) with C "
+            f"a multiple of 8, got {tuple(scale.shape)}, {tuple(bias.shape)}, "
             f"{tuple(weight.shape)}, {tuple(kbias.shape)}")
     if not x2d.is_contiguous():
         raise ValueError("ln_qkv_fwd kernel needs a contiguous x")
@@ -158,13 +162,15 @@ def ln_qkv_fwd(x2d: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     kb = kbias.to(dtype).contiguous()
     sc, bi = scale.float().contiguous(), bias.float().contiguous()
     _check_aligned("ln_qkv_fwd", w_c, kb, sc, bi)
-    out = torch.empty((n, 3 * w), dtype=dtype, device=x2d.device)
+    cols = w_c.shape[0]
+    out = torch.empty((n, cols), dtype=dtype, device=x2d.device)
     stats = torch.empty((n, 2), dtype=torch.float32, device=x2d.device)
     lib = _build.library()
     with torch.cuda.device(x2d.device):
         err = lib.sparsify_ln_qkv_fwd(
             x2d.data_ptr(), sc.data_ptr(), bi.data_ptr(), w_c.data_ptr(), kb.data_ptr(),
-            out.data_ptr(), stats.data_ptr(), n, w, float(eps), int(dtype == torch.bfloat16),
+            out.data_ptr(), stats.data_ptr(), n, w, cols, float(eps),
+            int(dtype == torch.bfloat16),
             torch.cuda.current_stream(x2d.device).cuda_stream,
         )
     if err:

@@ -1,8 +1,9 @@
-"""Data parallelism over processes, ported from :mod:`sparsify_clip_tpu.parallel`:
-the mesh and its collectives (:mod:`.mesh`), joining the process group and
-the per-process batch slices (:mod:`.multihost`), and the global-batch
-losses from per-rank shards (:mod:`.dist_losses`).  GPipe
-(``parallel/pipeline.py``), tensor parallelism, FSDP and ZeRO-1 wait for
+"""Parallelism over processes, ported from :mod:`sparsify_clip_tpu.parallel`:
+the (data, model) mesh and its collectives (:mod:`.mesh`), joining the
+process group and the per-process batch slices (:mod:`.multihost`), the
+global-batch losses from per-rank shards (:mod:`.dist_losses`), tensor
+parallelism on the model axis (:mod:`.tensor`) and ZeRO-1 and FSDP on the
+data axis (:mod:`.sharding`).  GPipe (``parallel/pipeline.py``) waits for
 ROADMAP Queue 1, 'Multi-GPU'."""
 
 from sparsify_clip_tpu_torch.parallel.dist_losses import (  # noqa: F401

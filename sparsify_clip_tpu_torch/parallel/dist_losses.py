@@ -64,7 +64,7 @@ def global_contrastive_loss(img_local: torch.Tensor, txt_local: torch.Tensor, te
     txt_all = pvary(all_gather(txt_local, mesh), mesh)
     logits_i = fp32_matmul(img_local, txt_all.T) / temperature  # (b, N)
     logits_t = fp32_matmul(txt_local, img_all.T) / temperature
-    local_ids = mesh.rank * b + torch.arange(b, device=img_local.device)
+    local_ids = mesh.data_rank * b + torch.arange(b, device=img_local.device)
     diag_i = logits_i.gather(1, local_ids[:, None])[:, 0]
     diag_t = logits_t.gather(1, local_ids[:, None])[:, 0]
     part_i = (torch.logsumexp(logits_i, 1) - diag_i).sum()
@@ -84,7 +84,7 @@ def global_lunif_loss(x_local: torch.Tensor, mesh: Mesh, t: float = 2.0) -> torc
     d2 = torch.clamp(nl[:, None] + na[None, :] - 2.0 * gram, min=0.0)
     w = torch.exp(-t * d2)
     # mask the true diagonal: global row id == global col id
-    row_ids = mesh.rank * b + torch.arange(b, device=x_local.device)
+    row_ids = mesh.data_rank * b + torch.arange(b, device=x_local.device)
     col_ids = torch.arange(n, device=x_local.device)
     w = torch.where(row_ids[:, None] == col_ids[None, :], 0.0, w)
     return torch.log(psum(w.sum(), mesh) / (n * (n - 1)))

@@ -39,18 +39,28 @@ holds the model and the optimizer, which a step updates in place; a
 step returns the same state object, so the JAX call shape
 ``state, metrics = train_step(state, batch)`` carries over.
 
-Data parallelism over processes (:mod:`sparsify_clip_tpu_torch.parallel`):
-with a mesh of W > 1 ranks (``create_train_setup(..., mesh=)``, by
-default the process group's) each rank feeds its rows of the global
-batch, the loss takes the route of
-:mod:`sparsify_clip_tpu_torch.losses.dispatch` (the rings and the gathered
-terms, the same global loss on every rank), a ResNet tower's BatchNorms
-take global statistics, the model's gradients are summed in one flat
-all-reduce and AdamW steps identically on every rank.  One rank runs the
-single-device step unchanged.  ZeRO-1, FSDP, tensor parallelism and GPipe
-wait for ROADMAP Queue 1, 'Multi-GPU', and their config knobs raise (see
-``_NOT_PORTED``).  Entry points run on the card unless the caller asks
-for the CPU.
+Parallelism over processes (:mod:`sparsify_clip_tpu_torch.parallel`), on
+a (data, model) mesh (``create_train_setup(..., mesh=)``, by default the
+process group's ``create_mesh(mesh_data, mesh_model)``):
+
+* over the data axis each rank feeds its rows of the global batch, the
+  loss takes the route of :mod:`sparsify_clip_tpu_torch.losses.dispatch`
+  (the rings and the gathered terms, the same global loss on every rank),
+  a ResNet tower's BatchNorms take global statistics, and the model's
+  replicated gradients are summed in one flat all-reduce;
+* ``mesh_model > 1`` is tensor parallelism
+  (:mod:`sparsify_clip_tpu_torch.parallel.tensor`): the ranks of a model
+  group hold the same rows and split the attention and MLP weights;
+* ``shard_opt_state`` (ZeRO-1) and ``fsdp`` shard the moments, and under
+  FSDP the parameters too, over the data axis
+  (:mod:`sparsify_clip_tpu_torch.parallel.sharding`);
+* ``allow_accum_gather`` with a GradCache microbatch that the data axis
+  does not divide gathers the global batch onto every data rank and
+  takes JAX's dp = 1 microbatches (train.py:141-162), with a warning.
+
+One rank runs the single-device step unchanged.  GPipe waits for ROADMAP
+Queue 1, 'Multi-GPU' (see ``_NOT_PORTED``).  Entry points run on the card
+unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -70,7 +80,10 @@ from sparsify_clip_tpu_torch.models.resnet import set_data_parallel
 from sparsify_clip_tpu_torch.ops.image import augment_batch
 from sparsify_clip_tpu_torch.ops.sparsify import make_projection
 from sparsify_clip_tpu_torch.optim import AdamWBf16Mu
-from sparsify_clip_tpu_torch.parallel.mesh import Mesh, all_reduce_gradients, create_mesh
+from sparsify_clip_tpu_torch.parallel.mesh import (
+    Mesh, all_gather_rows, all_reduce_gradients, create_mesh,
+)
+from sparsify_clip_tpu_torch.parallel.sharding import Zero1Optimizer, layout_of, shard_model
 from sparsify_clip_tpu_torch.schedules import get_alpha, get_beta, make_lr_schedule
 from sparsify_clip_tpu_torch.utils.numerics import l2_normalize
 from sparsify_clip_tpu_torch.utils.profiling import ThroughputMeter
@@ -79,34 +92,42 @@ Batch = Dict[str, Any]
 Metrics = Dict[str, Union[torch.Tensor, float]]
 
 # Config knobs the port's step does not run yet → what they wait for;
-# each test takes the config and the data-parallel world size.
+# each test takes the config and the data-axis size.
 _NOT_PORTED: List[Tuple[Callable[[ExperimentConfig, int], bool], str]] = [
     (lambda c, w: c.pipeline, "pipeline (parallel/pipeline.py, ROADMAP Queue 1, 'Multi-GPU')"),
-    (lambda c, w: c.fsdp, "fsdp (ROADMAP Queue 1, 'Multi-GPU')"),
-    (lambda c, w: c.mesh_model > 1,
-     "mesh_model > 1 (tensor parallelism, ROADMAP Queue 1, 'Multi-GPU')"),
-    # one rank holds the whole optimizer state: the JAX no-op at dp = 1
-    (lambda c, w: c.shard_opt_state and w > 1,
-     "shard_opt_state over more than one rank (ZeRO-1, ROADMAP Queue 1, 'Multi-GPU')"),
-    (lambda c, w: c.allow_accum_gather and w > 1
-     and (c.batch_size // c.grad_accum_steps) % w != 0,
-     "allow_accum_gather's gathered microbatch layout over more than one rank "
-     "(ROADMAP Queue 1, 'Multi-GPU')"),
 ]
+
+
+def _accum_gather_message(config: ExperimentConfig, dp: int) -> str:
+    mb = config.batch_size // config.grad_accum_steps
+    return (f"grad_accum_steps={config.grad_accum_steps} gives microbatch {mb}, not "
+            f"divisible by the data-mesh size {dp}: the fallback layout all-gathers "
+            "the FULL image batch onto every device, defeating the memory savings. "
+            "Pick grad_accum_steps so that (batch_size // grad_accum_steps) % "
+            "mesh_data == 0, or set allow_accum_gather: true to accept the gather.")
+
+
+def gathers_accum_batch(config: ExperimentConfig, dp: int) -> bool:
+    """Whether the GradCache step takes the gathered layout: a microbatch
+    the data axis does not divide (JAX train.py:141-162)."""
+    return (dp > 1 and config.grad_accum_steps > 1
+            and (config.batch_size // config.grad_accum_steps) % dp != 0)
 
 
 def check_supported(config: ExperimentConfig, world: int = 1) -> None:
     """Raise for the first config knob the port's step does not run at
-    data-parallel world size ``world``: :class:`NotImplementedError` for
-    the multi-device knobs not ported yet, :class:`ValueError` for what the
-    JAX step refuses too; the loss type is checked by :func:`make_loss_fn`.
-    Every registry model trains, ViT and ResNet towers alike, under every
-    loss type, GradCache accumulation, either ``adam_mu_dtype``, a
+    data-axis size ``world``: :class:`NotImplementedError` for the
+    multi-device knobs not ported yet (GPipe), :class:`ValueError` for
+    what the JAX step refuses too; the loss type is checked by
+    :func:`make_loss_fn`.  Every registry model trains, ViT and ResNet
+    towers alike, under every loss type, GradCache accumulation (with
+    ``allow_accum_gather``'s gathered layout), either ``adam_mu_dtype``, a
     ``soft_targets_provider`` (on one rank), ``sparse_projection``,
     ``remat`` under every ``remat_policy``, ``onehot_embed`` and either
-    ``ln_fp32``, over any number of ranks; ``multihost`` joins the
-    process group (:mod:`sparsify_clip_tpu_torch.parallel.multihost`), and
-    ``stem_s2d`` is accepted as the TPU layout hint it is (see
+    ``ln_fp32``, over any (data, model) mesh, with ``shard_opt_state``
+    (ZeRO-1) or ``fsdp``; ``multihost`` joins the process group
+    (:mod:`sparsify_clip_tpu_torch.parallel.multihost`), and ``stem_s2d``
+    is accepted as the TPU layout hint it is (see
     :func:`create_train_setup`)."""
     for unsupported, what in _NOT_PORTED:
         if unsupported(config, world):
@@ -118,17 +139,10 @@ def check_supported(config: ExperimentConfig, world: int = 1) -> None:
         raise NotImplementedError(
             "soft_targets_provider runs on a single host: each rank holds only its rows' "
             f"captions, so it is refused over {world} ranks")
-    if world > 1 and config.grad_accum_steps > 1:
-        mb = config.batch_size // config.grad_accum_steps
-        if mb % world:
-            # JAX train.py:141-156; the dp = 1 layout would gather every
-            # image onto every rank
-            raise ValueError(
-                f"grad_accum_steps={config.grad_accum_steps} gives microbatch {mb}, not "
-                f"divisible by the data-mesh size {world}: the fallback layout all-gathers "
-                "the FULL image batch onto every device, defeating the memory savings. "
-                "Pick grad_accum_steps so that (batch_size // grad_accum_steps) % "
-                "mesh_data == 0, or set allow_accum_gather: true to accept the gather.")
+    if gathers_accum_batch(config, world) and not config.allow_accum_gather:
+        # JAX train.py:141-156; the dp = 1 layout gathers every image onto
+        # every rank
+        raise ValueError(_accum_gather_message(config, world))
 
 
 @dataclasses.dataclass
@@ -136,12 +150,21 @@ class TrainState:
     step: int                           # 0-based optimizer step count
     model: CLIP                         # fp32 parameters
     temperature: torch.Tensor           # raw fp32 scalar on the device
-    optimizer: torch.optim.Optimizer    # AdamW over the trainables
+    optimizer: Any                      # AdamW over the trainables (ZeRO-1's wrapper)
     # loss_type "siglip": {"logit_scale": log-space scale, "logit_bias"},
     # fp32 device scalars that AdamW trains beside the model; else None
     loss_scalars: Optional[Dict[str, torch.Tensor]] = None
     # device_augment: the crops' and flips' generator, on the device; else None
     aug_generator: Optional[torch.Generator] = None
+
+
+def trainables(state: TrainState) -> List[torch.Tensor]:
+    """What AdamW trains, in the optimizer's order: the model's parameters
+    (this rank's pieces under FSDP), the temperature when it is learnable,
+    SigLIP's scalars (train.py:80-86)."""
+    params = list(state.model.parameters())
+    params += [state.temperature] if state.temperature.requires_grad else []
+    return params + list((state.loss_scalars or {}).values())
 
 
 def build_optimizer(params, lr_schedule: Callable[[int], float],
@@ -187,15 +210,26 @@ class TrainStep:
     """One training step for this experiment's loss_type
     (train.py:109-408): encode → l2_normalize → loss → backward → AdamW →
     metrics, the encoders over ``grad_accum_steps`` microbatches when it
-    is over 1 (:meth:`gradcache`).  Over a ``mesh`` of W > 1 ranks a batch
-    is the rank's rows of the global batch, and the model's gradients are
-    summed over the ranks before AdamW."""
+    is over 1 (:meth:`gradcache`).  Over a ``mesh`` of W > 1 data ranks a
+    batch is the rank's rows of the global batch, and the model's
+    replicated gradients are summed over the data ranks before AdamW; in
+    the gathered GradCache layout (:func:`gathers_accum_batch`) every data
+    rank gathers the global batch and runs the one-rank step, whose
+    gradients are already whole."""
 
     def __init__(self, config: ExperimentConfig, steps_per_epoch: int, total_steps: int,
                  lr_schedule: Callable[[int], float], image_size: Optional[int] = None,
                  mesh: Optional[Mesh] = None):
         self.mesh = mesh if mesh is not None else Mesh()
         check_supported(config, self.mesh.data)
+        self.gathered = gathers_accum_batch(config, self.mesh.data)
+        if self.gathered:
+            import warnings
+
+            warnings.warn(_accum_gather_message(config, self.mesh.data), stacklevel=2)
+        # the mesh the loss and the encoders see: the data ranks of the
+        # gathered layout all hold the same rows
+        self.step_mesh = self.mesh.without_data() if self.gathered else self.mesh
         self.config = config
         # the encoder's input size, which device_augment crops to
         self.image_size = image_size or MODEL_REGISTRY[config.model].image_size
@@ -228,11 +262,15 @@ class TrainStep:
         alpha = get_alpha(current_batch, self.total_steps,
                           config.alpha_warmup_epoch, config.alpha_increment_epoch)
         fields = batch_to_device(batch, state.temperature.device)
-        images = fields["images"]
+        images, tokens = fields["images"], fields["tokens"]
+        if self.gathered:  # every data rank takes the whole global batch
+            images = all_gather_rows(images, self.mesh)
+            tokens = all_gather_rows(tokens, self.mesh)
+        mesh = self.step_mesh
         if config.device_augment:
             # every rank draws the whole global batch's crops and keeps its rows
             images = augment_batch(images, state.aug_generator, self.image_size,
-                                   shard=(self.mesh.rank, self.mesh.data))
+                                   shard=(mesh.data_rank, mesh.data))
         state.optimizer.zero_grad(set_to_none=True)
         scalars = {}
         if state.loss_scalars is not None:
@@ -241,24 +279,28 @@ class TrainStep:
                        "logit_bias": state.loss_scalars["logit_bias"]}
         ctx = LossContext(temperature=state.temperature, beta=beta, alpha=alpha,
                           warm=epoch < config.only_lunif_epochs,
-                          soft_targets=fields.get("soft_targets"), mesh=self.mesh, **scalars)
+                          soft_targets=fields.get("soft_targets"), mesh=mesh, **scalars)
         if config.grad_accum_steps > 1:
-            loss, aux = self.gradcache(state.model, images, fields["tokens"], ctx, epoch)
+            loss, aux = self.gradcache(state.model, images, tokens, ctx, epoch)
         else:
-            img, txt = state.model(images, fields["tokens"])
+            img, txt = state.model(images, tokens)
             loss, aux = self.embedding_loss(l2_normalize(img), l2_normalize(txt), ctx, epoch)
             loss.backward()
         # optax differentiates every trainable: one the loss does not reach
         # (the temperature in the warm phase) gets a zero gradient, and AdamW
         # still decays it and advances its moments and count.
         # torch.optim.AdamW skips a parameter whose .grad is None.
-        for group in state.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        # each rank's encoders saw its rows: its model gradients are its
-        # share.  The temperature's and the loss scalars' are already whole.
-        all_reduce_gradients(state.model.parameters(), self.mesh)
+        for p in trainables(state):
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        # each data rank's encoders saw its rows: its model gradients are
+        # its share (FSDP's shards were reduce-scattered in the backward).
+        # The temperature's and the loss scalars' are already whole, and so
+        # is everything in the gathered layout.
+        if not self.gathered:
+            layout = layout_of(state.model)
+            all_reduce_gradients(state.model.parameters() if layout is None
+                                 else layout.reduced_params(state.model), self.mesh)
         return loss, aux, beta, alpha
 
     def gradcache(self, model: CLIP, images: torch.Tensor, tokens: torch.Tensor,
@@ -290,8 +332,9 @@ class TrainStep:
         are undone."""
         a = self.config.grad_accum_steps
         b = images.shape[0]
-        if (b * self.mesh.data) % a or b % a:
-            raise ValueError(f"global batch {b * self.mesh.data} not divisible by "
+        data = self.step_mesh.data
+        if (b * data) % a or b % a:
+            raise ValueError(f"global batch {b * data} not divisible by "
                              f"grad_accum_steps {a}")
         micro = [slice(i * b // a, (i + 1) * b // a) for i in range(a)]
         with torch.no_grad():
@@ -392,9 +435,13 @@ def create_train_setup(
     statistics once, in its one forward (the JAX step's
     ``mutable=["batch_stats"]`` apply, train.py:186-195).
 
-    ``mesh`` is the data-parallel mesh (default: ``create_mesh(
+    ``mesh`` is the (data, model) mesh (default: ``create_mesh(
     config.mesh_data, config.mesh_model)`` over the process group, one rank
-    without one); every rank builds the same weights from ``config.seed``.
+    without one); every rank builds the same full weights from
+    ``config.seed`` and keeps its pieces (:func:`~sparsify_clip_tpu_torch.
+    parallel.sharding.shard_model`: tensor parallelism's slices, FSDP's
+    shards), so the mesh does not change the initial values.  ZeRO-1 steps
+    a :class:`~sparsify_clip_tpu_torch.parallel.sharding.Zero1Optimizer`.
 
     ``steps_per_epoch`` comes from the data pipeline (len(train_loader)
     in the reference, sparsify_clip.py:734).  Weights are drawn from
@@ -424,7 +471,10 @@ def create_train_setup(
                          image_size=image_size, remat=config.remat,
                          remat_policy=config.remat_policy, ln_fp32=config.ln_fp32,
                          onehot_embed=config.onehot_embed).train()
-    set_data_parallel(model, mesh)
+    layout = shard_model(model, mesh, fsdp=config.fsdp, zero1=config.shard_opt_state)
+    if layout is not None:
+        layout.reduce_grads = not train_step.gathered
+    set_data_parallel(model, train_step.step_mesh)
     temperature = torch.tensor(config.anchor_temperature, dtype=torch.float32, device=device)
     temperature.requires_grad_(config.anchor_temperature_learnable)
     loss_scalars = None
@@ -439,17 +489,20 @@ def create_train_setup(
         }
         for scalar in loss_scalars.values():
             scalar.requires_grad_(True)
-    # the trainables: the model's parameters, the temperature when it is
-    # learnable, SigLIP's scalars (train.py:80-86)
-    params = list(model.parameters()) + ([temperature] if temperature.requires_grad else [])
-    params += list((loss_scalars or {}).values())
     aug_generator = None
     if config.device_augment:
         aug_generator = torch.Generator(device=device)
         aug_generator.manual_seed(config.seed)
-    state = TrainState(step=0, model=model, temperature=temperature,
-                       optimizer=build_optimizer(params, schedule, config.adam_mu_dtype),
+    state = TrainState(step=0, model=model, temperature=temperature, optimizer=None,
                        loss_scalars=loss_scalars, aug_generator=aug_generator)
+    params = trainables(state)
+    if layout is not None and layout.zero1:
+        extra = len(params) - len(list(model.parameters()))
+        state.optimizer = Zero1Optimizer(
+            params, layout.moment_dims(model) + [None] * extra, mesh,
+            lambda blocks: build_optimizer(blocks, schedule, config.adam_mu_dtype))
+    else:
+        state.optimizer = build_optimizer(params, schedule, config.adam_mu_dtype)
     return TrainSetup(
         config=config,
         model=model,
@@ -574,7 +627,7 @@ def run_training(
         if pending is not None:
             yield pending
 
-    meter = ThroughputMeter(n_chips=setup.train_step.mesh.data)  # one device a rank
+    meter = ThroughputMeter(n_chips=setup.train_step.mesh.world)  # one device a rank
     t0 = time.time()
     stopped = False
     setup.stopped_early = False

@@ -117,6 +117,21 @@ def test_kernel_matches_plain_version(device, n, w, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,w,cols", [(12800, 768, 1152), (19712, 512, 768), (300, 768, 576),
+                                      (129, 520, 8), (77, 1024, 1544)])
+def test_kernel_takes_a_tensor_parallel_ranks_columns(device, n, w, cols, dtype):
+    """Under tensor parallelism a block's in_proj keeps a rank's 3W/tp rows
+    (ViT-B-32 at tp 2: vision 1152, text 768; tp 4: 576): the kernel takes
+    any output width that 8 divides, a ragged last column tile included."""
+    x, scale, bias, weight, kbias = _inputs(n, w, dtype, device, seed=n + cols)
+    args = (x, scale, bias, weight[:cols].contiguous(), kbias[:cols].contiguous())
+    got, want = ln_qkv_fwd(*args, EPS), ln_qkv_reference(*args, EPS)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (n, cols)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shift", [0.0, 3.0])
 @pytest.mark.parametrize("w", [8, 72, 520, 768, 1024, 1408, 1664])
 @pytest.mark.parametrize("n", [1, 63, 64, 127, 129, 36928])

@@ -147,22 +147,28 @@ def test_grain_over_several_processes_is_refused(monkeypatch):
 
 
 def test_create_mesh_refuses_a_data_axis_off_the_world_and_a_model_axis():
-    with pytest.raises(ValueError, match="mesh data=4 does not match .* world size 1"):
+    with pytest.raises(ValueError, match="mesh data=4 × model=1 does not match .* world size 1"):
         port_mesh.create_mesh(data=4)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(ValueError, match="mesh_model=2 does not divide the world size 1"):
         port_mesh.create_mesh(model=2)
+    with pytest.raises(ValueError, match="mesh data=1 × model=2 does not match"):
+        port_mesh.create_mesh(data=1, model=2)
 
 
 @pytest.mark.parametrize("knob", [dict(shard_opt_state=True), dict(fsdp=True),
                                   dict(pipeline=True), dict(mesh_model=2)],
                          ids=["shard_opt_state", "fsdp", "pipeline", "mesh_model"])
 def test_multi_gpu_knobs_over_several_ranks_raise_by_name(knob):
+    """GPipe alone waits for 'Multi-GPU'; ZeRO-1, FSDP and the model axis
+    run over several ranks (tests/test_torch_port_{zero1,fsdp,tp}.py)."""
     config = ExperimentConfig.from_dict(dict(train_tests.BASE, **knob))
     name = next(iter(knob))
+    if name != "pipeline":
+        check_supported(config, world=2)
+        check_supported(config, world=1)
+        return
     with pytest.raises(NotImplementedError, match=f"{name}.*'Multi-GPU'"):
         check_supported(config, world=2)
-    if name == "shard_opt_state":
-        check_supported(config, world=1)  # the JAX no-op at dp = 1
 
 
 def test_soft_targets_provider_over_several_ranks_raises():
@@ -174,8 +180,8 @@ def test_soft_targets_provider_over_several_ranks_raises():
 
 
 def test_gradcache_microbatch_the_ranks_do_not_divide():
-    """The JAX message (train.py:141-156); allow_accum_gather's gathered
-    layout is not ported."""
+    """The JAX message (train.py:141-156); allow_accum_gather takes the
+    gathered layout (tests/test_torch_port_zero1.py runs it)."""
     config = ExperimentConfig.from_dict(dict(train_tests.BASE, batch_size=12,
                                              grad_accum_steps=2))
     check_supported(config, world=2)
@@ -183,8 +189,7 @@ def test_gradcache_microbatch_the_ranks_do_not_divide():
         check_supported(config, world=4)
     config = ExperimentConfig.from_dict(dict(train_tests.BASE, batch_size=12,
                                              grad_accum_steps=2, allow_accum_gather=True))
-    with pytest.raises(NotImplementedError, match="allow_accum_gather.*'Multi-GPU'"):
-        check_supported(config, world=4)
+    check_supported(config, world=4)
 
 
 def test_initialize_distributed_refusals():

@@ -199,16 +199,23 @@ def test_unknown_loss_type_raises():
 def test_knobs_not_ported_yet_raise(knob, match):
     """The multi-device knobs not ported yet raise and name themselves; the
     knobs ported since build a setup that carries them (``multihost``: the
-    step over the process group's mesh, one rank without a group)."""
+    step over the process group's mesh, one rank without a group; ``fsdp``:
+    the JAX no-op at one rank).  A model axis of 2 needs a world of 2."""
     cfg = port_config.ExperimentConfig.from_dict(dict(BASE, **knob))
-    if match in ("sparse_projection", "remat", "onehot_embed", "ln_fp32", "multihost"):
+    if match in ("sparse_projection", "remat", "onehot_embed", "ln_fp32", "multihost", "fsdp"):
         setup = create_train_setup(cfg, steps_per_epoch=4, device="cpu")
         if match == "sparse_projection":
             assert setup.train_step.projection is not None
         elif match == "multihost":
             assert setup.config.multihost and setup.train_step.mesh.data == 1
+        elif match == "fsdp":
+            assert setup.config.fsdp and getattr(setup.model, "layout", None) is None
         else:
             assert setup.model.knobs[match] == knob[match]
+        return
+    if match == "mesh_model":
+        with pytest.raises(ValueError, match="mesh_model=2 does not divide the world size 1"):
+            create_train_setup(cfg, steps_per_epoch=4, device="cpu")
         return
     with pytest.raises(NotImplementedError, match=match):
         create_train_setup(cfg, steps_per_epoch=4, device="cpu")

@@ -13,9 +13,12 @@ against the JAX package in their own process.
 
 Jobs: ``losses`` (every ``parallel.dist_losses`` function and the loss
 route, value and gradients; on the plan's ``device``), ``train``
-(locksteps of the train step), ``eval`` (the sharded eval), ``cli`` (the
-CLI on a YAML), ``collectives`` (on the card: the collectives the slice
-needs, on CUDA tensors over gloo, and the ring hop both ways).  A plan with
+(locksteps of the train step), ``layouts`` (the train step on a (data,
+model) mesh under tensor parallelism, ZeRO-1, FSDP and the gathered
+GradCache layout, with save and resume), ``eval`` (the sharded eval),
+``cli`` (the CLI on a YAML), ``collectives`` (on the card: the
+collectives the slice needs, on CUDA tensors over gloo, and the ring hop
+both ways).  A plan with
 ``"device": "cuda"`` puts every rank on the card over gloo.
 
 :func:`spawn` starts the ranks of one world from a test: each gets a
@@ -117,6 +120,15 @@ def register_test_models() -> None:
     reg.setdefault("rn50-narrow-test", dataclasses.replace(
         reg["rn50-depth1-test"], name="rn50-narrow-test", embed_dim=32, vision_width=16,
         vision_heads=4, text_width=32, text_heads=2))
+    # tests/test_tp_equivalence.py's models (non-4x MLPs in tp-tiny)
+    reg.setdefault("tp-tiny", clip.CLIPConfig(
+        name="tp-tiny", embed_dim=16, vision_kind="vit", image_size=32, vision_width=32,
+        vision_layers=(2,), vision_heads=2, patch_size=16, vocab_size=256, context_length=12,
+        text_width=16, text_heads=2, text_layers=2, vision_mlp_hidden=48, text_mlp_hidden=24))
+    reg.setdefault("rn-tiny", clip.CLIPConfig(
+        name="rn-tiny", embed_dim=16, vision_kind="resnet", image_size=32, vision_width=8,
+        vision_layers=(1, 1, 1, 1), vision_heads=4, vocab_size=256, context_length=12,
+        text_width=16, text_heads=2, text_layers=2))
 
 
 def _job_losses(plan, mesh, out):
@@ -273,6 +285,83 @@ def _job_train(plan, mesh, out):
     return result
 
 
+def _job_layouts(plan, _, out):
+    """Each case: the steps of the JAX lockstep on the (data, model) mesh
+    of its ``mesh_model``, the model laid out by its config (tensor
+    parallelism, ZeRO-1, FSDP, the gathered GradCache layout); the bytes
+    of the rank's parameters and moments, a digest of the full state, the
+    eval twin's embeddings of the held-out batch, and with ``save_at`` a
+    full-state save at that step and a resume into a fresh setup that runs
+    the remaining steps again; with ``npz`` the weights file."""
+    import torch
+
+    from sparsify_clip_tpu_torch import checkpoints
+    from sparsify_clip_tpu_torch.config import ExperimentConfig
+    from sparsify_clip_tpu_torch.eval import make_eval_model
+    from sparsify_clip_tpu_torch.parallel.mesh import create_mesh, digest
+    from sparsify_clip_tpu_torch.train import create_train_setup, trainables
+
+    with np.load(plan["batches"]) as f:
+        data = {k: f[k] for k in f.files}
+    n_train = len([k for k in data if k.startswith("images")]) - 1
+    result = {}
+    for case in plan["cases"]:
+        name = case["name"]
+        config = ExperimentConfig.from_dict(case["fields"])
+        mesh = create_mesh(model=config.mesh_model)
+
+        def fresh():
+            setup = create_train_setup(config, steps_per_epoch=case["steps_per_epoch"],
+                                       device="cpu", mesh=mesh)
+            with np.load(case["initial"]) as f:
+                flat = {k: f[k] for k in f.files}
+            stats = {k[len("batch_stats/"):]: v for k, v in flat.items()
+                     if k.startswith("batch_stats/")}
+            checkpoints.load_jax_params(
+                setup.model, {k: v for k, v in flat.items() if not k.startswith("batch_stats/")},
+                stats or None)
+            return setup
+
+        def full_digest(state):
+            full = checkpoints.full_parameters(state.model)
+            return digest([full[k] for k in sorted(full)] + list(state.model.buffers()))
+
+        def run(setup, first):
+            state, log = setup.state, []
+            for i in range(first, n_train):
+                batch = {"images": data[f"images{i}"], "tokens": data[f"tokens{i}"]}
+                if case.get("save_at") == state.step and setup is main:
+                    checkpoints.save_full(state, os.path.join(plan["dir"], name))
+                state, metrics = setup.train_step(state, _local_rows(batch, mesh))
+                log.append({k: float(v) for k, v in metrics.items()})
+            return state, log
+
+        main = fresh()
+        params_bytes = sum(p.numel() * p.element_size() for p in trainables(main.state))
+        state, log = run(main, 0)
+        moments = [t for st in state.optimizer.state.values() for k, t in st.items()
+                   if k in ("exp_avg", "exp_avg_sq")]
+        rec = {"log": log, "digest": full_digest(state), "mesh": [mesh.data, mesh.model],
+               "bytes": {"params": params_bytes,
+                         "moments": sum(t.numel() * t.element_size() for t in moments)}}
+        if case.get("save_at") is not None:
+            again = fresh()
+            checkpoints.restore_full(os.path.join(plan["dir"], name), again.state)
+            resumed_state, rec["resumed_log"] = run(again, case["save_at"])
+            rec["resumed_digest"] = full_digest(resumed_state)
+        if case.get("npz"):
+            rec["npz"] = checkpoints.save_weights(
+                state.model, os.path.join(plan["dir"], f"{name}_weights.npz"))
+        twin = make_eval_model(state.model, True)
+        with torch.no_grad():
+            img, txt = twin(torch.from_numpy(data[f"images{n_train}"]),
+                            torch.from_numpy(data[f"tokens{n_train}"]))
+        if mesh.rank == 0:
+            out[f"{name}/img"], out[f"{name}/txt"] = img.numpy(), txt.numpy()
+        result[name] = rec
+    return result
+
+
 def _job_eval(plan, mesh, out):
     """The 13 metrics of each case's eval set, each rank encoding its rows."""
     import torch
@@ -307,7 +396,7 @@ def _job_cli(plan, mesh, out):
 
 
 JOBS = {"losses": _job_losses, "train": _job_train, "eval": _job_eval, "cli": _job_cli,
-        "collectives": _job_collectives}
+        "collectives": _job_collectives, "layouts": _job_layouts}
 
 
 def main(job: str, plan_path: str, out_dir: str) -> None:
