@@ -328,7 +328,7 @@ Phases, one line each; any failure exits nonzero before the final line:
    one-process eval, every metric within one 4-decimal step.  The step ms
    of each world is printed beside the one-process step: gloo moves the
    bytes of every collective through the host, so these are not
-   multi-GPU speeds (and the 4 ranks run while this process reads the 2);
+   multi-GPU speeds (and the 2 and the 4 ranks run at once);
 42. the sharded layouts (ROADMAP Queue 1, 'Multi-GPU'), extra jobs of
    phase 41's launches: first (before phases 40-41) rows 1, 3, 10 and 11
    at the tensor-parallel
@@ -342,8 +342,18 @@ Phases, one line each; any failure exits nonzero before the final line:
    24 ``mha_bwd``, 24 ``ln_qkv_fwd`` and 24 ``ln_fast_bwd`` a step on each
    rank, and phase 9's loss kernels), and dp 2 × tp 2 with FSDP at 4 ranks
    in fp32 against the one-process fp32 step; each run's parameters put
-   back together are bit-identical on every rank.  The script's total
-   seconds and each phase's are printed last before the kernels line.
+   back together are bit-identical on every rank.  GPipe on the model
+   axis (``pipeline``, ``scan_layers``, the default 2 microbatches): pp 2
+   at 2 ranks in bf16 and dp 2 × pp 2 with ZeRO-1 at 4 ranks in fp32,
+   under phase 41's gates of their model and type (microbatching changes
+   the products' shapes: not bit for bit); each rank holds its stage's
+   blocks (its parameter bytes under 0.75× one process's) and launches
+   ``2·M·L/S`` ``mha_fwd`` and ``M·L/S`` ``mha_bwd`` a tower a step (each
+   stage's forward runs again in the backward), with phase 9's loss
+   kernels at dp 1 and none at dp 2 (the ring route); the log gives each
+   rank's parameter and moment bytes and peak GiB beside one process's,
+   and the bubble share (S−1)/(M+S−1).  The script's total seconds and
+   each phase's are printed last before the kernels line.
 
 Phases 6 and 8 also hold the loss kernels at RN50's (256, 1024), the
 main path's shape, and at ViT-L-14-336's (256, 768) of phase 26.  The kernels line reports each kernel at the case its
@@ -3693,8 +3703,14 @@ DP_LAYOUT_RUNS = (
     ("zero1", 2, "ViT-B-32", "bf16", dict(shard_opt_state=True)),
     ("fsdp", 2, "ViT-B-32", "bf16", dict(fsdp=True)),
     ("tp2_fused", 2, "ViT-B-32", "bf16", dict(mesh_model=2, fused_ln_qkv=True)),
+    ("pp2", 2, "ViT-B-32", "bf16", dict(mesh_model=2, pipeline=True, scan_layers=True)),
     ("dp2tp2_fsdp", 4, "ViT-B-32", "fp32", dict(mesh_model=2, fsdp=True)),
+    ("dp2pp2_zero1", 4, "ViT-B-32", "fp32",
+     dict(mesh_model=2, pipeline=True, scan_layers=True, shard_opt_state=True)),
 )
+# a pipelined rank's parameter bytes against one process's: the
+# replicated parameters and half of ViT-B-32's blocks are 0.59×
+DP_PP_PARAM_SHARE = 0.75
 # ZeRO-1 and FSDP split no product: phase 41's gates of their model and
 # type.  Tensor parallelism splits the row-parallel products' sums over
 # the model ranks (in bf16 each partial product is rounded before the fp32
@@ -3946,11 +3962,12 @@ def _dp_steps(model: str, dtype: str, mesh, device, keep: bool = False,
     on this rank's rows, in ``dtype`` (``"bf16"`` or ``"fp32"``) compute,
     with the config ``fields`` (a layout, ``fused_ln_qkv``): the losses,
     the launches a step, the timed steps' ms, a sha256 of the parameters
-    and buffers, and, with ``keep``, the first step's gradients and the
-    final parameters and running statistics on the host (under ``saved``;
-    one process also keeps the seed's parameters).  A laid-out model's
-    parameters and gradients are put back together first (every rank
-    takes part)."""
+    and buffers, the bytes of this rank's parameters and AdamW moments,
+    its peak device memory over the steps, and, with ``keep``, the first
+    step's gradients and the final parameters and running statistics on
+    the host (under ``saved``; one process also keeps the seed's
+    parameters).  A laid-out model's parameters and gradients are put
+    back together first (every rank takes part)."""
     from sparsify_clip_tpu_torch.checkpoints import full_parameters
     from sparsify_clip_tpu_torch.config import ExperimentConfig
     from sparsify_clip_tpu_torch.parallel.mesh import digest
@@ -3965,15 +3982,18 @@ def _dp_steps(model: str, dtype: str, mesh, device, keep: bool = False,
     layout = getattr(setup.model, "layout", None)
 
     def full_grads():
-        named = setup.model.named_parameters()
-        if layout is None:
-            return {n: p.grad.detach().cpu() for n, p in named}
-        return {n: layout.full(n, p.grad.detach()).cpu() for n, p in named}
+        grads = {n: p.grad.detach() for n, p in setup.model.named_parameters()}
+        if layout is not None:  # a pipeline's other stages' blocks too
+            grads = layout.full_named(grads)
+        return {n: g.cpu() for n, g in grads.items()}
 
     saved = {}
     if keep and mesh is None:
         saved["init"] = {n: p.detach().cpu() for n, p in setup.model.named_parameters()}
     losses, counts, ms = [], [], []
+    params_bytes = sum(p.numel() * p.element_size() for p in setup.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for k in range(DP_STEPS):
         batch = _dp_batch(cfg, k)
         if mesh is not None:
@@ -3991,10 +4011,16 @@ def _dp_steps(model: str, dtype: str, mesh, device, keep: bool = False,
             grads = full_grads()
             if keep:
                 saved["grads"] = grads
+    peak = torch.cuda.max_memory_allocated()
+    moments = [t for st in setup.state.optimizer.state.values() for key, t in st.items()
+               if key in ("exp_avg", "exp_avg_sq")]
     params = full_parameters(setup.model)
     out = dict(losses=losses, counts=counts, step_ms=ms,
                digest=digest([params[n] for n in sorted(params)]
-                             + list(setup.model.buffers())), setup_s=setup_s)
+                             + list(setup.model.buffers())), setup_s=setup_s,
+               bytes=dict(params=params_bytes,
+                          moments=sum(t.numel() * t.element_size() for t in moments)),
+               peak_gib=peak / 2**30)
     if keep:
         saved["params"] = {n: p.detach().cpu() for n, p in params.items()}
         saved["buffers"] = {n: b.detach().cpu() for n, b in setup.model.named_buffers()}
@@ -4421,23 +4447,23 @@ def phase_dp_gloo(smi: str):
     world 2, fp32 at world 4) and RN50 (fp32, world 2) data-parallel steps
     against the one-process step on the same global batch, and the sharded
     eval (world 2) against the one-process eval.  Phase 42 runs in the
-    same launches: the sharded layouts of ``DP_LAYOUT_RUNS``.  Each
-    launch after the first runs while this process reads the one before."""
+    same launches: the sharded layouts of ``DP_LAYOUT_RUNS``.  The
+    launches of every world run at once, beside phase 40's, and this
+    process reads them in turn."""
     ref = _dp_references(torch.device("cuda"))
     readings, launches, failed = {}, {}, []
-    pending = _dp_launch_start(DP_WORLDS[0], _dp_jobs(DP_WORLDS[0])[2])
+    pending = [_dp_launch_start(world, _dp_jobs(world)[2]) for world in DP_WORLDS]
     try:
-        for i, world in enumerate(DP_WORLDS):
+        while pending:
+            world = pending[0]["world"]
             steps, layouts, _ = _dp_jobs(world)
-            ranks, rows, saved, seconds = _dp_launch_finish(pending)
-            pending = (_dp_launch_start(DP_WORLDS[i + 1], _dp_jobs(DP_WORLDS[i + 1])[2])
-                       if i + 1 < len(DP_WORLDS) else None)
+            ranks, rows, saved, seconds = _dp_launch_finish(pending.pop(0))
             _dp_check_world(smi, world, steps, layouts, ranks, rows, saved, seconds, ref,
                             readings, launches, failed)
     finally:
-        if pending is not None:
-            _launch_stop(pending["launch"])
-            pending["tmp"].cleanup()
+        for launch in pending:
+            _launch_stop(launch["launch"])
+            launch["tmp"].cleanup()
     log("phase 41 rate", step_ms=json.dumps({k: round(v, 3) for k, v in readings.items()}),
         step_ms_one_process=json.dumps({"_".join(key): round(float(np.mean(run["step_ms"][1:])), 3)
                                         for key, run in ref["steps"].items()}),
@@ -4536,17 +4562,44 @@ def _dp_check_world(smi: str, world: int, steps, layouts, ranks, rows, saved, se
                       and runs[0]["digest"] == plain["digest"])
         if name == "zero1" and not same_as_dp:
             problems.append("ZeRO-1 is not bit-identical to the data-parallel step")
-        if fields.get("mesh_model", 1) > 1 and fields.get("fused_ln_qkv"):
-            blocks = dict(mha_fwd=24, mha_bwd=24, ln_qkv_fwd=24, ln_fast_bwd=24)
+        pipelined = fields.get("pipeline", False)
+        if fields.get("mesh_model", 1) > 1 and (fields.get("fused_ln_qkv") or pipelined):
             zero = dict.fromkeys(KERNELS, 0)
+            if pipelined:  # M microbatches through the stage's blocks, forward twice
+                stages = fields["mesh_model"]
+                stage_blocks = (12 + 12) // stages  # ViT-B-32's two towers
+                per = stage_blocks * fields.get("pipeline_microbatches", stages)
+                blocks = dict(mha_fwd=2 * per, mha_bwd=per)
+            else:
+                blocks = dict(mha_fwd=24, mha_bwd=24, ln_qkv_fwd=24, ln_fast_bwd=24)
             warm = dict(zero, **blocks, lunif_fwd=2, lunif_bwd=2)
             main = dict(zero, **blocks, infonce_fwd=1, infonce_bwd_dimg=1,
                         infonce_bwd_dtxt=1, lunif_fwd=1, lunif_bwd=1)
+            if runs[0]["mesh"][0] > 1:  # the ring route launches no loss kernel
+                warm = main = dict(zero, **blocks)
             want = [warm if k < DP_SPE else main for k in range(DP_STEPS)]
-            bad = [rank for rank, run in enumerate(runs) if run["counts"] != want]
-            if bad:
-                problems.append(f"ranks {bad} launched {[runs[b]['counts'] for b in bad]}, "
-                                f"expected {want} a step")
+            for rank, run in enumerate(runs):
+                try:
+                    _expect_launches(run["counts"], want, f"phase 42 {name} rank {rank}")
+                except AssertionError as e:
+                    problems.append(str(e))
+        if pipelined:
+            from sparsify_clip_tpu_torch.parallel.pipeline import bubble_share
+
+            one = ref["steps"][ref_key]
+            share = max(run["bytes"]["params"] for run in runs) / one["bytes"]["params"]
+            if share >= DP_PP_PARAM_SHARE:
+                problems.append(f"a rank holds {share:.3f} of one process's parameter bytes")
+            stages = fields["mesh_model"]
+            micro = fields.get("pipeline_microbatches", stages)
+            log(f"phase 42 pipeline {name}", ranks=world, mesh=json.dumps(runs[0]["mesh"]),
+                microbatches=micro, bubble_share=f"{bubble_share(stages, micro):.4f}",
+                bytes_by_rank=json.dumps([run["bytes"] for run in runs]),
+                bytes_one_process=json.dumps(one["bytes"]), param_share=f"{share:.4f}",
+                peak_gib_by_rank=json.dumps([round(run["peak_gib"], 3) for run in runs]),
+                peak_gib_one_process=f"{one['peak_gib']:.3f}",
+                note="every rank shares card 0: peak is each process's own",
+                card=json.dumps(smi))
         step_ms = float(np.mean(runs[0]["step_ms"][1:]))
         launches[f"train_dp_gloo_{name}"] = {
             k: sum(c[k] for c in runs[0]["counts"]) for k in KERNELS}

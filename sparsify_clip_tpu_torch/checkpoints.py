@@ -6,7 +6,10 @@ The JAX package writes weights as a flat ``{slash/path: ndarray}`` dict
 e.g. ``visual/transformer/resblock_0/attn/in_proj/kernel``.  This module
 maps each path onto the port's open_clip parameter name and layout:
 
-* ``.../resblock_N/...`` → ``...resblocks.N...``;
+* ``.../resblock_N/...`` → ``...resblocks.N...``, and the JAX
+  ``scan_layers`` layout, ``.../transformer/layers_scan/block/...`` with a
+  leading layer axis (models/layers.py:300-319), unstacked into
+  ``resblocks.0`` ... first;
 * LayerNorm ``<ln>/ln/scale|bias`` → ``<ln>.weight|bias``;
 * kernels by rank: a 2-D dense kernel (in, out) → torch (out, in), a 4-D
   conv kernel HWIO → OIHW (the inverse of the JAX side's OIHW→HWIO
@@ -27,7 +30,9 @@ is written, so a partial load cannot happen.  Each array is cast to its
 parameter's type on the way in (the compute type for serving weights).
 :func:`save_weights` writes the inverse, parameters only, as the JAX
 ``save_weights(state.params, ...)``: an ``.npz`` under the JAX flat
-keys, in the JAX layouts, which the JAX ``load_weights`` reads.
+keys, in the JAX layouts, which the JAX ``load_weights`` reads; a model
+built with ``scan_layers`` writes the stacked ``layers_scan`` layout, as a
+JAX ``scan_layers`` run does.
 
 The full state (:func:`save_full`, :func:`restore_full`) keeps the JAX
 names and the ``<checkpoint_dir>/<run_name>/step_<N>`` layout, in the
@@ -47,7 +52,7 @@ moments; ``model.layout``,
 together first, every rank taking part, so the files hold the model of
 one process at full shape under the same keys, whatever the layout that
 wrote them; loading one (:func:`load_jax_params`, :func:`restore_full`)
-keeps each rank's pieces.
+keeps each rank's pieces (a pipeline stage's rank, its stage's blocks).
 """
 
 from __future__ import annotations
@@ -119,12 +124,53 @@ def torch_name(path: str) -> Tuple[str, Callable[[np.ndarray], np.ndarray]]:
     return ".".join(parts), fn
 
 
+_SCAN = re.compile(r"^(?:(.*)/)?layers_scan/block/(.*)$")
+_RESBLOCK = re.compile(r"^(?:(.*)/)?resblock_(\d+)/(.*)$")
+
+
+def _join(*parts: Optional[str]) -> str:
+    return "/".join(p for p in parts if p)
+
+
+def unstack_scan_layers(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A JAX flat dict with the ``scan_layers`` stacks unstacked:
+    ``<trunk>/layers_scan/block/<leaf>`` of shape (L, ...) →
+    ``<trunk>/resblock_<i>/<leaf>`` for each i < L; other keys as they are."""
+    out: Dict[str, np.ndarray] = {}
+    for path, arr in flat.items():
+        m = _SCAN.match(path)
+        if m is None:
+            out[path] = arr
+            continue
+        for i, layer in enumerate(np.asarray(arr)):
+            out[_join(m.group(1), f"resblock_{i}", m.group(2))] = layer
+    return out
+
+
+def stack_scan_layers(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`unstack_scan_layers`: each trunk's
+    ``resblock_<i>/<leaf>`` arrays stacked in block order as
+    ``<trunk>/layers_scan/block/<leaf>`` (the JAX ``scan_layers`` layout)."""
+    out: Dict[str, np.ndarray] = {}
+    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    for path, arr in flat.items():
+        m = _RESBLOCK.match(path)
+        if m is None:
+            out[path] = arr
+        else:
+            stacked = _join(m.group(1), "layers_scan/block", m.group(3))
+            layers.setdefault(stacked, {})[int(m.group(2))] = arr
+    for path, by_index in layers.items():
+        out[path] = np.stack([by_index[i] for i in range(len(by_index))])
+    return out
+
+
 def _convert(flat: Mapping[str, np.ndarray], targets: Dict[str, torch.Tensor],
              what: str) -> Dict[str, np.ndarray]:
     """Map every JAX path of ``flat`` onto ``targets`` (port name → tensor)
     and check that the keys cover them and the shapes agree."""
     converted: Dict[str, np.ndarray] = {}
-    for path, arr in flat.items():
+    for path, arr in unstack_scan_layers(flat).items():
         name, fn = torch_name(path)
         if name not in targets:
             raise KeyError(f"unexpected key {path!r} (port name {name!r})")
@@ -142,20 +188,24 @@ def _convert(flat: Mapping[str, np.ndarray], targets: Dict[str, torch.Tensor],
 
 def load_jax_params(model: nn.Module, flat: Mapping[str, np.ndarray],
                     batch_stats: Optional[Mapping[str, np.ndarray]] = None) -> nn.Module:
-    """Fill every parameter of ``model`` from a JAX flat param dict and,
-    when ``batch_stats`` (the JAX ``batch_stats`` collection, flat) is
-    given, every BatchNorm running statistic from it.  A laid-out model
-    (``model.layout``) keeps each rank's pieces of the full arrays."""
+    """Fill every parameter of ``model`` from a JAX flat param dict (the
+    unrolled or the ``scan_layers`` layout) and, when ``batch_stats`` (the
+    JAX ``batch_stats`` collection, flat) is given, every BatchNorm running
+    statistic from it.  A laid-out model (``model.layout``) keeps each
+    rank's pieces of the full arrays, a pipeline stage's rank its stage's
+    blocks of them."""
     params, buffers = dict(model.named_parameters()), dict(model.named_buffers())
     layout = layout_of(model)
     shapes = params if layout is None else {
-        n: torch.empty(layout.placements[n].full_shape, device="meta") for n in params}
+        n: torch.empty(place.full_shape, device="meta") for n, place in layout.placements.items()}
     loads = [(params, _convert(flat, shapes, "parameters"))]
     if batch_stats is not None:
         loads.append((buffers, _convert(batch_stats, buffers, "buffers")))
     with torch.no_grad():
         for targets, arrays in loads:
             for name, arr in arrays.items():
+                if name not in targets:  # another pipeline stage's block
+                    continue
                 value = torch.from_numpy(arr)
                 if layout is not None and name in layout.placements:
                     value = layout.local(name, value)
@@ -239,10 +289,14 @@ def full_parameters(model: nn.Module) -> Dict[str, torch.Tensor]:
 def collect_host_arrays(model: nn.Module) -> Dict[str, np.ndarray]:
     """The model's parameters as the JAX flat dict ``{slash/path: fp32
     ndarray}``, in the JAX layouts, at full shape (a collective for a
-    laid-out model)."""
+    laid-out model), the trunks stacked as ``layers_scan`` for a model
+    built with ``scan_layers``."""
     params = full_parameters(model)
-    return {path: np.ascontiguousarray(fn(params[name].detach().float().cpu().numpy()))
-            for name, (path, fn) in jax_paths(model).items()}
+    layout = layout_of(model)
+    names = layout.one_process if layout is not None and layout.pipeline else model
+    flat = {path: np.ascontiguousarray(fn(params[name].detach().float().cpu().numpy()))
+            for name, (path, fn) in jax_paths(names).items()}
+    return stack_scan_layers(flat) if getattr(model, "knobs", {}).get("scan_layers") else flat
 
 
 def collect_variables(model: nn.Module) -> Dict[str, np.ndarray]:

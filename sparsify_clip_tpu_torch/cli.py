@@ -70,7 +70,8 @@ def apply_smoke_overrides(config: ExperimentConfig) -> ExperimentConfig:
     )
 
 
-def _check_supported(config: ExperimentConfig, world: int = 1) -> None:
+def _check_supported(config: ExperimentConfig, world: int = 1,
+                     model: Optional[int] = None) -> None:
     """Refuse what this port does not run before any file is written."""
     from sparsify_clip_tpu_torch.train import check_supported as check_step
 
@@ -79,7 +80,7 @@ def _check_supported(config: ExperimentConfig, world: int = 1) -> None:
             "plot_embeddings: true draws the per-eval plots with matplotlib, which is not "
             "installed; set plot_embeddings: false or run --smoke"
         )
-    check_step(config, world)
+    check_step(config, world, model)
 
 
 def main(config: ExperimentConfig, image_size: Optional[int] = None,
@@ -123,7 +124,7 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
                                "call main(config, device='cpu') to run on the CPU")
         torch.cuda.set_device(device)
     mesh = create_mesh(data=config.mesh_data, model=config.mesh_model)
-    _check_supported(config, mesh.data)
+    _check_supported(config, mesh.data, mesh.model)
     # compilation_cache_dir is accepted and ignored: PyTorch compiles no
     # programs per run (ROADMAP Queue 1, 'Do not port')
 
@@ -186,9 +187,11 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
     eval_pass = 0
     # the fp32 twin over the training parameters (the reference evaluates
     # with no autocast, sparsify_clip.py:563-593)
-    # (a model laid out over the mesh gives a twin of full copies: one a pass)
+    # (a model laid out over the mesh gives a twin of full copies: one a
+    # pass; a pipelined one, a twin of its stage over the same tensors)
+    layout = layout_of(setup.model)
     eval_model = (make_eval_model(setup.model, config.eval_fp32)
-                  if layout_of(setup.model) is None else None)
+                  if layout is None or layout.pipeline else None)
 
     def eval_fn(state):
         nonlocal last_eval, eval_pass

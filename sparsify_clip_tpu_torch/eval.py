@@ -120,10 +120,13 @@ def make_eval_model(model: CLIP, eval_fp32: bool = True) -> CLIP:
     evaluates with no autocast (sparsify_clip.py:563-593).  A model laid
     out over the mesh (``model.layout``) gives a twin of one process over
     full copies of its parameters, those of this moment: call it again
-    for later weights (a collective)."""
+    for later weights (a collective).  A pipelined model's twin is the
+    same stage of the same pipeline over its own tensors, as the JAX CLI
+    evaluates the pipelined model (cli.py builds its eval model from the
+    train step's): every model rank runs it together."""
     dtype = torch.float32 if eval_fp32 else model.dtype
     layout = layout_of(model)
-    if layout is not None:
+    if layout is not None and not layout.pipeline:
         return layout.full_model(model, dtype).eval()
     if model.dtype == dtype and not model.training:
         return model

@@ -134,18 +134,35 @@ class CLIP(nn.Module):
     ``remat_policy`` recompute each block (a ``Bottleneck`` in a ResNet)
     in every tower's backward; ``ln_fp32: False`` gives the blocks flax's
     LayerNorm in the compute type (and the unfused route); ``onehot_embed``
-    embeds the tokens by a one-hot product."""
+    embeds the tokens by a one-hot product; ``scan_layers`` writes the
+    weight files in the JAX stacked layout (a name layout, no other
+    effect); ``pipeline_stages`` S > 1 makes each transformer trunk this
+    rank's stage of a GPipe pipeline over ``mesh``'s model axis, of
+    ``pipeline_microbatches`` microbatches (the JAX ``CLIP``'s
+    ``pipeline_*`` fields, clip.py:167-187; a ViT vision tower alone)."""
 
     def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
                  fused_ln_qkv: bool = False, remat: bool = False,
                  remat_policy: Optional[str] = None, ln_fp32: bool = True,
-                 onehot_embed: bool = False):
+                 onehot_embed: bool = False, scan_layers: bool = False,
+                 pipeline_stages: int = 1, pipeline_microbatches: Optional[int] = None,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
         self.knobs = dict(fused_ln_qkv=fused_ln_qkv, remat=remat, remat_policy=remat_policy,
-                          ln_fp32=ln_fp32, onehot_embed=onehot_embed)
+                          ln_fp32=ln_fp32, onehot_embed=onehot_embed, scan_layers=scan_layers,
+                          pipeline_stages=pipeline_stages,
+                          pipeline_microbatches=pipeline_microbatches, mesh=mesh)
         act = quick_gelu if cfg.quick_gelu else gelu_exact
         blocks = dict(remat=remat, remat_policy=remat_policy)
+        pipeline = dict(scan_layers=scan_layers, pipeline_stages=pipeline_stages,
+                        pipeline_microbatches=pipeline_microbatches, mesh=mesh)
+        if pipeline_stages > 1 and cfg.vision_kind != "vit":
+            raise ValueError(
+                "pipeline_stages > 1 pipelines transformer block stacks; "
+                f"the {cfg.name} vision tower is a ResNet (stage-"
+                "heterogeneous blocks) — use TP (mesh_model) or FSDP instead"
+            )
         if cfg.vision_kind == "resnet":
             self.visual = ModifiedResNet(
                 layers=cfg.vision_layers, width=cfg.vision_width, image_size=cfg.image_size,
@@ -157,7 +174,7 @@ class CLIP(nn.Module):
                 width=cfg.vision_width, layers=cfg.vision_layers[0],
                 heads=cfg.vision_heads, mlp_hidden=cfg.vision_mlp_hidden,
                 embed_dim=cfg.embed_dim, act=act, dtype=dtype, fused_ln_qkv=fused_ln_qkv,
-                ln_fp32=ln_fp32, **blocks,
+                ln_fp32=ln_fp32, **blocks, **pipeline,
             )
         else:
             raise ValueError(f"Unknown vision_kind {cfg.vision_kind}")
@@ -166,11 +183,17 @@ class CLIP(nn.Module):
             width=cfg.text_width, heads=cfg.text_heads, layers=cfg.text_layers,
             mlp_hidden=cfg.text_mlp_hidden, embed_dim=cfg.embed_dim, act=act, dtype=dtype,
             fused_ln_qkv=fused_ln_qkv, ln_fp32=ln_fp32, onehot_embed=onehot_embed, **blocks,
+            **pipeline,
         )
 
     @property
     def fused_ln_qkv(self) -> bool:
         return self.knobs["fused_ln_qkv"]
+
+    @property
+    def one_process_knobs(self) -> dict:
+        """The knobs of this model on one process: the pipeline's off."""
+        return dict(self.knobs, pipeline_stages=1, pipeline_microbatches=None, mesh=None)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -185,7 +208,8 @@ class CLIP(nn.Module):
         """A CLIP that computes in ``dtype`` over this model's parameters
         and buffers: the same tensors, not copies, so it sees every update
         to them (the JAX side's ``model.clone(dtype=...)`` applied to the
-        shared params and batch_stats), with this model's knobs."""
+        shared params and batch_stats), with this model's knobs (a
+        pipelined model's twin is the same stage of the same pipeline)."""
         with torch.device("meta"):
             twin = CLIP(self.cfg, dtype=dtype, **self.knobs)
         twin.load_state_dict(self.state_dict(keep_vars=True), strict=True, assign=True)
@@ -218,6 +242,10 @@ def create_model(
     remat_policy: Optional[str] = None,
     ln_fp32: bool = True,
     onehot_embed: bool = False,
+    scan_layers: bool = False,
+    pipeline_stages: int = 1,
+    pipeline_microbatches: Optional[int] = None,
+    mesh=None,
 ) -> CLIP:
     """Build a registry model with fresh weights, in eval mode, on
     ``device`` (the card unless the caller asks for the CPU).
@@ -240,6 +268,10 @@ def create_model(
     JAX ``create_model``'s knobs of the same names, clip.py:263-286) too.
     ``image_size`` overrides the registry's input resolution (the vision
     tower's positional embedding follows it), as the JAX ``create_model``'s.
+    ``scan_layers``, ``pipeline_stages``, ``pipeline_microbatches`` and
+    ``mesh`` are :class:`CLIP`'s: a pipelined model keeps this rank's
+    stage of each trunk, whose weights are those of the whole model drawn
+    from ``seed``.
     """
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model {name!r}. Known: {sorted(MODEL_REGISTRY)}")
@@ -254,7 +286,9 @@ def create_model(
         if image_size is not None:
             cfg = dataclasses.replace(cfg, image_size=image_size)
         model = CLIP(cfg, dtype=dtype, fused_ln_qkv=fused_ln_qkv, remat=remat,
-                     remat_policy=remat_policy, ln_fp32=ln_fp32, onehot_embed=onehot_embed)
+                     remat_policy=remat_policy, ln_fp32=ln_fp32, onehot_embed=onehot_embed,
+                     scan_layers=scan_layers, pipeline_stages=pipeline_stages,
+                     pipeline_microbatches=pipeline_microbatches, mesh=mesh)
     model.to_empty(device="cpu")
     model.reset_parameters(torch.Generator().manual_seed(seed))
     folded = model.visual.folded_convs() if isinstance(model.visual, ModifiedResNet) else ()

@@ -34,9 +34,17 @@ Conventions carried over from the JAX towers:
 * module and parameter names follow open_clip's ``state_dict``
   (``resblocks.N.attn.in_proj_weight``, ``mlp.c_fc`` ...).
 
-Only the unrolled layer stack is ported: ``scan_layers`` is a compile-time
-lever of XLA (ROADMAP Queue 1, 'Do not port') and the pipeline waits for
-'Multi-GPU'.
+The layer stack is the unrolled one.  ``scan_layers`` is a compile-time
+lever of XLA (ROADMAP Queue 1, 'Do not port'): here it names the JAX
+stacked layout that the weight files take
+(:mod:`sparsify_clip_tpu_torch.checkpoints`), and a pipelined trunk
+needs it, as on the JAX side.  With ``pipeline_stages`` S > 1 a trunk is
+one stage of a GPipe pipeline over its mesh's model axis
+(:mod:`sparsify_clip_tpu_torch.parallel.pipeline`): model rank ``s``
+holds blocks ``[s·L/S, (s+1)·L/S)`` alone, under their global names
+(``resblocks.{s·L/S}`` ...), and builds them without ``fused_ln_qkv``, as
+the JAX stage body does (layers.py:354-358): a pipelined trunk takes the
+unfused LN + qkv route whatever the knob.
 """
 
 from __future__ import annotations
@@ -308,27 +316,82 @@ class Transformer(nn.Module):
     :func:`remat` with its ``remat_policy`` whenever a gradient is taken
     (the JAX ``nn.remat(ResidualAttentionBlock)``, layers.py:322-336);
     without a gradient (eval, GradCache's first pass) the blocks run
-    plainly."""
+    plainly.
+
+    ``pipeline_stages`` S > 1 (with ``scan_layers`` and a ``mesh`` of S
+    model ranks) makes the stack this model rank's stage of a GPipe
+    pipeline of ``pipeline_microbatches`` microbatches (default S): the
+    stage's blocks in a ``ModuleDict`` under their global indices, the
+    forward :func:`~sparsify_clip_tpu_torch.parallel.pipeline.gpipe_apply`
+    behind Megatron's f.  :meth:`reset_parameters` still draws every
+    block, so a seed gives the same weights on every layout."""
 
     def __init__(self, width: int, layers: int, heads: int,
                  mlp_hidden: Optional[int] = None, act: Activation = gelu_exact,
                  causal: bool = False, fused_ln_qkv: bool = False, ln_fp32: bool = True,
-                 remat: bool = False, remat_policy: Optional[str] = None):
+                 remat: bool = False, remat_policy: Optional[str] = None,
+                 scan_layers: bool = False, pipeline_stages: int = 1,
+                 pipeline_microbatches: Optional[int] = None, mesh=None):
         super().__init__()
+        self.layers = layers
         self.remat = remat
         self.policy = resolve_remat_policy(remat_policy) if remat else None
         tag = remat and remat_policy == "attn_out"
-        self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, mlp_hidden, act, causal, fused_ln_qkv,
-                                   ln_fp32, tag)
-            for _ in range(layers)
-        )
+
+        def block(fused: bool) -> ResidualAttentionBlock:
+            return ResidualAttentionBlock(width, heads, mlp_hidden, act, causal, fused,
+                                          ln_fp32, tag)
+
+        self.pipeline = None  # (mesh, microbatches) of a pipelined stack
+        if pipeline_stages <= 1:
+            self.resblocks = nn.ModuleList(block(fused_ln_qkv) for _ in range(layers))
+            return
+        from sparsify_clip_tpu_torch.parallel.pipeline import validate_pipeline
+
+        if not scan_layers:
+            raise ValueError(
+                "pipeline_stages > 1 requires scan_layers=True (the "
+                "stacked (layers, ...) param layout is the stage split)"
+            )
+        if mesh is None:
+            raise ValueError("pipeline_stages > 1 requires pipeline_mesh")
+        if mesh.model != pipeline_stages:
+            raise ValueError(f"pipeline_stages={pipeline_stages} needs a mesh of as many "
+                             f"model ranks, got {mesh.model}")
+        n_micro = pipeline_microbatches or pipeline_stages
+        validate_pipeline(layers, pipeline_stages, 0, n_micro)  # the batch at each call
+        self.pipeline = (mesh, n_micro)
+        per = layers // pipeline_stages
+        first = mesh.model_rank * per
+        self.resblocks = nn.ModuleDict({str(i): block(False) for i in range(first, first + per)})
+        # what reset_parameters draws for another stage's block
+        self._draw = functools.partial(block, False)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        for block in self.resblocks:
-            block.reset_parameters(gen)
+        if self.pipeline is None:
+            for block in self.resblocks:
+                block.reset_parameters(gen)
+            return
+        for i in range(self.layers):
+            if str(i) in self.resblocks:
+                self.resblocks[str(i)].reset_parameters(gen)
+            else:  # another stage's block: the same draws, kept nowhere
+                with torch.device("cpu"):
+                    self._draw().reset_parameters(gen)
+
+    def stage(self, x: torch.Tensor) -> torch.Tensor:
+        """A pipelined stack's blocks, in order: this rank's stage."""
+        for block in self.resblocks.values():
+            x = block(x)
+        return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pipeline is not None:
+            from sparsify_clip_tpu_torch.parallel.pipeline import gpipe_apply
+
+            mesh, n_micro = self.pipeline
+            return gpipe_apply(self.stage, list(self.parameters()), copy_to_model(x, mesh),
+                               mesh, n_micro, self.layers)
         recompute = self.remat and torch.is_grad_enabled()
         for block in self.resblocks:
             x = remat(block, self.policy, x) if recompute else block(x)

@@ -29,16 +29,20 @@ class TextTransformer(nn.Module):
                  mlp_hidden: Optional[int] = None, embed_dim: int = 512,
                  act: Activation = gelu_exact, dtype: torch.dtype = torch.float32,
                  fused_ln_qkv: bool = False, ln_fp32: bool = True, remat: bool = False,
-                 remat_policy: Optional[str] = None, onehot_embed: bool = False):
+                 remat_policy: Optional[str] = None, onehot_embed: bool = False,
+                 **pipeline):
         super().__init__()
         self.dtype = dtype  # the compute type; weights are cast to it at use
         self.width = width
         self.onehot_embed = onehot_embed
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
+        # ``pipeline``: the trunk's scan_layers, pipeline_stages,
+        # pipeline_microbatches and mesh (Transformer)
         self.transformer = Transformer(width, layers, heads, mlp_hidden, act, causal=True,
                                        fused_ln_qkv=fused_ln_qkv, ln_fp32=ln_fp32, remat=remat,
-                                       remat_policy=remat_policy)
+                                       remat_policy=remat_policy,
+                                       **pipeline)
         self.ln_final = LayerNorm(width)
         self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
 

@@ -25,7 +25,8 @@ class VisionTransformer(nn.Module):
                  mlp_hidden: Optional[int] = None, embed_dim: int = 512,
                  act: Activation = gelu_exact, dtype: torch.dtype = torch.float32,
                  fused_ln_qkv: bool = False, ln_fp32: bool = True, remat: bool = False,
-                 remat_policy: Optional[str] = None):
+                 remat_policy: Optional[str] = None,
+                 **pipeline):
         super().__init__()
         self.dtype = dtype  # the compute type; weights are cast to it at use
         self.image_size = image_size
@@ -37,10 +38,12 @@ class VisionTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(torch.empty(grid * grid + 1, width))
         self.ln_pre = LayerNorm(width)
         # ln_fp32 and remat reach the blocks alone, as on the JAX side
-        # (ln_pre and ln_post stay fp32)
+        # (ln_pre and ln_post stay fp32); ``pipeline`` is the trunk's
+        # scan_layers, pipeline_stages, pipeline_microbatches and mesh
         self.transformer = Transformer(width, layers, heads, mlp_hidden, act,
                                        fused_ln_qkv=fused_ln_qkv, ln_fp32=ln_fp32, remat=remat,
-                                       remat_policy=remat_policy)
+                                       remat_policy=remat_policy,
+                                       **pipeline)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
 

@@ -2,9 +2,8 @@
 the (data, model) mesh and its collectives (:mod:`.mesh`), joining the
 process group and the per-process batch slices (:mod:`.multihost`), the
 global-batch losses from per-rank shards (:mod:`.dist_losses`), tensor
-parallelism on the model axis (:mod:`.tensor`) and ZeRO-1 and FSDP on the
-data axis (:mod:`.sharding`).  GPipe (``parallel/pipeline.py``) waits for
-ROADMAP Queue 1, 'Multi-GPU'."""
+parallelism (:mod:`.tensor`) or GPipe's stages (:mod:`.pipeline`) on the
+model axis, and ZeRO-1 and FSDP on the data axis (:mod:`.sharding`)."""
 
 from sparsify_clip_tpu_torch.parallel.dist_losses import (  # noqa: F401
     global_contrastive_loss,

@@ -10,9 +10,9 @@ data group holds the ranks that share this ``model_rank`` (they split the
 batch: data rank ``r`` holds rows ``[r·b, (r+1)·b)`` of every global
 batch of ``data·b`` rows), the model group the ranks that share this
 ``data_rank`` (they hold the same rows and split the tensor-parallel
-weights, :mod:`sparsify_clip_tpu_torch.parallel.tensor`).  A group that
-spans the whole world is the default group.  GPipe stages on the model
-axis wait for ROADMAP Queue 1, 'Multi-GPU'.
+weights, :mod:`sparsify_clip_tpu_torch.parallel.tensor`, or the GPipe
+stages, :mod:`sparsify_clip_tpu_torch.parallel.pipeline`).  A group that
+spans the whole world is the default group.
 
 Every rank computes the same global loss.  The collectives below run
 over the data group (``axis="model"`` where a function takes it) and
@@ -33,6 +33,8 @@ with respect to the rank's own inputs:
   ``all_to_all_single`` with one nonzero split, the form NCCL, gloo on
   the CPU and gloo on CUDA tensors all take (torch 2.11's gloo fails
   ``batch_isend_irecv`` of CUDA tensors); its backward hops back.
+  :func:`hop` is the same step without autograd, over either axis (the
+  pipeline's stage-to-stage hand-off runs it over the model group).
 
 Replicated parameters see only the rank's rows in the encoders, so each
 data rank's parameter gradients are its share of the total:
@@ -83,6 +85,10 @@ class Mesh:
 
     def group(self, axis: str) -> Any:
         return self.data_group if axis == DATA_AXIS else self.model_group
+
+    def index(self, axis: str) -> int:
+        """This rank's place on ``axis``."""
+        return self.data_rank if axis == DATA_AXIS else self.model_rank
 
     def local_batch(self, global_batch: int) -> int:
         """The rows of a global batch that this rank holds."""
@@ -204,19 +210,20 @@ def reduce_scatter_rows(x: torch.Tensor, mesh: Mesh, axis: str = DATA_AXIS) -> t
     return out
 
 
-def _hop(x: torch.Tensor, mesh: Mesh, step: int) -> torch.Tensor:
-    """Send ``x`` to data rank + step, receive the same shape from data
+def _hop(x: torch.Tensor, mesh: Mesh, step: int, axis: str = DATA_AXIS) -> torch.Tensor:
+    """Send ``x`` to rank + step on ``axis``, receive the same shape from
     rank − step."""
     dist = _dist()
     x = x.contiguous()
     rows = x.shape[0]
-    send = [0] * mesh.data
-    recv = [0] * mesh.data
-    send[(mesh.data_rank + step) % mesh.data] = rows
-    recv[(mesh.data_rank - step) % mesh.data] = rows
+    n, r = mesh.size(axis), mesh.index(axis)
+    send = [0] * n
+    recv = [0] * n
+    send[(r + step) % n] = rows
+    recv[(r - step) % n] = rows
     out = torch.empty_like(x)
     _run(mesh, f"all_to_all_single (one ring hop) of a {x.device.type} tensor",
-         lambda: dist.all_to_all_single(out, x, recv, send, group=mesh.data_group))
+         lambda: dist.all_to_all_single(out, x, recv, send, group=mesh.group(axis)))
     return out
 
 
@@ -290,9 +297,10 @@ def ring_hop(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return x if mesh.data == 1 else _RingHop.apply(x, mesh)
 
 
-def hop(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """One ring step without autograd (the ring losses' own passes)."""
-    return x if mesh.data == 1 else _hop(x, mesh, 1)
+def hop(x: torch.Tensor, mesh: Mesh, step: int = 1, axis: str = DATA_AXIS) -> torch.Tensor:
+    """One ring step of ``step`` ranks on ``axis`` without autograd (the
+    ring losses' own passes, the pipeline's hand-offs)."""
+    return x if mesh.size(axis) == 1 else _hop(x, mesh, step, axis)
 
 
 def all_reduce_gradients(params: Iterable[torch.Tensor], mesh: Mesh,

@@ -1,8 +1,10 @@
 """The train state's layout over the (data, model) mesh: ZeRO-1 and FSDP
-on the data axis, on top of tensor parallelism's slices on the model axis
-(:mod:`sparsify_clip_tpu_torch.parallel.tensor`), ported from the JAX
-``shard_over_data``, ``zero1_opt_shardings`` (parallel/mesh.py:132-180)
-and ``state_shardings_for`` (train.py:413-445).
+on the data axis, on top of tensor parallelism's slices or the GPipe
+stages on the model axis (:mod:`sparsify_clip_tpu_torch.parallel.tensor`,
+:mod:`sparsify_clip_tpu_torch.parallel.pipeline`), ported from the JAX
+``shard_over_data``, ``zero1_opt_shardings``, the stage rule of
+``param_shardings(pipeline=True)`` (parallel/mesh.py:91-180) and
+``state_shardings_for`` (train.py:413-445).
 
 **The rule** (:func:`data_dim`, the JAX ``shard_over_data``): a tensor
 shards over the data axis along its largest dimension that the model
@@ -29,18 +31,30 @@ block ``r`` of that dimension.
   backward reads what its forward saved (the compute-type casts of the
   weights); under ``remat`` the recompute calls the unit again and so
   gathers again.  A replicated tensor keeps its gradient all-reduce.
+* **The stage rule** (``pipeline``; :class:`Layout` with ``pipeline``):
+  model rank ``s`` holds stage ``s``'s blocks of each transformer trunk
+  (``resblocks.N`` with ``N // (L/S) == s``, the JAX ``layers_scan``
+  stacks sharded on their layer axis) and every other parameter whole.
+  Each parameter's gradient reduces over the data group alone, as
+  without the pipeline: a block's is its stage's, and a replicated one's
+  is already whole over the model group (Megatron's f before each trunk).
+  ZeRO-1 then splits the moments of the rank's own parameters.
 
-The full view (:meth:`Layout.full`, :meth:`Layout.full_state_dict`,
-:func:`full_optimizer_state`) puts every tensor back together, the data
-blocks first and then the model slices, so checkpoints, the JAX weight
-files and the eval twin see the model of one process; :meth:`Layout.local`
-and :func:`load_optimizer_state` cut a full tensor down to this rank's
-piece.  Every one of them is a collective: each rank calls it.
+The full view (:meth:`Layout.full`, :meth:`Layout.full_named`,
+:meth:`Layout.full_state_dict`, :func:`full_optimizer_state`) puts every
+tensor back together, the data blocks first and then the model slices
+(or the other stages' blocks, one ``all_gather_into_tensor`` over the
+model group), so checkpoints, the JAX weight files and the eval twin see
+the model of one process under its names and its optimizer indices;
+:meth:`Layout.local`, :meth:`Layout.load_state_dict` and
+:func:`load_optimizer_state` cut a full tensor or state down to this
+rank's piece.  Every one of them is a collective: each rank calls it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -175,27 +189,63 @@ def _unit_modules(model: nn.Module) -> List[nn.Module]:
 # ---------------------------------------------------------------- layout
 
 
+_BLOCK = re.compile(r"^(.*)\.resblocks\.(\d+)\.(.*)$")
+
+
 class Layout:
     """Every parameter's :class:`Placement` on ``mesh`` for a model whose
     split weights ``apply_tensor_parallel`` already cut; ``fsdp`` shards
-    the parameters by the rule and installs the units' hooks."""
+    the parameters by the rule and installs the units' hooks.  With
+    ``pipeline`` the model holds its model rank's stage of each pipelined
+    trunk: the placements then name every parameter of the model of one
+    process (:attr:`one_process`, on the meta device), in its order
+    (:attr:`full_names`)."""
 
-    def __init__(self, model: nn.Module, mesh: Mesh, fsdp: bool = False, zero1: bool = False):
+    def __init__(self, model: nn.Module, mesh: Mesh, fsdp: bool = False, zero1: bool = False,
+                 pipeline: bool = False):
         self.mesh = mesh
         self.fsdp = fsdp and mesh.data > 1
         self.zero1 = zero1 and mesh.data > 1 and not self.fsdp
+        self.pipeline = pipeline and mesh.model > 1
         # False while every data rank holds the whole batch (the gathered
         # GradCache layout): FSDP's backward then keeps its block unsummed
         self.reduce_grads = True
         self.placements: Dict[str, Placement] = {}
+        self.one_process: Optional[nn.Module] = None
+        # pipeline: (stage, slot) of each block parameter, and the inverse;
+        # a slot (trunk, index within the stage, name within the block)
+        # holds the same tensor shape on every stage
+        self.stages: Dict[str, Tuple[int, tuple]] = {}
+        self.slot_names: Dict[Tuple[int, tuple], str] = {}
+        named = model.named_parameters()
+        if self.pipeline:
+            from sparsify_clip_tpu_torch.models.clip import CLIP
+
+            with torch.device("meta"):
+                self.one_process = CLIP(model.cfg, dtype=model.dtype, **model.one_process_knobs)
+            named = self.one_process.named_parameters()
+            from sparsify_clip_tpu_torch.parallel.pipeline import stacked_layers
+
+            per = {prefix: stacked_layers(t) // mesh.model for prefix, t in model.named_modules()
+                   if getattr(t, "pipeline", None) is not None}
         split_data = self.fsdp or self.zero1
-        for name, p in model.named_parameters():
-            tp = tp_rule(name) if mesh.model > 1 else None
+        for name, p in named:
+            tp = tp_rule(name) if mesh.model > 1 and not self.pipeline else None
             full = list(p.shape)
             if tp is not None:
                 full[tp[1]] *= mesh.model
             dim = data_dim(p.shape, mesh.data, tp and tp[1]) if split_data else None
+            block = _BLOCK.match(name) if self.pipeline else None
+            if block is not None and block.group(1) in per:
+                i, n = int(block.group(2)), per[block.group(1)]
+                slot = (block.group(1), i % n, block.group(3))
+                self.stages[name] = (i // n, slot)
+                self.slot_names[(i // n, slot)] = name
             self.placements[name] = Placement(tuple(full), tp, dim, self.fsdp and dim is not None)
+        self.full_names = list(self.placements)
+        # this rank's block slots, in one order on every stage
+        self.slots = sorted(slot for stage, slot in self.stages.values()
+                            if stage == mesh.model_rank)
         if self.fsdp:
             self._shard(model)
 
@@ -260,19 +310,49 @@ class Layout:
             t = _block(t, place.data_dim, self.mesh)
         return t.contiguous()
 
+    def stage_gather(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Pipeline: every stage's block tensors by name, from this rank's
+        (``tensors``: its stage's, by name, among others): one
+        ``all_gather_into_tensor`` over the model group, in fp32 (half types
+        travel exactly).  Without the pipeline, nothing."""
+        if not self.pipeline:
+            return {}
+        mine = [tensors[self.slot_names[(self.mesh.model_rank, slot)]] for slot in self.slots]
+        flat = torch.cat([_exact(t).reshape(-1) for t in mine])
+        parts = all_gather_rows(flat, self.mesh, MODEL_AXIS).view(self.mesh.model, -1)
+        out = {}
+        for stage in range(self.mesh.model):
+            at = 0
+            for slot, t in zip(self.slots, mine):
+                out[self.slot_names[(stage, slot)]] = parts[stage, at:at + t.numel()].view(
+                    t.shape).to(t.dtype)
+                at += t.numel()
+        return out
+
+    def full_named(self, tensors: Dict[str, torch.Tensor],
+                   moment: bool = False) -> Dict[str, torch.Tensor]:
+        """:meth:`full` of each of this rank's ``tensors`` (parameter name →
+        the rank's piece of it, or of a moment of it), and under the
+        pipeline the other stages' blocks too: the full view by name."""
+        out = {n: self.full(n, t, moment) for n, t in tensors.items()}
+        out.update(self.stage_gather(out))
+        return out
+
     def full_params(self, model: nn.Module) -> Dict[str, torch.Tensor]:
-        return {n: self.full(n, p.detach()) for n, p in model.named_parameters()}
+        return self.full_named({n: p.detach() for n, p in model.named_parameters()})
 
     def full_state_dict(self, model: nn.Module) -> Dict[str, torch.Tensor]:
         """The model's ``state_dict`` as one process holds it: full
         parameters and the (replicated) buffers."""
         full = self.full_params(model)
-        return {k: full.get(k, v) for k, v in model.state_dict().items()}
+        return {**{k: full.get(k, v) for k, v in model.state_dict().items()}, **full}
 
     def load_state_dict(self, model: nn.Module, state: Dict[str, torch.Tensor]) -> None:
-        """Fill this rank's pieces from a full ``state_dict`` (strict)."""
+        """Fill this rank's pieces from a full ``state_dict`` (strict: the
+        keys of the model of one process)."""
         own = model.state_dict(keep_vars=True)
-        missing, extra = sorted(set(own) - set(state)), sorted(set(state) - set(own))
+        expected = set(own) | set(self.placements)
+        missing, extra = sorted(expected - set(state)), sorted(set(state) - expected)
         if missing or extra:
             raise KeyError(f"state_dict keys: missing {missing}, unexpected {extra}")
         with torch.no_grad():
@@ -292,22 +372,26 @@ class Layout:
         from sparsify_clip_tpu_torch.models.clip import CLIP
 
         with torch.device("meta"):
-            twin = CLIP(model.cfg, dtype=dtype, **model.knobs)
+            twin = CLIP(model.cfg, dtype=dtype, **model.one_process_knobs)
         twin.load_state_dict(self.full_state_dict(model), strict=True, assign=True)
         return twin.train(model.training)
 
 
 def shard_model(model: nn.Module, mesh: Mesh, fsdp: bool = False,
-                zero1: bool = False) -> Optional[Layout]:
+                zero1: bool = False, pipeline: bool = False) -> Optional[Layout]:
     """Lay ``model`` (full, from the seed) out over ``mesh``: tensor
-    parallelism's slices, then FSDP's shards; the :class:`Layout`, also
-    set as ``model.layout``, or None when nothing is split."""
+    parallelism's slices, then FSDP's shards; or, with ``pipeline``, for a
+    model that already holds its stage of each trunk (``create_model``'s
+    ``pipeline_stages``), the stage rule and ZeRO-1's moments.  The
+    :class:`Layout`, also set as ``model.layout``, or None when nothing is
+    split."""
     from sparsify_clip_tpu_torch.parallel.tensor import apply_tensor_parallel
 
     if mesh.model == 1 and not (mesh.data > 1 and (fsdp or zero1)):
         return None
-    apply_tensor_parallel(model, mesh)
-    layout = Layout(model, mesh, fsdp=fsdp, zero1=zero1)
+    if not pipeline:
+        apply_tensor_parallel(model, mesh)
+    layout = Layout(model, mesh, fsdp=fsdp, zero1=zero1, pipeline=pipeline)
     model.layout = layout
     return layout
 
@@ -386,13 +470,25 @@ def _moment_names(state) -> List[Optional[str]]:
     return names + [None] * (n_opt - len(names))
 
 
+def _full_index(layout: Layout, names: List[Optional[str]]) -> Callable[[int], int]:
+    """This rank's optimizer index → the one process's: the same but under
+    the pipeline, where the one process holds every stage's blocks (in
+    :attr:`Layout.full_names` order) and the loss scalars come after them."""
+    if not layout.pipeline:
+        return lambda i: i
+    index = {n: j for j, n in enumerate(layout.full_names)}
+    n_local = sum(n is not None for n in names)
+    return lambda i: (index[names[i]] if names[i] is not None
+                      else len(layout.full_names) + i - n_local)
+
+
 def full_optimizer_state(state, layout: Layout) -> Dict[str, Any]:
     """The optimizer's state dict as one process's AdamW holds it: every
-    moment full (a collective)."""
+    moment full, every parameter's (a collective)."""
     sd = state.optimizer.state_dict()
     names = _moment_names(state)
-    out = {"param_groups": sd["param_groups"], "state": {}}
     sharded_moments = layout.fsdp or layout.zero1
+    entries = {}
     for i in sorted(sd["state"]):
         entry = dict(sd["state"][i])
         name = names[i]
@@ -400,7 +496,29 @@ def full_optimizer_state(state, layout: Layout) -> Dict[str, Any]:
             for k in _MOMENTS:
                 if k in entry:
                     entry[k] = layout.full(name, entry[k], moment=sharded_moments)
-        out["state"][i] = entry
+        entries[i] = entry
+    to_full = _full_index(layout, names)
+    groups = sd["param_groups"]
+    out = {"param_groups": groups, "state": {to_full(i): e for i, e in entries.items()}}
+    if not layout.pipeline:
+        return out
+    # the other stages' entries: their moments gathered, the rest (the step
+    # count) that of this rank's block of the same slot
+    if len(groups) != 1:
+        raise NotImplementedError("a pipelined optimizer has one parameter group")
+    n_opt = len(layout.full_names) + len(names) - sum(n is not None for n in names)
+    out["param_groups"] = [dict(groups[0], params=list(range(n_opt)))]
+    by_name = {names[i]: e for i, e in entries.items() if names[i] is not None}
+    if by_name:  # every rank has stepped as often: all gather, or none
+        gathered = {k: layout.stage_gather({n: e[k] for n, e in by_name.items()})
+                    for k in _MOMENTS if k in next(iter(by_name.values()))}
+        index = {n: j for j, n in enumerate(layout.full_names)}
+        for name, (stage, slot) in layout.stages.items():
+            if stage != layout.mesh.model_rank:
+                entry = dict(by_name[layout.slot_names[(layout.mesh.model_rank, slot)]])
+                entry.update({k: moments[name] for k, moments in gathered.items()})
+                out["state"][index[name]] = entry
+    out["state"] = dict(sorted(out["state"].items()))
     return out
 
 
@@ -409,10 +527,16 @@ def load_optimizer_state(state, layout: Layout, full: Dict[str, Any]) -> None:
     one process's) into this rank's sharded optimizer."""
     names = _moment_names(state)
     sharded_moments = layout.fsdp or layout.zero1
-    local = {"param_groups": full["param_groups"], "state": {}}
-    for i, entry in full["state"].items():
-        entry = dict(entry)
-        name = names[int(i)]
+    to_full = _full_index(layout, names)
+    saved = {int(i): entry for i, entry in full["state"].items()}
+    own_groups = state.optimizer.state_dict()["param_groups"]
+    local = {"param_groups": [dict(g, params=own["params"])
+                              for g, own in zip(full["param_groups"], own_groups)],
+             "state": {}}
+    for i, name in enumerate(names):
+        if to_full(i) not in saved:
+            continue
+        entry = dict(saved[to_full(i)])
         if name is not None:
             for k in _MOMENTS:
                 if k in entry:

@@ -74,7 +74,9 @@ def join(kind: str, dim: int, parts: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat(parts, dim)
 
 
-def _sum_fp32(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def sum_fp32(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of every model rank's ``x``, taken in fp32 and returned in
+    x's type (no autograd)."""
     y = x.float().contiguous()  # a fresh buffer when x is not fp32
     if y is x:
         y = y.clone()
@@ -89,13 +91,13 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _sum_fp32(g, ctx.mesh), None
+        return sum_fp32(g, ctx.mesh), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
-        return _sum_fp32(x, mesh)
+        return sum_fp32(x, mesh)
 
     @staticmethod
     def backward(ctx, g):

@@ -51,6 +51,10 @@ process group's ``create_mesh(mesh_data, mesh_model)``):
 * ``mesh_model > 1`` is tensor parallelism
   (:mod:`sparsify_clip_tpu_torch.parallel.tensor`): the ranks of a model
   group hold the same rows and split the attention and MLP weights;
+  with ``pipeline`` (and ``scan_layers``) the model axis is GPipe's
+  stages instead (:mod:`sparsify_clip_tpu_torch.parallel.pipeline`): each
+  model rank holds its stage's blocks of both trunks, and the head and
+  the loss run replicated over the stages;
 * ``shard_opt_state`` (ZeRO-1) and ``fsdp`` shard the moments, and under
   FSDP the parameters too, over the data axis
   (:mod:`sparsify_clip_tpu_torch.parallel.sharding`);
@@ -58,9 +62,8 @@ process group's ``create_mesh(mesh_data, mesh_model)``):
   does not divide gathers the global batch onto every data rank and
   takes JAX's dp = 1 microbatches (train.py:141-162), with a warning.
 
-One rank runs the single-device step unchanged.  GPipe waits for ROADMAP
-Queue 1, 'Multi-GPU' (see ``_NOT_PORTED``).  Entry points run on the card
-unless the caller asks for the CPU.
+One rank runs the single-device step unchanged.  Entry points run on the
+card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -91,13 +94,6 @@ from sparsify_clip_tpu_torch.utils.profiling import ThroughputMeter
 Batch = Dict[str, Any]
 Metrics = Dict[str, Union[torch.Tensor, float]]
 
-# Config knobs the port's step does not run yet → what they wait for;
-# each test takes the config and the data-axis size.
-_NOT_PORTED: List[Tuple[Callable[[ExperimentConfig, int], bool], str]] = [
-    (lambda c, w: c.pipeline, "pipeline (parallel/pipeline.py, ROADMAP Queue 1, 'Multi-GPU')"),
-]
-
-
 def _accum_gather_message(config: ExperimentConfig, dp: int) -> str:
     mb = config.batch_size // config.grad_accum_steps
     return (f"grad_accum_steps={config.grad_accum_steps} gives microbatch {mb}, not "
@@ -114,26 +110,83 @@ def gathers_accum_batch(config: ExperimentConfig, dp: int) -> bool:
             and (config.batch_size // config.grad_accum_steps) % dp != 0)
 
 
-def check_supported(config: ExperimentConfig, world: int = 1) -> None:
-    """Raise for the first config knob the port's step does not run at
-    data-axis size ``world``: :class:`NotImplementedError` for the
-    multi-device knobs not ported yet (GPipe), :class:`ValueError` for
-    what the JAX step refuses too; the loss type is checked by
-    :func:`make_loss_fn`.  Every registry model trains, ViT and ResNet
-    towers alike, under every loss type, GradCache accumulation (with
-    ``allow_accum_gather``'s gathered layout), either ``adam_mu_dtype``, a
-    ``soft_targets_provider`` (on one rank), ``sparse_projection``,
-    ``remat`` under every ``remat_policy``, ``onehot_embed`` and either
-    ``ln_fp32``, over any (data, model) mesh, with ``shard_opt_state``
-    (ZeRO-1) or ``fsdp``; ``multihost`` joins the process group
-    (:mod:`sparsify_clip_tpu_torch.parallel.multihost`), and ``stem_s2d``
-    is accepted as the TPU layout hint it is (see
-    :func:`create_train_setup`)."""
-    for unsupported, what in _NOT_PORTED:
-        if unsupported(config, world):
-            raise NotImplementedError(
-                f"{what} is not ported to sparsify_clip_tpu_torch's train step yet"
+def check_pipeline(config: ExperimentConfig, stages: int) -> None:
+    """The JAX ``create_train_setup``'s refusals of ``pipeline: true`` over
+    ``stages`` model ranks (train.py:467-526), in its order and with its
+    messages."""
+    if stages < 2:
+        raise ValueError(
+            "pipeline: true needs mesh_model >= 2 (the 'model' axis "
+            "size is the stage count)"
+        )
+    if not config.scan_layers:
+        raise ValueError(
+            "pipeline: true requires scan_layers: true (the stacked "
+            "(layers, ...) param layout is the stage split)"
+        )
+    if config.fsdp:
+        raise ValueError(
+            "pipeline is exclusive with fsdp: the block stacks are "
+            "already sharded over 'model' on the layer axis; adding a "
+            "data-axis shard would force a reshard inside every "
+            "pipeline pass. Use shard_opt_state for moment sharding."
+        )
+    if config.grad_accum_steps > 1:
+        raise ValueError(
+            "pipeline is exclusive with grad_accum_steps > 1: the "
+            "GradCache passes run the encoders inside lax.scan, which "
+            "must stay collective-free. Use pipeline_microbatches "
+            "for microbatching instead — the pipeline schedule is "
+            "already activation-memory-bounded per (microbatch, stage)."
+        )
+    if config.remat:
+        raise ValueError(
+            "pipeline is exclusive with remat: the GPipe schedule "
+            "already checkpoints per (microbatch, stage) — a "
+            "remat_policy would be silently ignored by the stage "
+            "loop. Drop remat: true (pipeline's memory profile is "
+            "one microbatch activation per stage)."
+        )
+    reg_cfg = MODEL_REGISTRY.get(config.model)
+    if reg_cfg is None:  # create_model names the unknown model
+        return
+    if reg_cfg.vision_kind != "vit":
+        raise ValueError(
+            "pipeline_stages > 1 pipelines transformer block stacks; "
+            f"the {reg_cfg.name} vision tower is a ResNet (stage-"
+            "heterogeneous blocks) — use TP (mesh_model) or FSDP instead"
+        )
+    for tower, depth in (
+        ("vision", reg_cfg.vision_layers[0]),
+        ("text", reg_cfg.text_layers),
+    ):
+        if depth % stages:
+            raise ValueError(
+                f"pipeline: {tower} tower depth {depth} not divisible "
+                f"by {stages} stages (mesh_model)"
             )
+
+
+def check_supported(config: ExperimentConfig, world: int = 1,
+                    model: Optional[int] = None) -> None:
+    """Raise for the first config knob the port's step does not run at
+    data-axis size ``world`` and model-axis size ``model`` (default
+    ``config.mesh_model``): :class:`ValueError` for what the JAX step
+    refuses too (:func:`check_pipeline` among them), :class:`NotImplementedError`
+    for a ``soft_targets_provider`` over several ranks; the loss type is
+    checked by :func:`make_loss_fn`.  Every registry model trains, ViT and
+    ResNet towers alike, under every loss type, GradCache accumulation
+    (with ``allow_accum_gather``'s gathered layout), either
+    ``adam_mu_dtype``, a ``soft_targets_provider`` (on one rank),
+    ``sparse_projection``, ``remat`` under every ``remat_policy``,
+    ``onehot_embed`` and either ``ln_fp32``, over any (data, model) mesh,
+    with ``shard_opt_state`` (ZeRO-1) or ``fsdp``, or with ``pipeline``
+    (GPipe on the model axis, with ZeRO-1); ``multihost`` joins the process
+    group (:mod:`sparsify_clip_tpu_torch.parallel.multihost`), and
+    ``stem_s2d`` is accepted as the TPU layout hint it is (see
+    :func:`create_train_setup`)."""
+    if config.pipeline:
+        check_pipeline(config, config.mesh_model if model is None else model)
     if world > 1 and config.soft_targets_provider:
         # the provider reads the captions of the whole batch on one host
         raise NotImplementedError(
@@ -221,7 +274,7 @@ class TrainStep:
                  lr_schedule: Callable[[int], float], image_size: Optional[int] = None,
                  mesh: Optional[Mesh] = None):
         self.mesh = mesh if mesh is not None else Mesh()
-        check_supported(config, self.mesh.data)
+        check_supported(config, self.mesh.data, self.mesh.model)
         self.gathered = gathers_accum_batch(config, self.mesh.data)
         if self.gathered:
             import warnings
@@ -442,6 +495,11 @@ def create_train_setup(
     parallel.sharding.shard_model`: tensor parallelism's slices, FSDP's
     shards), so the mesh does not change the initial values.  ZeRO-1 steps
     a :class:`~sparsify_clip_tpu_torch.parallel.sharding.Zero1Optimizer`.
+    With ``pipeline`` (refused as the JAX step refuses it,
+    :func:`check_pipeline`) the model is built as this model rank's stage
+    of each trunk (``create_model``'s ``pipeline_stages``, the mesh's model
+    axis) from the whole model's weights, and no tensor parallelism
+    applies: the model axis has one meaning.
 
     ``steps_per_epoch`` comes from the data pipeline (len(train_loader)
     in the reference, sparsify_clip.py:734).  Weights are drawn from
@@ -466,12 +524,17 @@ def create_train_setup(
     train_step = TrainStep(config, steps_per_epoch, total_steps, schedule,
                            image_size, mesh)  # refuses early
     dtype = torch.bfloat16 if config.fp16 else torch.float32
+    stages = mesh.model if config.pipeline else 1
     model = create_model(config.model, dtype=dtype, device=device, seed=config.seed,
                          param_dtype=torch.float32, fused_ln_qkv=config.fused_ln_qkv,
                          image_size=image_size, remat=config.remat,
                          remat_policy=config.remat_policy, ln_fp32=config.ln_fp32,
-                         onehot_embed=config.onehot_embed).train()
-    layout = shard_model(model, mesh, fsdp=config.fsdp, zero1=config.shard_opt_state)
+                         onehot_embed=config.onehot_embed, scan_layers=config.scan_layers,
+                         pipeline_stages=stages,
+                         pipeline_microbatches=config.pipeline_microbatches,
+                         mesh=mesh if config.pipeline else None).train()
+    layout = shard_model(model, mesh, fsdp=config.fsdp, zero1=config.shard_opt_state,
+                         pipeline=config.pipeline)
     if layout is not None:
         layout.reduce_grads = not train_step.gathered
     set_data_parallel(model, train_step.step_mesh)

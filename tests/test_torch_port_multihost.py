@@ -25,6 +25,7 @@ on the CPU.
   checkpoint.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -159,16 +160,21 @@ def test_create_mesh_refuses_a_data_axis_off_the_world_and_a_model_axis():
                                   dict(pipeline=True), dict(mesh_model=2)],
                          ids=["shard_opt_state", "fsdp", "pipeline", "mesh_model"])
 def test_multi_gpu_knobs_over_several_ranks_raise_by_name(knob):
-    """GPipe alone waits for 'Multi-GPU'; ZeRO-1, FSDP and the model axis
-    run over several ranks (tests/test_torch_port_{zero1,fsdp,tp}.py)."""
+    """ZeRO-1, FSDP, the model axis and GPipe run over several ranks
+    (tests/test_torch_port_{zero1,fsdp,tp,pipeline}.py); GPipe, over a
+    model axis of 2 stages, with ``scan_layers: true`` alone, and without
+    it the JAX ValueError names it (train.py:477-481)."""
     config = ExperimentConfig.from_dict(dict(train_tests.BASE, **knob))
     name = next(iter(knob))
     if name != "pipeline":
         check_supported(config, world=2)
         check_supported(config, world=1)
         return
-    with pytest.raises(NotImplementedError, match=f"{name}.*'Multi-GPU'"):
-        check_supported(config, world=2)
+    check_supported(dataclasses.replace(config, scan_layers=True), world=2, model=2)
+    with pytest.raises(ValueError, match=r"^pipeline: true requires scan_layers: true \(the "
+                                         r"stacked \(layers, \.\.\.\) param layout is the "
+                                         r"stage split\)$"):
+        check_supported(config, world=2, model=2)
 
 
 def test_soft_targets_provider_over_several_ranks_raises():

@@ -6,11 +6,13 @@ One launch of 2 ranks runs dp 1 × tp 2 on ``tp-tiny`` (non-4× MLP widths
 48 and 24), on ``rn-tiny`` (the attention pool's ``c_proj`` row-parallel)
 and with ``fused_ln_qkv`` (the fused kernel's plain version over the local
 3W/tp columns); one launch of 4 ranks runs dp 2 × tp 2 alone, under ZeRO-1
-and under FSDP.  Losses rel 1e-4 and held-out embeddings rtol 2e-3, atol
-5e-5 against JAX (the JAX test's tolerances); every rank holds the same
-full state.  A full-state save at step 2 and a resume into a fresh state
-of the same layout repeat step 3 bit for bit, and the weights file holds
-the JAX keys at full shape.
+and under FSDP.  The launches also run the pipeline's cases
+(tests/test_torch_port_pipeline.py, ``torch_layouts.model_axis_layouts``).
+Losses rel 1e-4 and held-out embeddings rtol 2e-3, atol 5e-5 against JAX
+(the JAX test's tolerances); every rank holds the same full state.  A
+full-state save at step 2 and a resume into a fresh state of the same
+layout repeat step 3 bit for bit, and the weights file holds the JAX keys
+at full shape.
 
 Without a launch: the head-aligned split of every split weight, then the
 join, returns the JAX arrays bit for bit, and each rank's in_proj rows are
@@ -29,25 +31,14 @@ from sparsify_clip_tpu_torch.parallel import tensor
 
 import torch_layouts as tl
 
-CASES = {
-    2: {
-        "tp2": dict(model="tp-tiny", mesh_model=2, save_at=2, npz=True),
-        "rn-tp2": dict(model="rn-tiny", mesh_model=2),
-        "tp2-fused": dict(model="tp-tiny", mesh_model=2, fused_ln_qkv=True),
-    },
-    4: {
-        "dp2tp2": dict(model="tp-tiny", mesh_model=2),
-        "dp2tp2-zero1": dict(model="tp-tiny", mesh_model=2, shard_opt_state=True),
-        "dp2tp2-fsdp": dict(model="tp-tiny", mesh_model=2, fsdp=True, save_at=2),
-    },
-}
+CASES = tl.TP_CASES
 ALL = {name: (world, spec) for world, cases in CASES.items() for name, spec in cases.items()}
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return tl.layouts(tmp_path_factory, "tp", CASES,
-                      {"tp-tiny": ("tp-tiny", {}), "rn-tiny": ("rn-tiny", {})})
+    # the launches hold the pipeline's cases too (tests/test_torch_port_pipeline.py)
+    return tl.model_axis_layouts(tmp_path_factory)
 
 
 @pytest.mark.parametrize("case", sorted(ALL))

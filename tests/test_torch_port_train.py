@@ -1,5 +1,5 @@
 """The port's train step against the JAX package's, on the CPU, and the
-step's refusals (the knobs that wait for later parts of the port).
+step's refusals.
 
 The lockstep: ``tiny-test``, ``loss_type: "anchor"``, a learnable raw
 temperature, batch 8, 5 steps.  The JAX run is ``create_train_setup`` +
@@ -197,10 +197,12 @@ def test_unknown_loss_type_raises():
     (dict(multihost=True), "multihost"),
 ])
 def test_knobs_not_ported_yet_raise(knob, match):
-    """The multi-device knobs not ported yet raise and name themselves; the
-    knobs ported since build a setup that carries them (``multihost``: the
-    step over the process group's mesh, one rank without a group; ``fsdp``:
-    the JAX no-op at one rank).  A model axis of 2 needs a world of 2."""
+    """The knobs ported since build a setup that carries them
+    (``multihost``: the step over the process group's mesh, one rank
+    without a group; ``fsdp``: the JAX no-op at one rank).  A model axis of
+    2 needs a world of 2, and ``pipeline`` one of at least 2 stages (the
+    JAX message, train.py:471-476; tests/test_torch_port_pipeline.py runs
+    it)."""
     cfg = port_config.ExperimentConfig.from_dict(dict(BASE, **knob))
     if match in ("sparse_projection", "remat", "onehot_embed", "ln_fp32", "multihost", "fsdp"):
         setup = create_train_setup(cfg, steps_per_epoch=4, device="cpu")
@@ -217,7 +219,8 @@ def test_knobs_not_ported_yet_raise(knob, match):
         with pytest.raises(ValueError, match="mesh_model=2 does not divide the world size 1"):
             create_train_setup(cfg, steps_per_epoch=4, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=r"^pipeline: true needs mesh_model >= 2 \(the 'model' "
+                                         r"axis size is the stage count\)$"):
         create_train_setup(cfg, steps_per_epoch=4, device="cpu")
 
 

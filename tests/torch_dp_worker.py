@@ -14,8 +14,9 @@ against the JAX package in their own process.
 Jobs: ``losses`` (every ``parallel.dist_losses`` function and the loss
 route, value and gradients; on the plan's ``device``), ``train``
 (locksteps of the train step), ``layouts`` (the train step on a (data,
-model) mesh under tensor parallelism, ZeRO-1, FSDP and the gathered
-GradCache layout, with save and resume), ``eval`` (the sharded eval),
+model) mesh under tensor parallelism, ZeRO-1, FSDP, the GPipe pipeline
+and the gathered GradCache layout, with save and resume; the pipelined
+trunk alone), ``eval`` (the sharded eval),
 ``cli`` (the CLI on a YAML), ``collectives`` (on the card: the
 collectives the slice needs, on CUDA tensors over gloo, and the ring hop
 both ways).  A plan with
@@ -129,6 +130,11 @@ def register_test_models() -> None:
         name="rn-tiny", embed_dim=16, vision_kind="resnet", image_size=32, vision_width=8,
         vision_layers=(1, 1, 1, 1), vision_heads=4, vocab_size=256, context_length=12,
         text_width=16, text_heads=2, text_layers=2))
+    # tests/test_pipeline.py's model: four blocks a tower
+    reg.setdefault("pp-tiny", clip.CLIPConfig(
+        name="pp-tiny", embed_dim=16, vision_kind="vit", image_size=32, vision_width=32,
+        vision_layers=(4,), vision_heads=2, patch_size=16, vocab_size=256, context_length=12,
+        text_width=16, text_heads=2, text_layers=4))
 
 
 def _job_losses(plan, mesh, out):
@@ -285,20 +291,59 @@ def _job_train(plan, mesh, out):
     return result
 
 
+def _trunk_case(case, out):
+    """A pipelined trunk alone (``case["trunk"]``: the Transformer's
+    fields, ``stages`` and ``n_micro``) from the JAX scan-layout weights
+    and input of ``case["weights"]``: its output and the input's gradient
+    of sum(y²) (rank 0), and this rank's blocks' gradients."""
+    import torch
+
+    from sparsify_clip_tpu_torch.checkpoints import torch_name, unstack_scan_layers
+    from sparsify_clip_tpu_torch.models.layers import Transformer
+    from sparsify_clip_tpu_torch.parallel.mesh import create_mesh
+
+    spec = dict(case["trunk"])
+    stages, n_micro = spec.pop("stages"), spec.pop("n_micro")
+    mesh = create_mesh(model=stages)
+    trunk = Transformer(**spec, scan_layers=True, pipeline_stages=stages,
+                        pipeline_microbatches=n_micro, mesh=mesh)
+    with np.load(case["weights"]) as f:
+        flat = {k: f[k] for k in f.files}
+    x = torch.from_numpy(flat.pop("x")).requires_grad_(True)
+    own = dict(trunk.named_parameters())
+    with torch.no_grad():
+        for path, arr in unstack_scan_layers(flat).items():
+            name, fn = torch_name(path)
+            if name in own:
+                own[name].copy_(torch.from_numpy(np.ascontiguousarray(fn(arr))))
+    y = trunk(x)
+    y.square().sum().backward()
+    if mesh.rank == 0:
+        out[f"{case['name']}/y"] = y.detach().numpy()
+        out[f"{case['name']}/dx"] = x.grad.numpy()
+    for name, p in own.items():
+        out[f"{case['name']}/grad/{name}"] = p.grad.numpy()
+    return {"mesh": [mesh.data, mesh.model], "names": sorted(own)}
+
+
 def _job_layouts(plan, _, out):
     """Each case: the steps of the JAX lockstep on the (data, model) mesh
     of its ``mesh_model``, the model laid out by its config (tensor
-    parallelism, ZeRO-1, FSDP, the gathered GradCache layout); the bytes
-    of the rank's parameters and moments, a digest of the full state, the
-    eval twin's embeddings of the held-out batch, and with ``save_at`` a
-    full-state save at that step and a resume into a fresh setup that runs
-    the remaining steps again; with ``npz`` the weights file."""
+    parallelism, ZeRO-1, FSDP, the GPipe pipeline, the gathered GradCache
+    layout); the bytes and names of the rank's parameters and the bytes of
+    its moments, a digest of the full state, the eval twin's embeddings of
+    the held-out batch, and with ``save_at`` a full-state save at that step
+    and a resume into a fresh setup that runs the remaining steps again;
+    with ``npz`` the weights file; with ``eval`` the metrics of the eval
+    twin and of the one-process twin over the held-out and the first
+    batch.  A ``trunk`` case runs :func:`_trunk_case`."""
     import torch
 
     from sparsify_clip_tpu_torch import checkpoints
     from sparsify_clip_tpu_torch.config import ExperimentConfig
-    from sparsify_clip_tpu_torch.eval import make_eval_model
+    from sparsify_clip_tpu_torch.eval import evaluate_model, make_eval_model
     from sparsify_clip_tpu_torch.parallel.mesh import create_mesh, digest
+    from sparsify_clip_tpu_torch.parallel.sharding import layout_of
     from sparsify_clip_tpu_torch.train import create_train_setup, trainables
 
     with np.load(plan["batches"]) as f:
@@ -307,6 +352,9 @@ def _job_layouts(plan, _, out):
     result = {}
     for case in plan["cases"]:
         name = case["name"]
+        if "trunk" in case:
+            result[name] = _trunk_case(case, out)
+            continue
         config = ExperimentConfig.from_dict(case["fields"])
         mesh = create_mesh(model=config.mesh_model)
 
@@ -343,7 +391,8 @@ def _job_layouts(plan, _, out):
                    if k in ("exp_avg", "exp_avg_sq")]
         rec = {"log": log, "digest": full_digest(state), "mesh": [mesh.data, mesh.model],
                "bytes": {"params": params_bytes,
-                         "moments": sum(t.numel() * t.element_size() for t in moments)}}
+                         "moments": sum(t.numel() * t.element_size() for t in moments)},
+               "names": sorted(n for n, _ in state.model.named_parameters())}
         if case.get("save_at") is not None:
             again = fresh()
             checkpoints.restore_full(os.path.join(plan["dir"], name), again.state)
@@ -358,6 +407,12 @@ def _job_layouts(plan, _, out):
                             torch.from_numpy(data[f"tokens{n_train}"]))
         if mesh.rank == 0:
             out[f"{name}/img"], out[f"{name}/txt"] = img.numpy(), txt.numpy()
+        if case.get("eval"):
+            batches = [_local_rows({"images": data[f"images{i}"], "tokens": data[f"tokens{i}"]},
+                                   mesh) for i in (n_train, 0)]
+            one = layout_of(state.model).full_model(state.model, torch.float32).eval()
+            rec["eval"] = {"twin": evaluate_model(twin, batches, mesh=mesh),
+                           "one_process": evaluate_model(one, batches, mesh=mesh)}
         result[name] = rec
     return result
 

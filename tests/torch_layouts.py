@@ -1,8 +1,14 @@
-"""What tests/test_torch_port_{zero1,fsdp,tp}.py share: the JAX test's
-models (tests/test_tp_equivalence.py's ``tp-tiny``, with non-4× MLPs, and
-``rn-tiny``), their exp-6 lockstep across the warm→main boundary, the JAX
-reference run of it, and the port's runs on gloo ranks
-(``tests/torch_dp_worker.py``'s ``layouts`` job).
+"""What tests/test_torch_port_{zero1,fsdp,tp,pipeline}.py share: the JAX
+tests' models (tests/test_tp_equivalence.py's ``tp-tiny``, with non-4×
+MLPs, and ``rn-tiny``; tests/test_pipeline.py's ``pp-tiny``, four blocks
+a tower, in the ``scan_layers`` layout), their exp-6 lockstep across the
+warm→main boundary, the JAX reference run of it, and the port's runs on
+gloo ranks (``tests/torch_dp_worker.py``'s ``layouts`` job).
+
+The model axis's layouts (tensor parallelism and the GPipe pipeline,
+with the pipelined trunk alone) share one launch a world size,
+:func:`model_axis_layouts`, which the first of their test files to ask
+runs and the others read.
 
 The JAX reference runs on one device: the JAX package's layouts are a
 layout choice, not a numerics one (its tests pin dp against tp and
@@ -42,7 +48,42 @@ jax_clip.MODEL_REGISTRY.setdefault("rn-tiny", jax_clip.CLIPConfig(
     name="rn-tiny", embed_dim=16, vision_kind="resnet", image_size=32, vision_width=8,
     vision_layers=(1, 1, 1, 1), vision_heads=4, vocab_size=256, context_length=12,
     text_width=16, text_heads=2, text_layers=2))
+jax_clip.MODEL_REGISTRY.setdefault("pp-tiny", jax_clip.CLIPConfig(
+    name="pp-tiny", embed_dim=16, vision_kind="vit", image_size=32, vision_width=32,
+    vision_layers=(4,), vision_heads=2, patch_size=16, vocab_size=256, context_length=12,
+    text_width=16, text_heads=2, text_layers=4))
 torch_dp_worker.register_test_models()
+
+# the model axis's cases, by world size: tensor parallelism
+# (tests/test_torch_port_tp.py) and the pipeline
+# (tests/test_torch_port_pipeline.py), in one launch a world
+TP_CASES = {
+    2: {
+        "tp2": dict(model="tp-tiny", mesh_model=2, save_at=2, npz=True),
+        "rn-tp2": dict(model="rn-tiny", mesh_model=2),
+        "tp2-fused": dict(model="tp-tiny", mesh_model=2, fused_ln_qkv=True),
+    },
+    4: {
+        "dp2tp2": dict(model="tp-tiny", mesh_model=2),
+        "dp2tp2-zero1": dict(model="tp-tiny", mesh_model=2, shard_opt_state=True),
+        "dp2tp2-fsdp": dict(model="tp-tiny", mesh_model=2, fsdp=True, save_at=2),
+    },
+}
+PP = dict(model="pp-tiny", mesh_model=2, pipeline=True, scan_layers=True, save_at=2,
+          eval=True)
+# the pipelined trunk alone: tests/test_pipeline.py's (width 16, 4 blocks,
+# 2 heads, 16 rows of 5 tokens) at S = 2 and 4 stages, n_micro at its
+# default (S) and oversplit (8)
+TRUNK = dict(width=16, layers=4, heads=2)
+TRUNK_X = (16, 5, 16)
+PP_CASES = {
+    2: {"pp2": dict(PP, npz=True),
+        **{f"trunk-s2-m{m}": dict(trunk=dict(TRUNK, stages=2, n_micro=m)) for m in (None, 8)}},
+    4: {"dp2pp2-zero1": dict(PP, shard_opt_state=True, npz=True),
+        **{f"trunk-s4-m{m}": dict(trunk=dict(TRUNK, stages=4, n_micro=m)) for m in (None, 8)}},
+}
+MODEL_AXIS_REFS = {"tp-tiny": ("tp-tiny", {}), "rn-tiny": ("rn-tiny", {}),
+                   "pp-tiny": ("pp-tiny", {"scan_layers": True})}
 
 
 def batches(seed: int):
@@ -177,21 +218,65 @@ def layouts(tmp_path_factory, name: str, worlds: dict, refs: dict) -> dict:
     return dict(refs=done, worlds=ports)
 
 
+def trunk_weights(seed: int = 0) -> dict:
+    """The JAX scan-layout parameters of the ``TRUNK`` Transformer
+    (``layers_scan/block/...``, a leading layer axis) and its input ``x``,
+    drawn with numpy from ``seed``."""
+    from sparsify_clip_tpu_torch.checkpoints import jax_paths, stack_scan_layers
+    from sparsify_clip_tpu_torch.models.layers import Transformer
+
+    rng = np.random.default_rng(seed)
+    trunk = Transformer(**TRUNK)
+    flat = {}
+    for name, (path, fn) in jax_paths(trunk).items():
+        shape = fn(np.empty(tuple(trunk.get_parameter(name).shape))).shape
+        if path.endswith("ln/scale"):
+            arr = 1 + 0.1 * rng.standard_normal(shape)
+        elif path.endswith("bias"):
+            arr = 0.1 * rng.standard_normal(shape)
+        else:
+            arr = rng.standard_normal(shape) / np.sqrt(shape[0])
+        flat[path] = arr.astype(np.float32)
+    flat = stack_scan_layers(flat)
+    flat["x"] = rng.standard_normal(TRUNK_X).astype(np.float32)
+    return flat
+
+
+def model_axis_layouts(tmp_path_factory) -> dict:
+    """The launches of ``TP_CASES`` and ``PP_CASES`` together (one a world
+    size) with the JAX runs of ``MODEL_AXIS_REFS``: run once a pytest run,
+    by the first test file that asks, and read by the others."""
+    cases = {w: {**TP_CASES[w], **PP_CASES[w]} for w in TP_CASES}
+    return JaxReferences(tmp_path_factory)._cached(
+        "model_axis", "layouts",
+        lambda: layouts(tmp_path_factory, "model_axis", cases, MODEL_AXIS_REFS))
+
+
 def run_layouts(directory: str, world: int, cases: dict, initial: dict) -> dict:
     """Spawn ``world`` gloo ranks running ``cases`` (name → config fields
-    over EXP6, plus ``save_at``/``npz``, and ``ref``: the key of its JAX
-    initial weights in ``initial``, by default the model's)."""
+    over EXP6, plus ``save_at``/``npz``/``eval``, and ``ref``: the key of
+    its JAX initial weights in ``initial``, by default the model's; or a
+    ``trunk``, which reads :func:`trunk_weights`).  Every rank's arrays
+    come back under ``rank_arrays``, rank 0's under ``arrays``."""
     plan_cases = []
+    weights = None
     for name, spec in cases.items():
         spec = dict(spec)
-        extra = {k: spec.pop(k) for k in ("save_at", "npz") if k in spec}
+        if "trunk" in spec:
+            if weights is None:
+                weights = os.path.join(directory, "trunk_weights.npz")
+                np.savez(weights, **trunk_weights())
+            plan_cases.append(dict(name=name, trunk=spec["trunk"], weights=weights))
+            continue
+        extra = {k: spec.pop(k) for k in ("save_at", "npz", "eval") if k in spec}
         ref = spec.pop("ref", spec["model"])
         fields = dict(EXP6, **spec)
         plan_cases.append(dict(name=name, fields=fields, steps_per_epoch=SPE,
                                initial=initial[ref], **extra))
     plan = dict(cases=plan_cases, batches=write_batches(directory), dir=directory)
     results = torch_dp_worker.spawn("layouts", plan, directory, world)
-    return dict(results=results, arrays=torch_dp_worker.arrays(directory, "layouts", 0))
+    ranks = [torch_dp_worker.arrays(directory, "layouts", r) for r in range(world)]
+    return dict(results=results, arrays=ranks[0], rank_arrays=ranks)
 
 
 def assert_matches_jax(run: dict, name: str, ref: dict) -> None:
