@@ -7,8 +7,10 @@ the encode CLI, then the extensions and knobs: the sparse projection
 with the per-eval plots, remat, the one-hot embedding and the LayerNorm
 in the compute type; last the host data routes: the native tokenizer,
 the repository's RN50 and ViT-L-14 YAMLs through the CLI and the grain
-route; and data-parallel training across processes: the CLI under
-``torchrun`` over NCCL, and 2 and 4 gloo ranks sharing the card.
+route; data-parallel training across processes: the CLI under
+``torchrun`` over NCCL, and 2 and 4 gloo ranks sharing the card; and the
+repository's two large-tower YAMLs (ViT-g-14 under the launcher, ViT-H-14
+at pp 2) with ViT-bigG-14 served.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -207,8 +209,8 @@ Phases, one line each; any failure exits nonzero before the final line:
    classifier over 10 class names × 7 templates (one text batch of 70
    prompts, 12 ``mha_fwd``) on 64 images, whose probabilities sum to 1;
 30. the CLI on a YAML of full-width ViT-B-32 under exp 6 at batch 256 with
-   ``device_augment: true`` (uint8 staging at 256): 2 epochs of 8 steps on
-   2048 synthetic pairs, 256 eval pairs, no epoch checkpoint; phase 9's
+   ``device_augment: true`` (uint8 staging at 256): 2 epochs of 4 steps on
+   1024 synthetic pairs, 256 eval pairs, no epoch checkpoint; phase 9's
    launches a step, the
    loss falling within each epoch (the warm and the main phase's losses
    are different functions); the loader alone, the host→device copy of a
@@ -225,7 +227,7 @@ Phases, one line each; any failure exits nonzero before the final line:
    equal to the live encoder's on the same decoded pixels;
 32. the CLI on a YAML of full-width ViT-B-32 under exp 6 at batch 256 with
    ``sparse_projection: topk``, ``sparse_topk`` 64, ``sparse_after_epoch``
-   1, 2 epochs of 4 steps on 1024 synthetic pairs, 256 eval pairs, and
+   1, 2 epochs of 2 steps on 512 synthetic pairs, 256 eval pairs, and
    ``plot_embeddings: true`` where matplotlib is installed (the UMAP,
    t-SNE and PCA PNGs of each of the 4 eval passes, on the host): phase
    19's launches a step, finite evals, the CLI step beside phase 19's;
@@ -352,17 +354,48 @@ Phases, one line each; any failure exits nonzero before the final line:
    stage's forward runs again in the backward), with phase 9's loss
    kernels at dp 1 and none at dp 2 (the ring route); the log gives each
    rank's parameter and moment bytes and peak GiB beside one process's,
-   and the bubble share (S−1)/(M+S−1).  The script's total seconds and
-   each phase's are printed last before the kernels line.
+   and the bubble share (S−1)/(M+S−1);
+43. the repository's two large-tower YAMLs and the widest tower served,
+   at full width: first rows 1 and 3 at their shapes against their plain
+   versions, timed beside SDPA and their bound (vision head_dim 88, 80
+   and 104 take the kernels' head_dim-128 instantiation on the
+   whole-width route, bf16, and the fp32 eval twins'; the causal text
+   towers at head_dim 64, bigG's over 20 heads); then
+   ``configs/vitg14_fsdp_pod.yaml`` (ViT-g-14, 1.37 B parameters: FSDP,
+   a bf16 first moment, ``scan_layers``, ``device_augment``,
+   ``multihost``) through the CLI's entry point under ``python -m
+   torch.distributed.run --nproc_per_node=<card count>``: one epoch of 3
+   steps at the YAML's batch 64, one eval batch a pass, the final weights
+   file (the JAX ``layers_scan`` layout, 5.47 GB); the first record names
+   the layout, the knobs and each tower's attention route; 64
+   ``mha_fwd`` and 64 ``mha_bwd`` a step, 64 ``mha_fwd`` an eval batch;
+44. ``configs/vith14_pipeline.yaml`` (ViT-H-14, GPipe at ``mesh_model:
+   2`` over 4 microbatches, bf16) through the CLI's ``main`` in 2 gloo
+   ranks on card 0 (one card holds one NCCL rank): 3 steps of the YAML's
+   global batch 32, one eval batch a pass, the final save through the
+   full view's stage gather; held against the one-process step (rank 0,
+   ``pipeline: false``, no collective, the same seed and batches) under
+   phase 42's gates; each rank launches ``2·M·L/S`` ``mha_fwd`` and
+   ``M·L/S`` ``mha_bwd`` a step (L/S = 16 + 12 blocks) and ``M·L/S``
+   ``mha_fwd`` an eval batch;
+45. ViT-bigG-14 (2.54 B parameters) in bf16 from the seed on the card, a
+   batch of 64 images and one of 64 token rows through
+   ``BatchingEncoderServer``, phase 4's checks; requests/s, p50/p99 and
+   the peak.  The script's total seconds and each phase's are printed
+   last before the kernels line.
 
 Phases 6 and 8 also hold the loss kernels at RN50's (256, 1024), the
-main path's shape, and at ViT-L-14-336's (256, 768) of phase 26.  The kernels line reports each kernel at the case its
+main path's shape, at ViT-L-14-336's (256, 768) of phase 26, and at
+ViT-g-14's (64, 1024) and each ViT-H-14 stage's (32, 1024) of phases
+43-44.  The kernels line reports each kernel at the case its
 ``case`` key names: the RN50 path's shape where that path runs the
 kernel (the loss rows at (256, 1024); ``mha_fwd`` and ``mha_bwd`` at the
 causal text shape (256, 77, 1536) bf16), else ViT-B-32's vision shape.
 Three more entries hold phase 39's L = 257 cases (``mha_fwd/vision-257``,
 ``mha_bwd/vision-257``, ``mha_fwd_head_group/fp32-257``), each with the
-ViT-L-14 CLI's launches of its kernel (vision and text towers alike).
+ViT-L-14 CLI's launches of its kernel (vision and text towers alike);
+phases 43-45's cases (``mha_fwd/g14-vision`` … ``infonce_fwd/32x1024``)
+each count their path's launches of their kernel the same way.
 
 Depth cuts of the ViT-L-14-336 phases: 2 epochs of 4 steps (the
 reference trains 100); the eval set is 256 pairs in 4 batches of 64
@@ -380,10 +413,12 @@ synthetic pairs.  Phases 24-27 cut the depth of a run alone: SigLIP 2
 epochs of 4 steps, the GradCache ViT-L-14-336 run 2 of 2 (eval 256 pairs,
 not 512), the two CLIs 2 of 2 with one eval batch of 256.  Phases 28-31
 run ViT-B-32 at full width and depth; phase 30 cuts training to 2
-epochs of 8 steps on 2048 synthetic pairs, 256 eval pairs 4 times.
-Phases 32-35 run at full width: phase 32 cuts training as phase 19 does
-(from 8 steps an epoch, for phases 40-41) with 256 eval pairs (the plots of 512 points take the host
-seconds a pass), phase 33 trains 2 epochs of 2 steps, phases 34-35 a few
+epochs of 4 steps on 1024 synthetic pairs (8 steps an epoch before phases
+43-45), 256 eval pairs 4 times.  Phases 32-35 run at full width: phase 32
+cuts training to 2 epochs of 2 steps on 512 synthetic pairs (8 steps an
+epoch before phases 40-41, 4 before phases 43-45) with 256 eval pairs
+(the plots of 512 points take the host seconds a pass), phase 33 trains
+2 epochs of 2 steps, phases 34-35 a few
 steps.  Phases 36-39 cut depth alone: phase 37 trains 2 epochs of 2
 steps on 512 synthetic pairs with 256 eval pairs (the YAML: 100 epochs
 on COCO, 512 eval pairs), phase 38 2 epochs of 4 steps (phase 19's YAML
@@ -404,6 +439,7 @@ repository beside it, the script fails.
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
@@ -436,7 +472,8 @@ BWD_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 2e-5)}  # (rtol, atol)
 # embeddings, N = 200 (no multiple of any tile), ViT-L-14-336's batch 64 and
 # 768-wide embeddings, RN50's batch 256 and 1024-wide embeddings (the main
 # path's, phases 21-23), ViT-L-14-336's batch 256 through GradCache (phase 26)
-LOSS_SHAPES = ((256, 512), (200, 512), (64, 768), (256, 1024), (256, 768))
+LOSS_SHAPES = ((256, 512), (200, 512), (64, 768), (256, 1024), (256, 768), (64, 1024),
+               (32, 1024))
 MAIN_LOSS_SHAPE = "256x1024"
 # InfoNCE kernels vs plain versions, all fp32: other summation orders over
 # D <= 1024 and N <= 256; gradients against their largest entry
@@ -493,11 +530,13 @@ LN_BWD_STEP = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -23}
 LN_BWD_CANCEL = 1e-5            # of the largest entry, y and dx
 LN_BWD_GRAD_TOL = (1e-4, 1e-5)  # dscale, dbias: rtol, atol relative to the largest entry
 # the CLI phases (19, 30, 32): exp 6 from a YAML at batch 256; phases 19
-# and 32 at 4 steps an epoch, phase 30 at 8; one eval batch a pass; the
-# full state and the epoch npz written after the last epoch only (phases
-# 19, 23, 27 read them; 30, 32 and 38 write none: NO_EPOCH_SAVES)
-CLI_TRAIN_SAMPLES = 2048
+# and 30 at 4 steps an epoch (30 cut from 8 for phases 43-45), phase 32 at
+# 2 (cut from 4, the same); one eval batch a pass; the full state and the
+# epoch npz written after the last epoch only (phases 19, 23, 27 read them;
+# 30, 32 and 38 write none: NO_EPOCH_SAVES)
+CLI_TRAIN_SAMPLES = 1024
 CLI_EXP6_SAMPLES = 1024
+SPARSE_SAMPLES = 512
 CLI_EVAL_PAIRS = 256
 CLI_LOADER_BATCHES = 2          # batches of the loader timed alone
 CLI_PROFILE_STEPS = 2           # main-phase steps under torch.profiler
@@ -1765,25 +1804,38 @@ def _check_evals(records: list, expected: int, what: str) -> list:
 class _PerStepCounts:
     """Record the kernel launches of every train step and every eval the
     CLI runs in this process (deltas of the wrappers' counts; the counts
-    themselves keep running)."""
+    themselves keep running).  With ``timed``, also each step's ms and
+    each eval's seconds on the host clock between two synchronizations;
+    ``after_step(state, batch, metrics)`` runs after each step's counts
+    are read."""
 
-    def __init__(self):
+    def __init__(self, timed: bool = False, after_step=None):
         from sparsify_clip_tpu_torch import eval as port_eval
         from sparsify_clip_tpu_torch.train import TrainStep
 
         self.steps, self.evals, self.state = [], [], None  # state: the last step's
+        self.step_ms, self.eval_seconds = [], []
         step_call, evaluate = TrainStep.__call__, port_eval.evaluate_model
 
+        def fence():
+            if timed:
+                torch.cuda.synchronize()
+            return time.perf_counter()
+
         def counted_step(step_self, state, batch):
-            before, at = read_counts(), state.step
+            before, at, t = read_counts(), state.step, fence()
             out = step_call(step_self, state, batch)
+            self.step_ms.append((fence() - t) * 1e3)
             self.steps.append((at, _delta(before, read_counts())))
             self.state = state
+            if after_step is not None:
+                after_step(state, batch, out[1])
             return out
 
         def counted_eval(*args, **kwargs):
-            before = read_counts()
+            before, t = read_counts(), fence()
             out = evaluate(*args, **kwargs)
+            self.eval_seconds.append(fence() - t)
             self.evals.append(_delta(before, read_counts()))
             return out
 
@@ -2489,7 +2541,7 @@ def phase_serve_u8(smi: str, model, fp32_rate: dict):
 def phase_cli_augment(smi: str, phase19: dict):
     """Phase 30: the CLI on a YAML of full-width ViT-B-32 under exp 6 at
     batch 256 with ``device_augment: true`` (uint8 staging at 256): 2
-    epochs of 8 steps on synthetic pairs, phase 9's launches a step, the
+    epochs of 4 steps on synthetic pairs, phase 9's launches a step, the
     loss falling within each epoch; the loader alone, the host→device copy
     of a uint8 batch, the CLI step and the idle share beside phase 19's."""
     import os
@@ -2827,11 +2879,11 @@ def phase_cli_sparse(smi: str, phase19: dict):
     from sparsify_clip_tpu_torch.train import batch_to_device, create_train_setup
     from sparsify_clip_tpu_torch.utils.numerics import l2_normalize
 
-    spe, batch = CLI_EXP6_SAMPLES // EXP6["batch_size"], EXP6["batch_size"]
+    spe, batch = SPARSE_SAMPLES // EXP6["batch_size"], EXP6["batch_size"]
     plots = importlib.util.find_spec("matplotlib") is not None
     run = "exp6-topk"
     sparse = dict(sparse_projection="topk", sparse_topk=SPARSE_TOPK, sparse_after_epoch=1,
-                  num_train_samples=CLI_EXP6_SAMPLES)
+                  num_train_samples=SPARSE_SAMPLES)
     with tempfile.TemporaryDirectory() as tmp:
         yaml_path = _write_exp6_yaml(tmp, run_name=run, num_test_samples=SPARSE_EVAL_PAIRS,
                                      plot_embeddings=plots, **sparse, **NO_EPOCH_SAVES)
@@ -3794,24 +3846,66 @@ def _launch_wait(launch: dict):
     return launch["result"]
 
 
-def cli_rank_main(yaml_path: str, out_dir: str) -> int:
-    """One rank of phase 40: ``sparsify_clip_tpu_torch.cli``'s entry point
-    under the launcher, with the kernels' launches of every step and eval
-    counted and written to ``out_dir/counts_rank<r>.json``."""
+class _TimedSetupAndSaves:
+    """Time the CLI's ``create_train_setup`` (the model drawn from the seed
+    on the card, the optimizer) and each ``checkpoints.save_weights``
+    (the full view put together, the JAX layout, the npz written) in this
+    process; :meth:`close` puts both back."""
+
+    def __init__(self):
+        from sparsify_clip_tpu_torch import checkpoints, train
+
+        self.setup_s, self.saves = [], []
+        setup, save = train.create_train_setup, checkpoints.save_weights
+
+        def timed_setup(*args, **kwargs):
+            t = time.perf_counter()
+            out = setup(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.setup_s.append(time.perf_counter() - t)
+            return out
+
+        def timed_save(model, path):
+            t = time.perf_counter()
+            out = save(model, path)
+            self.saves.append(dict(path=out, seconds=time.perf_counter() - t))
+            return out
+
+        train.create_train_setup, checkpoints.save_weights = timed_setup, timed_save
+        self._restore = lambda: (setattr(train, "create_train_setup", setup),
+                                 setattr(checkpoints, "save_weights", save))
+
+    def close(self):
+        self._restore()
+
+
+def cli_rank_main(yaml_path: str, out_dir: str, go: str = "") -> int:
+    """One rank of phases 40 and 43: ``sparsify_clip_tpu_torch.cli``'s
+    entry point under the launcher, with the kernels' launches of every
+    step and eval counted and written to ``out_dir/counts_rank<r>.json``
+    beside each step's ms and each eval's seconds (between two
+    synchronizations), the setup's and each weights save's seconds and
+    the peak device memory; ``go``: held at that gate first."""
     from sparsify_clip_tpu_torch import cli
 
+    if go:
+        _wait_for_go(go)
     rank = os.environ.get("RANK", "0")
     with open(os.path.join(out_dir, f"pid_rank{rank}"), "w") as fh:
         fh.write(str(os.getpid()))
-    counter = _PerStepCounts()
+    counter, timers = _PerStepCounts(timed=True), _TimedSetupAndSaves()
     try:
         reset_counts()
         cli.cli(["--config", yaml_path])
         launches = read_counts()
     finally:
         counter.close()
+        timers.close()
     with open(os.path.join(out_dir, f"counts_rank{rank}.json"), "w") as fh:
-        json.dump(dict(launches=launches, steps=counter.steps, evals=counter.evals), fh)
+        json.dump(dict(launches=launches, steps=counter.steps, evals=counter.evals,
+                       step_ms=counter.step_ms, eval_seconds=counter.eval_seconds,
+                       setup_s=timers.setup_s, saves=timers.saves,
+                       peak=torch.cuda.max_memory_allocated()), fh)
     return 0
 
 
@@ -4066,6 +4160,8 @@ def dp_rank_main(plan_path: str) -> int:
         plan = json.load(fh)
     if plan.get("fault"):
         _dp_fault(plan["fault"])
+    if plan.get("go"):
+        _wait_for_go(plan["go"])
     t = time.perf_counter()
     device = initialize_distributed(None, backend="gloo")
     mesh = create_mesh()
@@ -4094,6 +4190,10 @@ def dp_rank_main(plan_path: str) -> int:
                 torch.save(result[job].pop("saved"), os.path.join(out_dir, f"layout_{name}.pt"))
             else:
                 result[job].pop("saved", None)
+            seconds[job], t = time.perf_counter() - t, time.perf_counter()
+    for job in plan["jobs"]:
+        if job.startswith("cli_pp:"):  # cli_pp:<yaml>, phase 44
+            result[job] = _cli_pp_job(job.split(":", 1)[1], mesh.rank, device)
             seconds[job], t = time.perf_counter() - t, time.perf_counter()
     if "eval" in plan["jobs"]:
         result["eval"], result["eval_launches"] = _dp_eval(mesh, device)
@@ -4239,16 +4339,18 @@ def _dp_launch(world: int, jobs: list, fault: Optional[str] = None):
     return _dp_launch_finish(_dp_launch_start(world, jobs, fault))
 
 
-def _dp_launch_start(world: int, jobs: list, fault: Optional[str] = None) -> dict:
-    """Start :func:`_dp_launch`'s ranks; :func:`_dp_launch_finish` reads them."""
+def _dp_launch_start(world: int, jobs: list, fault: Optional[str] = None,
+                     go: Optional[str] = None) -> dict:
+    """Start :func:`_dp_launch`'s ranks (with ``go``, held at that gate,
+    :func:`_wait_for_go`); :func:`_dp_launch_finish` reads them."""
     import tempfile
 
     tmp = tempfile.TemporaryDirectory()
     plan = os.path.join(tmp.name, "plan.json")
     with open(plan, "w") as fh:
-        json.dump(dict(dir=tmp.name, jobs=jobs, fault=fault), fh)
+        json.dump(dict(dir=tmp.name, jobs=jobs, fault=fault, go=go), fh)
     launch = _launch(world, [os.path.join(REPO, "chip_smoke.py"), "--dp-rank", plan])
-    return dict(launch=launch, tmp=tmp, world=world, jobs=jobs)
+    return dict(launch=launch, tmp=tmp, world=world, jobs=jobs, go=go)
 
 
 def _dp_launch_finish(pending: dict):
@@ -4450,10 +4552,12 @@ def phase_dp_gloo(smi: str):
     same launches: the sharded layouts of ``DP_LAYOUT_RUNS``.  The
     launches of every world run at once, beside phase 40's, and this
     process reads them in turn."""
-    ref = _dp_references(torch.device("cuda"))
-    readings, launches, failed = {}, {}, []
+    # the ranks start first: their start-up (the interpreter, the imports)
+    # runs beside the one-process references
     pending = [_dp_launch_start(world, _dp_jobs(world)[2]) for world in DP_WORLDS]
+    readings, launches, failed = {}, {}, []
     try:
+        ref = _dp_references(torch.device("cuda"))
         while pending:
             world = pending[0]["world"]
             steps, layouts, _ = _dp_jobs(world)
@@ -4618,6 +4722,508 @@ def _dp_check_world(smi: str, world: int, steps, layouts, ranks, rows, saved, se
             failed.append(f"phase 42 {name} at {world} ranks: {problems}")
 
 
+# --------------------------------------------------------------------
+# Phases 43-45: the repository's two large-tower YAMLs and ViT-bigG-14
+# --------------------------------------------------------------------
+
+LARGE_STEPS = 3                  # phases 43-44: one epoch of 3 steps at the YAML's batch
+BIGG_REQUESTS = 64               # phase 45: one batch of images and one of token rows
+# rows 1 and 3 at the large towers' shapes on their paths: (case, batch, L,
+# heads, head_dim, causal, dtype, rows); hd 80, 88 and 104 take the kernels'
+# head_dim-128 instantiation, whole width (they do not pack into 128 lanes)
+LARGE_ATTENTION = (
+    ("g14-vision", 64, 257, 16, 88, False, "bfloat16", ("mha_fwd", "mha_bwd")),
+    ("g14-text", 64, 77, 16, 64, True, "bfloat16", ("mha_fwd", "mha_bwd")),
+    ("g14-vision-fp32", 64, 257, 16, 88, False, "float32", ("mha_fwd",)),
+    ("h14-vision", 8, 257, 16, 80, False, "bfloat16", ("mha_fwd", "mha_bwd")),
+    ("h14-text", 8, 77, 16, 64, True, "bfloat16", ("mha_fwd", "mha_bwd")),
+    ("h14-vision-fp32", 8, 257, 16, 80, False, "float32", ("mha_fwd",)),
+    ("bigG-vision", 64, 257, 16, 104, False, "bfloat16", ("mha_fwd",)),
+    ("bigG-text", 64, 77, 20, 64, True, "bfloat16", ("mha_fwd",)),
+)
+# the path whose launches each case's entry of the kernels line counts
+LARGE_PATHS = {"g14": "cli_vitg14", "h14": "train_gloo_vith14_pp2", "bigG": "serve_bigG"}
+
+
+def phase_large_kernels(smi: str):
+    """Phases 43-45, first part: rows 1 and 3 at ``LARGE_ATTENTION``'s
+    shapes against their plain versions under phase 2's and phase 6's
+    tolerances (the LSE at 1e-5), timed beside SDPA under each backend
+    that takes the shape and beside their bound at the real head_dim."""
+    from sparsify_clip_tpu_torch.ops.attention import (
+        mha_bwd, mha_bwd_reference, mha_fwd, mha_fwd_reference, use_head_group,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 43)
+    results = {}
+    for case, b, l, heads, head_dim, causal, dtype_name, rows in LARGE_ATTENTION:
+        t0 = time.perf_counter()
+        dtype = getattr(torch, dtype_name)
+        width = heads * head_dim
+        item = 2 if dtype_name == "bfloat16" else 4
+        if use_head_group(l, 3 * width, item, heads):
+            raise AssertionError(f"{case} takes the head-group route")
+        pairs = b * heads * attention_pairs(l, causal)
+        qkv = torch.randn((b, l, 3 * width), generator=gen, device="cuda").to(dtype)
+        got, got_lse = mha_fwd(qkv, heads, causal, with_lse=True)
+        want, want_lse = mha_fwd_reference(qkv, heads, causal, with_lse=True)
+        torch.cuda.synchronize()
+        rtol, atol = KERNEL_TOL[dtype_name]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+        torch.testing.assert_close(got_lse, want_lse, rtol=1e-5, atol=1e-5)
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want, want_lse
+        fb = bound(b * l * 4 * width * item + b * heads * l * 4, 2 * 2 * pairs * head_dim,
+                   dtype_name)
+        sdpa, library = sdpa_fwd_ms(qkv, heads, causal, iters=10, warmup=2)
+        results[f"mha_fwd/{case}"] = dict(
+            max_abs_err=err, rtol=rtol, atol=atol,
+            ms=cuda_ms(lambda: mha_fwd(qkv, heads, causal), iters=10, warmup=2),
+            plain_ms=cuda_ms(lambda: mha_fwd_reference(qkv, heads, causal), iters=2, warmup=1),
+            library_ms=sdpa[library], library=f"sdpa/{library}", sdpa_ms=sdpa,
+            bound_ms=fb[0], bound_by=fb[1], shape=[b, l, 3 * width], heads=heads,
+            head_dim=head_dim, causal=causal, dtype=dtype_name)
+        if "mha_bwd" in rows:
+            dout = torch.randn((b, l, width), generator=gen, device="cuda").to(dtype)
+            got = mha_bwd(qkv, got_lse, dout, heads, causal)
+            want = mha_bwd_reference(qkv, got_lse, dout, heads, causal)
+            torch.cuda.synchronize()
+            brtol, batol = BWD_TOL[dtype_name]
+            torch.testing.assert_close(got.float(), want.float(), rtol=brtol, atol=batol)
+            bwd_err = (got.float() - want.float()).abs().max().item()
+            del got, want
+            bb = bound(b * l * (3 * width * 2 + width) * item + b * heads * l * 4,
+                       5 * 2 * pairs * head_dim, dtype_name)
+            sdpa, library = sdpa_bwd_ms(qkv, dout, heads, causal, iters=5, warmup=2)
+            results[f"mha_bwd/{case}"] = dict(
+                max_abs_err=bwd_err, rtol=brtol, atol=batol,
+                ms=cuda_ms(lambda: mha_bwd(qkv, got_lse, dout, heads, causal), iters=5,
+                           warmup=2),
+                plain_ms=cuda_ms(lambda: mha_bwd_reference(qkv, got_lse, dout, heads, causal),
+                                 iters=2, warmup=1),
+                library_ms=sdpa[library], library=f"sdpa/{library}", sdpa_ms=sdpa,
+                bound_ms=bb[0], bound_by=bb[1], shape=[b, l, 3 * width], heads=heads,
+                head_dim=head_dim, causal=causal, dtype=dtype_name)
+            del dout
+        del qkv, got_lse
+        results[f"mha_fwd/{case}"]["seconds"] = time.perf_counter() - t0
+    for key, r in results.items():
+        kernel, case = key.split("/")
+        log("phase 43 kernel", kernel=kernel, case=case, shape=json.dumps(r["shape"]),
+            heads=r["heads"], head_dim=r["head_dim"], causal=r["causal"], dtype=r["dtype"],
+            max_abs_err=r["max_abs_err"], rtol=r["rtol"], atol=r["atol"], ms=f"{r['ms']:.5f}",
+            plain_ms=f"{r['plain_ms']:.5f}", library_ms=f"{r['library_ms']:.5f}",
+            library=r["library"], sdpa_ms=json.dumps(r["sdpa_ms"]),
+            bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
+            case_s=f"{r.get('seconds', 0.0):.3f}", card=json.dumps(smi))
+    torch.cuda.empty_cache()
+    return results
+
+
+def _npz_shapes(path: str) -> dict:
+    """Each array's shape in an ``.npz``, from the headers alone."""
+    import zipfile
+
+    shapes = {}
+    with zipfile.ZipFile(path) as z:
+        for name in z.namelist():
+            with z.open(name) as fh:
+                fmt = np.lib.format
+                read = (fmt.read_array_header_1_0 if fmt.read_magic(fh) == (1, 0)
+                        else fmt.read_array_header_2_0)
+                shape = read(fh)[0]
+            shapes[name[:-len(".npy")]] = shape
+    return shapes
+
+
+def _param_count(name: str) -> int:
+    from sparsify_clip_tpu_torch.models.clip import CLIP, MODEL_REGISTRY
+
+    with torch.device("meta"):
+        return sum(p.numel() for p in CLIP(MODEL_REGISTRY[name]).parameters())
+
+
+def _check_weights_file(path: str, model: str, what: str) -> dict:
+    """The CLI's final npz: the JAX ``layers_scan`` layout (no per-block
+    key), every parameter of ``model`` once → its size and shapes' count."""
+    shapes = _npz_shapes(path)
+    stacked = [k for k in shapes if "/layers_scan/block/" in k]
+    values = sum(int(np.prod(s)) for s in shapes.values())
+    want = _param_count(model)
+    if not stacked or any("resblock_" in k for k in shapes) or values != want:
+        raise AssertionError(f"{what}: the weights file holds {len(shapes)} arrays, "
+                             f"{len(stacked)} stacked, {values} values ({want} expected)")
+    return dict(bytes=os.path.getsize(path), arrays=len(shapes), stacked=len(stacked),
+                values=values)
+
+
+def _large_yaml(name: str, phase: str) -> dict:
+    """``configs/<name>`` copied by :func:`_repo_yaml` into a temporary
+    directory for ``LARGE_STEPS`` steps of its batch and one eval batch,
+    one epoch and no epoch-end save (phase 40's cut): the final weights
+    file alone → (the directory, the YAML's path, its config, its batch)."""
+    import tempfile
+
+    import yaml
+
+    from sparsify_clip_tpu_torch.config import load_config
+
+    with open(os.path.join(REPO, "configs", name)) as fh:
+        batch = yaml.safe_load(fh)["batch_size"]
+    tmp = tempfile.TemporaryDirectory()
+    path = _repo_yaml(name, tmp.name, phase, num_train_samples=LARGE_STEPS * batch,
+                      num_test_samples=batch, epochs=1, save_checkpoint_every_n_epochs=2)
+    return dict(tmp=tmp, path=path, config=load_config(path), batch=batch, name=name)
+
+
+def _wait_for_go(path: str, timeout_s: float = 1100.0) -> None:
+    """A process started ahead of its phase: import what its run imports
+    (the optimizer's construction imports ``torch._dynamo``, seconds on
+    the card's machine), then wait, off the card, until the phase creates
+    ``path``."""
+    import torch._dynamo  # noqa: F401
+
+    from sparsify_clip_tpu_torch import checkpoints, cli, eval, train  # noqa: F401
+
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {path} after {timeout_s} s")
+        time.sleep(0.05)
+
+
+def _open_gate(pending: dict) -> None:
+    with open(pending["go"], "w"):
+        pass
+    pending["launch"]["t"] = time.perf_counter()  # the launch's seconds from here
+
+
+def start_large_launches() -> dict:
+    """Phases 43 and 44's processes, started ahead and held at their gates
+    (:func:`_wait_for_go`) while the phases before them run: ViT-g-14's
+    CLI under the launcher at world = the card count, and ViT-H-14's 2
+    gloo ranks.  :func:`stop_large_launches` ends what was not run."""
+    world = torch.cuda.device_count()
+    g14 = _large_yaml("vitg14_fsdp_pod.yaml", "phase 43 cli")
+    g14["go"] = os.path.join(g14["tmp"].name, "go")
+    g14["launch"] = _launch(world, [os.path.join(REPO, "chip_smoke.py"), "--cli-rank",
+                                    g14["path"], g14["tmp"].name, g14["go"]])
+    h14 = _large_yaml("vith14_pipeline.yaml", "phase 44 cli")
+    h14["dp"] = _dp_launch_start(h14["config"].mesh_model, [f"cli_pp:{h14['path']}"],
+                                 go=os.path.join(h14["tmp"].name, "go"))
+    h14["go"], h14["launch"] = h14["dp"]["go"], h14["dp"]["launch"]
+    return dict(g14=g14, h14=h14)
+
+
+def stop_large_launches(pending: dict) -> None:
+    for run in pending.values():
+        _launch_stop(run["launch"])
+        if "dp" in run:
+            run["dp"]["tmp"].cleanup()
+        run["tmp"].cleanup()
+
+
+def phase_cli_vitg14(smi: str, pending: dict):
+    """Phase 43: ``configs/vitg14_fsdp_pod.yaml`` (ViT-g-14: ``fsdp``,
+    ``adam_mu_dtype: bfloat16``, ``scan_layers``, ``device_augment``,
+    ``handle_preemption``, ``async_checkpoint``, ``multihost``) through
+    ``python -m torch.distributed.run --nproc_per_node=<card count> -m
+    sparsify_clip_tpu_torch.cli``'s entry point (``pending``: the launch
+    :func:`start_large_launches` started): one epoch of ``LARGE_STEPS``
+    steps at the YAML's batch, one eval batch a pass, the final weights
+    file in the JAX ``layers_scan`` layout."""
+    import shutil
+
+    world = torch.cuda.device_count()
+    config, batch, name, tmp = pending["config"], pending["batch"], pending["name"], \
+        pending["tmp"].name
+    knobs = {k: getattr(config, k) for k in ("model", "fsdp", "adam_mu_dtype", "scan_layers",
+                                             "device_augment", "handle_preemption",
+                                             "async_checkpoint", "multihost", "fp16")}
+    if knobs["model"] != "ViT-g-14" or not (config.fsdp and config.multihost):
+        raise AssertionError(f"phase 43: the YAML reads {knobs}")
+    free = shutil.disk_usage(tmp).free
+    torch.cuda.empty_cache()
+    _open_gate(pending)
+    rc, seconds, _ = _launch_wait(pending["launch"])
+    if rc != 0:
+        raise AssertionError(f"phase 43: the ViT-g-14 CLI under the launcher exited {rc}")
+    with open(os.path.join(tmp, "counts_rank0.json")) as fh:
+        counts = json.load(fh)
+    records, steps, evals, rates = _cli_records(tmp, config.run_name, LARGE_STEPS, 3, "ViT-g-14")
+    weights = _check_weights_file(os.path.join(tmp, "models", f"{config.run_name}.npz"),
+                                  "ViT-g-14", "phase 43")
+    pending["tmp"].cleanup()
+    start = records[0]
+    whole = {"vision": "whole-width", "text": "whole-width"}
+    first = dict(event=start.get("event"), world_size=start["parallel"]["world_size"],
+                 backend=start["parallel"]["backend"],
+                 **{k: start["config"][k] for k in ("fsdp", "adam_mu_dtype", "device_augment",
+                                                    "scan_layers", "multihost")},
+                 attention_routes=start.get("attention_routes"))
+    if (first["event"] != "run_start" or first["world_size"] != world or not first["fsdp"]
+            or first["adam_mu_dtype"] != "bfloat16" or not first["device_augment"]
+            or first["attention_routes"] != {"train": whole, "eval": whole}):
+        raise AssertionError(f"phase 43: the first record reads {first}")
+    zero = dict.fromkeys(KERNELS, 0)
+    blocks = 40 + 24
+    step = dict(zero, mha_fwd=blocks, mha_bwd=blocks)
+    if world == 1:  # over several ranks the ring replaces the loss kernels
+        step.update(infonce_fwd=1, infonce_bwd_dimg=1, infonce_bwd_dtxt=1)
+    _expect_launches([tuple(c) for c in counts["steps"]],
+                     [(k, step) for k in range(LARGE_STEPS)], "the ViT-g-14 CLI's steps")
+    _expect_launches(counts["evals"], [dict(zero, mha_fwd=blocks)] * 3,
+                     "the ViT-g-14 CLI's evals")
+    save = counts["saves"][-1]
+    step_ms = counts["step_ms"][1:]
+    log("phase 43 cli", ok=True, config=f"configs/{name}", model="ViT-g-14",
+        params=weights["values"], world=world, batch=batch, batch_yaml=batch,
+        knobs=json.dumps(knobs), first_record=json.dumps(first),
+        losses=json.dumps([r["train_loss"] for r in steps]), eval_last=json.dumps(evals[-1]),
+        launches_step=json.dumps(step), launches=json.dumps(counts["launches"]),
+        step_ms_all=json.dumps([round(x, 3) for x in counts["step_ms"]]),
+        cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in rates]),
+        eval_pass_s=json.dumps([round(x, 3) for x in counts["eval_seconds"]]),
+        setup_s=json.dumps([round(x, 3) for x in counts["setup_s"]]),
+        weights_bytes=weights["bytes"], weights_arrays=weights["arrays"],
+        weights_stacked=weights["stacked"], save_s=f"{save['seconds']:.3f}",
+        tmp_free_gib=f"{free / 2**30:.1f}", launcher_s=f"{seconds:.3f}", card=json.dumps(smi))
+    log("phase 43 rate", step_ms=f"{np.mean(step_ms):.3f}",
+        steps_2_3_ms=json.dumps([round(x, 3) for x in step_ms]),
+        pairs_per_s=f"{batch * world / (np.mean(step_ms) / 1e3):.1f}",
+        max_memory_allocated_gib=f"{counts['peak'] / 2**30:.3f}",
+        eval_pass_s=f"{np.mean(counts['eval_seconds']):.3f}",
+        weights_gb=f"{weights['bytes'] / 1e9:.3f}", save_s=f"{save['seconds']:.3f}",
+        card=json.dumps(smi))
+    return dict(launches=counts["launches"], step_ms=step_ms, peak=counts["peak"])
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t`` (a copy on the CPU too: the run goes on updating it)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _cli_pp_job(yaml_path: str, rank: int, device) -> dict:
+    """Phase 44 in a gloo rank: the CLI's ``main`` on ``yaml_path`` under
+    this process group (the YAML's pipeline over the model axis), each
+    step's launches, ms and loss, the first step's gradients and the final
+    parameters put back together, the weights save's seconds; then, on
+    rank 0 alone, the one-process step (``pipeline: false``, one model
+    rank, no collective) from the same seed over the same batches, and
+    phase 42's readings of the pipelined run against it."""
+    import dataclasses
+    import gc
+
+    from sparsify_clip_tpu_torch import cli
+    from sparsify_clip_tpu_torch.checkpoints import full_parameters
+    from sparsify_clip_tpu_torch.config import load_config
+    from sparsify_clip_tpu_torch.models.clip import create_model
+    from sparsify_clip_tpu_torch.parallel.mesh import Mesh, digest
+    from sparsify_clip_tpu_torch.parallel.sharding import layout_of
+    from sparsify_clip_tpu_torch.train import create_train_setup
+
+    config = load_config(yaml_path)
+    kept = {"batches": [], "losses": []}
+
+    def after_step(state, batch, metrics):
+        kept["batches"].append({k: v.clone() if torch.is_tensor(v) else v
+                                for k, v in batch.items()})
+        kept["losses"].append(float(metrics["train_loss"]))
+        if len(kept["batches"]) == 1:  # the full view: a collective on every rank
+            grads = {n: p.grad.detach() for n, p in state.model.named_parameters()}
+            grads = layout_of(state.model).full_named(grads)
+            if rank == 0:
+                kept["grads"] = {n: _host(g) for n, g in grads.items()}
+
+    counter, timers = _PerStepCounts(timed=True, after_step=after_step), _TimedSetupAndSaves()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, t = {}, time.perf_counter()
+    try:
+        reset_counts()
+        cli.main(config)
+        launches = read_counts()
+    finally:
+        counter.close()
+        timers.close()
+    peak = torch.cuda.max_memory_allocated()
+    seconds["cli"], t = time.perf_counter() - t, time.perf_counter()
+    state = counter.state
+    counter.state = None
+    params = full_parameters(state.model)
+    moments = [t for st in state.optimizer.state.values() for key, t in st.items()
+               if key in ("exp_avg", "exp_avg_sq")]
+    out = dict(losses=kept["losses"], counts=[c for _, c in counter.steps],
+               step_ms=counter.step_ms, evals=counter.evals, eval_seconds=counter.eval_seconds,
+               launches=launches, setup_s=timers.setup_s, saves=timers.saves,
+               # each stage's blocks exist once: the ranks must agree on the rest
+               digest=digest([params[n] for n in sorted(params) if ".resblocks." not in n]
+                             + list(state.model.buffers())),
+               bytes=dict(params=sum(p.numel() * p.element_size()
+                                     for p in state.model.parameters()),
+                          moments=sum(t.numel() * t.element_size() for t in moments)),
+               peak_gib=peak / 2**30, batches=len(kept["batches"]), seconds=seconds)
+    seconds["full_view_and_digest"], t = time.perf_counter() - t, time.perf_counter()
+    if rank != 0:
+        return out
+    # the pipelined run's tensors stay where they are (its gradients were
+    # copied to the host at step 1, outside the peaks); the readings run
+    # on the card
+    got = dict(grads=kept.pop("grads"), params={n: p.detach() for n, p in params.items()},
+               buffers={n: b.detach() for n, b in state.model.named_buffers()})
+    del state, params, moments
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the pipelined run's tensors, left out of its peak
+    ref_config = dataclasses.replace(config, pipeline=False, mesh_model=1)
+    setup = create_train_setup(ref_config, steps_per_epoch=len(kept["batches"]), device=device,
+                               mesh=Mesh())
+    ref, one = {}, dict(losses=[], step_ms=[], bytes=dict(
+        params=sum(p.numel() * p.element_size() for p in setup.model.parameters())))
+    for k, batch in enumerate(kept["batches"]):
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        setup.state, metrics = setup.train_step(setup.state, batch)
+        one["losses"].append(float(metrics["train_loss"]))
+        torch.cuda.synchronize()
+        one["step_ms"].append((time.perf_counter() - t_step) * 1e3)
+        if k == 0:
+            ref["grads"] = {n: _host(p.grad) for n, p in setup.model.named_parameters()}
+    ref["params"] = {n: p.detach() for n, p in setup.model.named_parameters()}
+    ref["buffers"] = {n: b.detach() for n, b in setup.model.named_buffers()}
+    one["bytes"]["moments"] = sum(t.numel() * t.element_size()
+                                  for st in setup.state.optimizer.state.values()
+                                  for key, t in st.items() if key in ("exp_avg", "exp_avg_sq"))
+    one["peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    del setup, kept["batches"]
+    torch.cuda.empty_cache()
+    out["one_process"] = one
+    seconds["one_process"], t = time.perf_counter() - t, time.perf_counter()
+    # the seed's parameters drawn again (the same draws on the card as
+    # both runs started from), and the gradients back on the card
+    ref["init"] = {n: p.detach() for n, p in create_model(
+        ref_config.model, dtype=torch.float32, device=device, seed=ref_config.seed,
+        param_dtype=torch.float32).named_parameters()}
+    for run in (got, ref):
+        run["grads"] = {n: g.to(device) for n, g in run["grads"].items()}
+    out["readings"] = _dp_step_readings([out], got, one, ref, 2)
+    seconds["readings"] = time.perf_counter() - t
+    return out
+
+
+def phase_cli_vith14_pp(smi: str, pending: dict):
+    """Phase 44: ``configs/vith14_pipeline.yaml`` (ViT-H-14, ``pipeline``
+    at ``mesh_model: 2`` over 4 microbatches, ``scan_layers``, bf16)
+    through the CLI's ``main`` in 2 gloo ranks on card 0 (one card holds
+    one NCCL rank; ``pending``: the ranks :func:`start_large_launches`
+    started): one epoch of ``LARGE_STEPS`` steps of the YAML's global
+    batch, one eval batch a pass, the final save through the full view's
+    stage gather in the JAX ``layers_scan`` layout; held against the
+    one-process step under phase 42's gates."""
+    from sparsify_clip_tpu_torch.parallel.pipeline import bubble_share
+
+    config, batch, name, path = pending["config"], pending["batch"], pending["name"], \
+        pending["path"]
+    stages, micro = config.mesh_model, config.pipeline_microbatches
+    if (config.model, stages, micro, config.pipeline) != ("ViT-H-14", 2, 4, True):
+        raise AssertionError(f"phase 44: the YAML trains {config.model} at {stages} stages")
+    torch.cuda.empty_cache()
+    _open_gate(pending)
+    ranks, _, _, seconds = _dp_launch_finish(pending["dp"])
+    tmp = pending["tmp"].name
+    records, steps, evals, _ = _cli_records(tmp, config.run_name, LARGE_STEPS, 3, "ViT-H-14")
+    weights = _check_weights_file(os.path.join(tmp, "models", f"{config.run_name}.npz"),
+                                  "ViT-H-14", "phase 44")
+    pending["tmp"].cleanup()
+    runs = [r[f"cli_pp:{path}"] for r in ranks]
+    r = dict(runs[0]["readings"], ranks_bit_identical=len({run["digest"] for run in runs}) == 1)
+    gates = _dp_gates(("ViT-B-32", "bf16"))  # phase 42's pp 2 limits, as they stand
+    problems = list(_dp_gates_fired(("ViT-B-32", "bf16"), r, gates))
+    if r["grad_norm_rel_gap_if_scaled"] <= gates["grad_norm"]:
+        problems.append("a gradient W times or 1/W its size passes the norm gate")
+    if any(run["losses"] != runs[0]["losses"] for run in runs):
+        problems.append("the ranks' losses differ")
+    if records[0]["parallel"] != {"world_size": stages, "backend": "gloo", "loss_route": "kernel"}:
+        problems.append(f"run_start names {records[0]['parallel']}")
+    zero = dict.fromkeys(KERNELS, 0)
+    stage_blocks = (32 + 24) // stages  # a stage of each tower: 16 + 12 blocks
+    step = dict(zero, mha_fwd=2 * micro * stage_blocks, mha_bwd=micro * stage_blocks,
+                infonce_fwd=1, infonce_bwd_dimg=1, infonce_bwd_dtxt=1)
+    per_eval = dict(zero, mha_fwd=micro * stage_blocks)
+    for rank, run in enumerate(runs):
+        for got, want, what in ((run["counts"], [step] * LARGE_STEPS, "steps"),
+                                (run["evals"], [per_eval] * 3, "evals")):
+            try:
+                _expect_launches(got, want, f"phase 44 rank {rank}'s {what}")
+            except AssertionError as e:
+                problems.append(str(e))
+    one = runs[0]["one_process"]
+    share = max(run["bytes"]["params"] for run in runs) / one["bytes"]["params"]
+    if share >= DP_PP_PARAM_SHARE:
+        problems.append(f"a rank holds {share:.3f} of one process's parameter bytes")
+    step_ms = runs[0]["step_ms"][1:]
+    log("phase 44 cli", config=f"configs/{name}", model="ViT-H-14", params=weights["values"],
+        ranks=stages, backend="gloo", mesh=json.dumps([1, stages]), global_batch=batch,
+        microbatches=micro, bubble_share=f"{bubble_share(stages, micro):.4f}",
+        losses=json.dumps(runs[0]["losses"]), losses_one_process=json.dumps(one["losses"]),
+        readings=json.dumps(r), gates=json.dumps(gates), gates_fired=json.dumps(problems),
+        eval_last=json.dumps(evals[-1]), launches_step=json.dumps(step),
+        launches_eval=json.dumps(per_eval), launches=json.dumps(runs[0]["launches"]),
+        bytes_by_rank=json.dumps([run["bytes"] for run in runs]),
+        bytes_one_process=json.dumps(one["bytes"]), param_share=f"{share:.4f}",
+        peak_gib_by_rank=json.dumps([round(run["peak_gib"], 3) for run in runs]),
+        peak_gib_one_process=f"{one['peak_gib']:.3f}",
+        eval_pass_s=json.dumps([round(x, 3) for x in runs[0]["eval_seconds"]]),
+        setup_s=json.dumps([round(x, 3) for x in runs[0]["setup_s"]]),
+        weights_bytes=weights["bytes"], save_s=f"{runs[0]['saves'][-1]['seconds']:.3f}",
+        step_ms_all=json.dumps([round(x, 3) for x in runs[0]["step_ms"]]),
+        rank0_seconds=json.dumps({k: round(v, 3) for k, v in runs[0]["seconds"].items()}),
+        launch_s=f"{seconds:.3f}", card=json.dumps(smi))
+    log("phase 44 rate", step_ms=f"{np.mean(step_ms):.3f}",
+        steps_2_3_ms=json.dumps([round(x, 3) for x in step_ms]),
+        step_ms_one_process=f"{np.mean(one['step_ms'][1:]):.3f}",
+        pairs_per_s=f"{batch / (np.mean(step_ms) / 1e3):.1f}",
+        bubble_share=f"{bubble_share(stages, micro):.4f}",
+        note="gloo moves every collective's bytes through the host: not a multi-GPU speed",
+        card=json.dumps(smi))
+    if problems:
+        raise AssertionError(f"phase 44: against one process: {problems}")
+    return dict(launches=runs[0]["launches"])
+
+
+def phase_serve_bigg(smi: str):
+    """Phase 45: ViT-bigG-14 in bf16 from the seed on the card, one batch
+    of ``BIGG_REQUESTS`` images and one of as many token rows through
+    ``BatchingEncoderServer`` over ``CLIPEncoder`` (phase 4's checks)."""
+    from sparsify_clip_tpu_torch.models.clip import create_model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = create_model("ViT-bigG-14", dtype=torch.bfloat16, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log("phase 45 model", ok=True, name=model.cfg.name, dtype=str(model.dtype), params=params,
+        weights_gb=f"{weight_bytes / 1e9:.3f}", seconds=f"{seconds:.3f}",
+        create_peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = model.cfg
+    serve = phase_serve(model, "phase 45 serve", BIGG_REQUESTS, BIGG_REQUESTS, BIGG_REQUESTS,
+                        per_batch={"image": {"mha_fwd": cfg.vision_layers[0]},
+                                   "tokens": {"mha_fwd": cfg.text_layers}})
+    peak = torch.cuda.max_memory_allocated()
+    stats = serve["stats"]
+    log("phase 45 rate", requests_per_s=f"{stats.requests / serve['wall']:.1f}",
+        wall_s=f"{serve['wall']:.3f}", p50_ms=f"{stats.latency_p50_ms:.3f}",
+        p99_ms=f"{stats.latency_p99_ms:.3f}", max_memory_allocated_gib=f"{peak / 2**30:.3f}",
+        card=json.dumps(smi))
+    del model
+    torch.cuda.empty_cache()
+    return serve
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -4664,6 +5270,11 @@ def main() -> int:
         per_eval_batch=dict(mha_fwd=24))
     torch.cuda.empty_cache()
 
+    # phases 43-44's processes start here, while the card-bound phases of
+    # ViT-L-14-336 leave the host idle: they import what they run and touch
+    # the card only once their phase opens its gate (stopped at exit)
+    large = start_large_launches()
+    atexit.register(stop_large_launches, large)
     head_group = phase_head_group_kernels(smi)
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -4845,6 +5456,17 @@ def main() -> int:
         dp_gloo = phase_dp_gloo(smi)
     finally:
         torchrun = torchrun.join()
+    torch.cuda.empty_cache()
+
+    # the repository's two large-tower YAMLs and the widest tower served:
+    # rows 1 and 3 at their shapes first, then ViT-g-14 under the launcher,
+    # ViT-H-14 at pp 2 in gloo ranks (both started at phase 11), ViT-bigG-14
+    # behind the server
+    large_kernels = phase_large_kernels(smi)
+    vitg14 = phase_cli_vitg14(smi, large["g14"])
+    vith14 = phase_cli_vith14_pp(smi, large["h14"])
+    stop_large_launches(large)
+    serve_bigg = phase_serve_bigg(smi)
 
     # each row's times are at the case named beside it: the RN50 main
     # path's shape where the kernel runs on it (the text tower's causal
@@ -4902,6 +5524,24 @@ def main() -> int:
                             "twin, no pallas_call)", tp_kernels,
                             "ln_fast_bwd/tp2-vision"),
     }
+    # the large towers' shapes (phases 43-45): each case counts its path's
+    # launches of its kernel (both towers of that path alike)
+    large = {}
+    for key in large_kernels:
+        kernel, case = key.split("/")
+        source = "ops/csrc/mha_fwd.cu" if kernel == "mha_fwd" else "ops/csrc/mha_bwd.cu"
+        line = 67 if kernel == "mha_fwd" else 95
+        sources[key] = (source, f"sparsify_clip_tpu/ops/pallas_attention.py:{line}",
+                        large_kernels, key)
+        large[key] = (kernel, lambda path, p=LARGE_PATHS[case.split("-")[0]]: path == p)
+    # rows 5-7 at ViT-g-14's (64, 1024) and at each ViT-H-14 stage's (32, 1024)
+    for kernel, line in (("infonce_fwd", 64), ("infonce_bwd_dimg", 185),
+                         ("infonce_bwd_dtxt", 222)):
+        for shape, tower in (("64x1024", "g14"), ("32x1024", "h14")):
+            key = f"{kernel}/{shape}"
+            sources[key] = ("ops/csrc/infonce.cu",
+                            f"sparsify_clip_tpu/ops/pallas_infonce.py:{line}", train_kernels, key)
+            large[key] = (kernel, lambda path, p=LARGE_PATHS[tower]: path == p)
     # the fused LN+qkv runs in bf16 on the train paths and in fp32 (the twin)
     # on the eval paths: each case counts its own paths' launches
     # the L = 257 cases count the ViT-L-14 CLI's launches of their kernel
@@ -4916,12 +5556,12 @@ def main() -> int:
                "ln_qkv_fwd/fp32": ("ln_qkv_fwd", lambda path: path.startswith("eval")),
                "mha_fwd/vision-257": ("mha_fwd", on_vitl14),
                "mha_bwd/vision-257": ("mha_bwd", on_vitl14),
-               "mha_fwd_head_group/fp32-257": ("mha_fwd_head_group", on_vitl14)}
+               "mha_fwd_head_group/fp32-257": ("mha_fwd_head_group", on_vitl14), **large}
     entries = []
     for name in (*KERNELS[:KERNELS.index("ln_qkv_fwd") + 1], "ln_qkv_fwd/fp32",
                  *KERNELS[KERNELS.index("ln_qkv_fwd") + 1:], "mha_fwd/vision-257",
                  "mha_bwd/vision-257", "mha_fwd_head_group/fp32-257", "mha_fwd/tp2",
-                 "mha_bwd/tp2", "ln_qkv_fwd/tp2", "ln_fast_bwd/tp2"):
+                 "mha_bwd/tp2", "ln_qkv_fwd/tp2", "ln_fast_bwd/tp2", *large):
         source, replaces, results, case = sources[name]
         r = results[case]
         counter, on_path = counted.get(name, (name, lambda path: True))
@@ -4964,6 +5604,9 @@ def main() -> int:
             "cli_vitl14": vitl14["launches"][counter],
             "cli_torchrun_nccl": torchrun["launches"][counter],
             **{path: counts[counter] for path, counts in dp_gloo["launches"].items()},
+            "cli_vitg14": vitg14["launches"][counter],
+            "train_gloo_vith14_pp2": vith14["launches"][counter],
+            "serve_bigG": serve_bigg["launches"][counter],
         }
         by_path = {path: count for path, count in by_path.items() if on_path(path)}
         entries.append({
@@ -4996,8 +5639,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--cli-rank"]:  # a rank of phase 40, under the launcher
-        sys.exit(cli_rank_main(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--cli-rank"]:  # a rank of phase 40 or 43, under the launcher
+        sys.exit(cli_rank_main(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 41, under the launcher
         sys.exit(dp_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -16,7 +16,9 @@ eval pass also writes the reference's UMAP / t-SNE / PCA sphere plots to
 ``<log_dir>/plots/`` on the host (:mod:`sparsify_clip_tpu_torch.viz`) and
 logs them as image records.  The first record (``run_start``) also
 names the data routes each loader took (``data_routes``: loader,
-tokenizer, image backend).  ``resume_checkpoint`` resumes weights only
+tokenizer, image backend) and the attention route of each tower in the
+train and the eval compute types (``attention_routes``).
+``resume_checkpoint`` resumes weights only
 from an ``.npz`` (the reference's semantics) or the full state from
 ``"auto"`` (``<checkpoint_dir>/<run_name>/``) or a directory, data order
 exact.  SIGTERM (``handle_preemption``) finishes the step, saves the
@@ -81,6 +83,32 @@ def _check_supported(config: ExperimentConfig, world: int = 1,
             "installed; set plot_embeddings: false or run --smoke"
         )
     check_step(config, world, model)
+
+
+def _attention_routes(config: ExperimentConfig, image_size: int) -> Dict[str, Dict[str, str]]:
+    """The attention route each tower's blocks take in the train step's
+    compute type and in the eval twin's (``ops.attention.use_head_group``
+    at a rank's heads: tensor parallelism splits them, a pipeline does
+    not): ``"whole-width"``, ``"head-group"``, or ``"none"`` for a ResNet
+    tower, whose attention pool is plain PyTorch."""
+    from sparsify_clip_tpu_torch.models.clip import MODEL_REGISTRY
+    from sparsify_clip_tpu_torch.ops.attention import use_head_group
+
+    cfg = MODEL_REGISTRY[config.model]
+    tp = 1 if config.pipeline else max(1, config.mesh_model)
+    towers = {"text": (cfg.context_length, cfg.text_width, cfg.text_heads)}
+    if cfg.vision_kind == "vit":
+        tokens = (image_size // cfg.patch_size) ** 2 + 1
+        towers["vision"] = (tokens, cfg.vision_width, cfg.vision_heads)
+    train_size = 2 if config.fp16 else 4
+    sizes = {"train": train_size, "eval": 4 if config.eval_fp32 else train_size}
+    routes = {}
+    for phase, size in sizes.items():
+        routes[phase] = {"vision": "none"} if cfg.vision_kind != "vit" else {}
+        for tower, (l, w, heads) in towers.items():
+            grouped = use_head_group(l, 3 * w // tp, size, heads // tp)
+            routes[phase][tower] = "head-group" if grouped else "whole-width"
+    return routes
 
 
 def main(config: ExperimentConfig, image_size: Optional[int] = None,
@@ -151,7 +179,8 @@ def main(config: ExperimentConfig, image_size: Optional[int] = None,
         config=config.to_dict(),
         log_dir=config.log_dir,
         backend=config.log_backend,
-        start={"data_routes": data_routes, "parallel": parallel},
+        start={"data_routes": data_routes, "parallel": parallel,
+               "attention_routes": _attention_routes(config, image_size)},
     ) if primary else NullLogger()
 
     setup = create_train_setup(config, steps_per_epoch=len(train_loader), device=device,

@@ -376,7 +376,7 @@ class Transformer(nn.Module):
             if str(i) in self.resblocks:
                 self.resblocks[str(i)].reset_parameters(gen)
             else:  # another stage's block: the same draws, kept nowhere
-                with torch.device("cpu"):
+                with torch.device(gen.device):
                     self._draw().reset_parameters(gen)
 
     def stage(self, x: torch.Tensor) -> torch.Tensor:

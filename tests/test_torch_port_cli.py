@@ -178,6 +178,10 @@ def test_smoke_tiny_records_equal_the_jax_clis(tmp_path, monkeypatch, keep_jax_c
     assert got[0].pop("data_routes") == {"train": routes, "eval": routes}
     # and the world size, the backend and the loss route (one rank, no group)
     assert got[0].pop("parallel") == {"world_size": 1, "backend": None, "loss_route": "kernel"}
+    # and each tower's attention route: tiny-test's qkv is far under the
+    # 3 MB budget in both compute types
+    whole = {"vision": "whole-width", "text": "whole-width"}
+    assert got[0].pop("attention_routes") == {"train": whole, "eval": whole}
     assert _shape(got) == _shape(want)
     assert got[0]["config"] == want[0]["config"]
     assert sorted(os.listdir(tmp_path / "models" / "smoke-tiny")) == [
