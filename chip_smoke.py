@@ -471,9 +471,11 @@ BWD_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 2e-5)}  # (rtol, atol)
 # the loss kernels' shapes (phases 6 and 8): ViT-B-32's batch 256 and 512-wide
 # embeddings, N = 200 (no multiple of any tile), ViT-L-14-336's batch 64 and
 # 768-wide embeddings, RN50's batch 256 and 1024-wide embeddings (the main
-# path's, phases 21-23), ViT-L-14-336's batch 256 through GradCache (phase 26)
+# path's, phases 21-23), ViT-L-14-336's batch 256 through GradCache (phase 26),
+# ViT-g-14's and ViT-H-14's (phases 43-44), ViT-bigG-14's batch 64 and 1280-wide
+# embeddings (phase 49)
 LOSS_SHAPES = ((256, 512), (200, 512), (64, 768), (256, 1024), (256, 768), (64, 1024),
-               (32, 1024))
+               (32, 1024), (64, 1280))
 MAIN_LOSS_SHAPE = "256x1024"
 # InfoNCE kernels vs plain versions, all fp32: other summation orders over
 # D <= 1024 and N <= 256; gradients against their largest entry
@@ -1250,6 +1252,61 @@ def _scalar_grad_scales(state, batch) -> dict:
                 "logit_bias": (w.sum() / n).item()}
 
 
+def _kernel_grads(train_step, state, batch, expected: dict, what: str) -> dict:
+    """One step's loss and gradients on the kernels (the optimizer does
+    not step), which must launch exactly ``expected``; the gradients are
+    kept as copies, the scalars' as floats."""
+    reset_counts()
+    loss, aux, _, _ = train_step.loss_and_grads(state, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != expected:
+        raise AssertionError(f"{what} launched {counts}, expected {expected}")
+    return dict(loss=loss, aux=aux,
+                grads=[p.grad.detach().clone() for p in state.model.parameters()],
+                scalars={n: t.grad.item() for n, t in _scalar_trainables(state).items()},
+                scalar_scales=_scalar_grad_scales(state, batch))
+
+
+def _hold_against_plain(train_step, state, inputs, kernel: dict, names, phase: str, **fields):
+    """The same step on the plain versions (no kernel may launch) held
+    against :func:`_kernel_grads`'s ``kernel`` readings under phase 9's
+    tolerances: the loss and its components, the trainable scalars'
+    gradients, each parameter's gradient direction."""
+    restore = _plain_paths()
+    try:
+        reset_counts()
+        loss_p, aux_p, _, _ = train_step.loss_and_grads(state, inputs)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    if any(read_counts().values()):
+        raise AssertionError(f"{phase}: the plain step launched kernels: {read_counts()}")
+    loss_k, aux_k, scalars_k = kernel["loss"], kernel["aux"], kernel["scalars"]
+    cosines = _grad_cosines(list(state.model.parameters()), kernel["grads"])
+    gaps = {k: _rel_gap(aux_k[k].item(), aux_p[k].item()) for k in aux_k}
+    gaps["loss"] = _rel_gap(loss_k.item(), loss_p.item())
+    # the scalars' gradients by phase 7's temperature tolerance, each
+    # against its own size or, for SigLIP's, the size of its terms
+    scales = kernel["scalar_scales"]
+    scalar_gaps = {n: abs(g - t.grad.item()) / max(abs(t.grad.item()), scales.get(n, 0.0), 1e-12)
+                   for (n, t), g in zip(_scalar_trainables(state).items(), scalars_k.values())}
+    worst = _worst(names, cosines)
+    unchecked = {n: c for n, c in zip(names, cosines) if n in ZERO_GRADIENT}
+    log(phase, **fields, loss_kernel=loss_k.item(), loss_plain=loss_p.item(),
+        components_kernel=json.dumps({k: v.item() for k, v in aux_k.items()}),
+        rel_gaps=json.dumps(gaps), rtol=TRAIN_LOSS_RTOL, scalar_grads_kernel=json.dumps(
+            scalars_k), scalar_grad_term_scales=json.dumps(scales),
+        scalar_grad_rel_gaps=json.dumps(scalar_gaps),
+        scalar_rtol=TRAIN_DT_RTOL, min_grad_cosine=cosines[worst],
+        min_at=names[worst], tensors=len(cosines), unchecked=json.dumps(unchecked),
+        lowest_five=json.dumps(sorted(zip(cosines, names))[:5]))
+    if (max(gaps.values()) > TRAIN_LOSS_RTOL or cosines[worst] < TRAIN_MIN_GRAD_COSINE
+            or max(scalar_gaps.values(), default=0.0) > TRAIN_DT_RTOL):
+        raise AssertionError(f"{phase} {fields}: kernel step and plain step disagree")
+    return dict(gaps=gaps, min_grad_cosine=cosines[worst])
+
+
 def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
                steps_per_epoch: int, eval_pairs: int, warm_step: dict, main_step: dict,
                per_eval_batch: dict, overrides: Optional[dict] = None):
@@ -1309,15 +1366,8 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
     checks = [("warm", 0, warm_step)] if warm_epochs else []
     for phase, step, expected in checks + [("main", spe, main_step)]:
         state.step = step
-        reset_counts()
-        loss_k, aux_k, _, _ = setup.train_step.loss_and_grads(state, check)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        if counts != expected:
-            raise AssertionError(f"{phase} kernel step launched {counts}, expected {expected}")
-        grads_k = [p.grad.detach().clone() for p in params]
-        scalars_k = {n: t.grad.item() for n, t in _scalar_trainables(state).items()}
-        scalar_scales = _scalar_grad_scales(state, check)
+        kernel = _kernel_grads(setup.train_step, state, check, expected, f"{phase} kernel step")
+        loss_k, aux_k, grads_k = kernel["loss"], kernel["aux"], kernel["grads"]
         if config.fused_ln_qkv:
             # the same step on the unfused blocks: the card's version of the
             # JAX test_block_fused_path_matches_unfused.  The fused path
@@ -1344,40 +1394,12 @@ def phase_exp6(smi: str, model: str, phases, batch_size: int, check_batch: int,
                 min_cosine=TRAIN_MIN_GRAD_COSINE, tensors=len(cosines))
             if max(gaps.values()) > TRAIN_LOSS_RTOL or cosines[worst] < TRAIN_MIN_GRAD_COSINE:
                 raise AssertionError(f"{phase}: fused step and unfused step disagree")
-        restore = _plain_paths()
-        try:
-            reset_counts()
-            loss_p, aux_p, _, _ = setup.train_step.loss_and_grads(state, check)
-            torch.cuda.synchronize()
-        finally:
-            restore()
-        if any(read_counts().values()):
-            raise AssertionError(f"the plain {phase} step launched kernels: {read_counts()}")
-        cosines = _grad_cosines(params, grads_k)
-        gaps = {k: _rel_gap(aux_k[k].item(), aux_p[k].item()) for k in aux_k}
-        gaps["loss"] = _rel_gap(loss_k.item(), loss_p.item())
-        # the scalars' gradients by phase 7's temperature tolerance, each
-        # against its own size or, for SigLIP's, the size of its terms
-        scalar_gaps = {n: abs(g - t.grad.item()) / max(abs(t.grad.item()),
-                                                       scalar_scales.get(n, 0.0), 1e-12)
-                       for (n, t), g in zip(_scalar_trainables(state).items(), scalars_k.values())}
-        worst = _worst(names, cosines)
-        unchecked = {n: c for n, c in zip(names, cosines) if n in ZERO_GRADIENT}
-        log(f"{train_phase} plain", loss_phase=phase, step=step, batch=check_batch,
-            loss_kernel=loss_k.item(), loss_plain=loss_p.item(), components_kernel=json.dumps(
-                {k: v.item() for k, v in aux_k.items()}),
-            rel_gaps=json.dumps(gaps), rtol=TRAIN_LOSS_RTOL, scalar_grads_kernel=json.dumps(
-                scalars_k), scalar_grad_term_scales=json.dumps(scalar_scales),
-            scalar_grad_rel_gaps=json.dumps(scalar_gaps),
-            scalar_rtol=TRAIN_DT_RTOL, min_grad_cosine=cosines[worst],
-            min_at=names[worst], tensors=len(cosines), unchecked=json.dumps(unchecked),
-            lowest_five=json.dumps(sorted(zip(cosines, names))[:5]))
-        if (max(gaps.values()) > TRAIN_LOSS_RTOL or cosines[worst] < TRAIN_MIN_GRAD_COSINE
-                or max(scalar_gaps.values(), default=0.0) > TRAIN_DT_RTOL):
-            raise AssertionError(f"{phase}: kernel step and plain step disagree")
+        _hold_against_plain(setup.train_step, state, check, kernel, names,
+                            f"{train_phase} plain", loss_phase=phase, step=step,
+                            batch=check_batch)
         if phase == "warm" and (aux_k["anchor"].item() != 0 or aux_k["lalign"].item() != 0):
             raise AssertionError(f"the warm step is not uniformity alone: {aux_k}")
-        del grads_k
+        del kernel, grads_k
     state.step = 0
     del check
     state.optimizer.zero_grad(set_to_none=True)
@@ -1813,7 +1835,8 @@ class _PerStepCounts:
         from sparsify_clip_tpu_torch import eval as port_eval
         from sparsify_clip_tpu_torch.train import TrainStep
 
-        self.steps, self.evals, self.state = [], [], None  # state: the last step's
+        # the last step's state and TrainStep
+        self.steps, self.evals, self.state, self.train_step = [], [], None, None
         self.step_ms, self.eval_seconds = [], []
         step_call, evaluate = TrainStep.__call__, port_eval.evaluate_model
 
@@ -1827,7 +1850,7 @@ class _PerStepCounts:
             out = step_call(step_self, state, batch)
             self.step_ms.append((fence() - t) * 1e3)
             self.steps.append((at, _delta(before, read_counts())))
-            self.state = state
+            self.state, self.train_step = state, step_self
             if after_step is not None:
                 after_step(state, batch, out[1])
             return out
@@ -4724,6 +4747,7 @@ def _dp_check_world(smi: str, world: int, steps, layouts, ranks, rows, saved, se
 
 # --------------------------------------------------------------------
 # Phases 43-45: the repository's two large-tower YAMLs and ViT-bigG-14
+# (phases 46-49 add cases at their own shapes: ViT-bigG-14 trained, ViT-B-16)
 # --------------------------------------------------------------------
 
 LARGE_STEPS = 3                  # phases 43-44: one epoch of 3 steps at the YAML's batch
@@ -4738,15 +4762,18 @@ LARGE_ATTENTION = (
     ("h14-vision", 8, 257, 16, 80, False, "bfloat16", ("mha_fwd", "mha_bwd")),
     ("h14-text", 8, 77, 16, 64, True, "bfloat16", ("mha_fwd", "mha_bwd")),
     ("h14-vision-fp32", 8, 257, 16, 80, False, "float32", ("mha_fwd",)),
-    ("bigG-vision", 64, 257, 16, 104, False, "bfloat16", ("mha_fwd",)),
-    ("bigG-text", 64, 77, 20, 64, True, "bfloat16", ("mha_fwd",)),
+    ("bigG-vision", 64, 257, 16, 104, False, "bfloat16", ("mha_fwd", "mha_bwd")),
+    ("bigG-text", 64, 77, 20, 64, True, "bfloat16", ("mha_fwd", "mha_bwd")),
+    ("bigG-vision-fp32", 64, 257, 16, 104, False, "float32", ("mha_fwd",)),
+    ("b16-vision", 256, 197, 12, 64, False, "bfloat16", ("mha_fwd", "mha_bwd")),
 )
-# the path whose launches each case's entry of the kernels line counts
-LARGE_PATHS = {"g14": "cli_vitg14", "h14": "train_gloo_vith14_pp2", "bigG": "serve_bigG"}
+# the paths whose launches each case's entry of the kernels line counts
+LARGE_PATHS = {"g14": ("cli_vitg14",), "h14": ("train_gloo_vith14_pp2",),
+               "bigG": ("serve_bigG", "cli_bigG"), "b16": ("train_exp6_b16", "eval_b16")}
 
 
 def phase_large_kernels(smi: str):
-    """Phases 43-45, first part: rows 1 and 3 at ``LARGE_ATTENTION``'s
+    """Phases 43-49, first part: rows 1 and 3 at ``LARGE_ATTENTION``'s
     shapes against their plain versions under phase 2's and phase 6's
     tolerances (the LSE at 1e-5), timed beside SDPA under each backend
     that takes the shape and beside their bound at the real head_dim."""
@@ -5224,6 +5251,238 @@ def phase_serve_bigg(smi: str):
     return serve
 
 
+# --------------------------------------------------------------------
+# Phases 46-49: the rest of the model registry
+# --------------------------------------------------------------------
+
+# phase 46: every registry name that no other phase builds on the card, each
+# served one batch of images and one of token rows; ViT-L-14-336's vision
+# tower takes the head-group route (as in phase 12), every other the whole width
+SWEEP_TOWERS = ("RN101", "RN50x4", "RN50x16", "ViT-B-16", "RN50-quickgelu", "RN101-quickgelu",
+                "ViT-B-32-quickgelu", "ViT-B-16-quickgelu", "ViT-L-14-quickgelu",
+                "ViT-L-14-336-quickgelu")
+SWEEP_HEAD_GROUP = ("ViT-L-14-336-quickgelu",)
+SWEEP_REQUESTS = 16
+# phases 47-48: exp 6 from the seed on a device-resident batch, one warm and
+# one main epoch of 2 steps, one eval batch a pass; RN50x64 at 448 px under
+# remat at the batch PERF.md's prediction fits under 70 GiB
+REGISTRY_STEPS = 2
+B16_BATCH = RN101_BATCH = 256
+RN50X64_BATCH = 64
+# phase 49: ViT-bigG-14 exp 6 through the CLI under remat with a bf16 first
+# moment, one warm and one main epoch of 2 steps, one eval batch a pass
+BIGG_BATCH = 64
+BIGG_STEPS = 2
+
+
+def phase_registry_sweep(smi: str):
+    """Phase 46: each of ``SWEEP_TOWERS`` built in bf16 from the seed on the
+    card, its parameter count against the meta-device count, served through
+    ``BatchingEncoderServer`` over ``CLIPEncoder`` (phase 4's checks)."""
+    from sparsify_clip_tpu_torch.models.clip import create_model
+    from sparsify_clip_tpu_torch.models.layers import MLP, quick_gelu
+
+    launches, towers = dict.fromkeys(KERNELS, 0), {}
+    for name in SWEEP_TOWERS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = create_model(name, dtype=torch.bfloat16, device="cuda", seed=SEED)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        cfg = model.cfg
+        params, want = sum(p.numel() for p in model.parameters()), _param_count(name)
+        # each MLP's activation: quick GELU in every block of a -quickgelu tower
+        quick = sorted({m.act is quick_gelu for m in model.modules() if isinstance(m, MLP)})
+        log("phase 46 model", name=name, kind=cfg.vision_kind, image_size=cfg.image_size,
+            dtype=str(model.dtype), params=params, params_meta=want, quick_gelu=cfg.quick_gelu,
+            mlps_quick_gelu=json.dumps(quick), seconds=f"{seconds:.3f}")
+        if params != want or quick != [cfg.quick_gelu]:
+            raise AssertionError(f"phase 46 {name}: {params} parameters ({want} expected), "
+                                 f"quick GELU in the MLPs {quick}")
+        if cfg.vision_kind == "resnet":
+            image = {}
+        else:
+            route = "mha_fwd_head_group" if name in SWEEP_HEAD_GROUP else "mha_fwd"
+            image = {route: cfg.vision_layers[0]}
+        serve = phase_serve(model, f"phase 46 serve {name}", SWEEP_REQUESTS, SWEEP_REQUESTS,
+                            SWEEP_REQUESTS,
+                            per_batch={"image": image, "tokens": {"mha_fwd": cfg.text_layers}})
+        stats = serve["stats"]
+        towers[name] = dict(params=params, requests_per_s=stats.requests / serve["wall"],
+                            p50_ms=stats.latency_p50_ms, p99_ms=stats.latency_p99_ms,
+                            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        for k in KERNELS:
+            launches[k] += serve["launches"][k]
+        log("phase 46 rate", name=name, requests_per_s=f"{towers[name]['requests_per_s']:.1f}",
+            wall_s=f"{serve['wall']:.3f}", p50_ms=f"{stats.latency_p50_ms:.3f}",
+            p99_ms=f"{stats.latency_p99_ms:.3f}",
+            max_memory_allocated_gib=f"{towers[name]['peak_gib']:.3f}", card=json.dumps(smi))
+        del model
+    torch.cuda.empty_cache()
+    return dict(launches=launches, towers=towers)
+
+
+def _exp6_launches(blocks: int, remat: bool = False) -> dict:
+    """Phase 9's launches a step for whole-width towers of ``blocks``
+    attention blocks in all: each block one forward and one backward,
+    under remat two forwards (the backward's recompute); the loss kernels
+    as phase 9's."""
+    step = dict(mha_fwd=blocks * (2 if remat else 1), mha_bwd=blocks)
+    return dict(warm=dict(step, lunif_fwd=2, lunif_bwd=2),
+                main=dict(step, infonce_fwd=1, infonce_bwd_dimg=1, infonce_bwd_dtxt=1,
+                          lunif_fwd=1, lunif_bwd=1))
+
+
+def phase_registry_train(smi: str):
+    """Phases 47-48: exp 6 by phase 9's recipe (:func:`phase_exp6`) on
+    ViT-B-16 and RN101 at batch 256 and on RN50x64 at 448 px under remat
+    at batch ``RN50X64_BATCH``: a warm and a main step held against the
+    plain versions, one warm and one main epoch of ``REGISTRY_STEPS``
+    steps, one eval batch a pass."""
+    from sparsify_clip_tpu_torch.models.clip import MODEL_REGISTRY
+
+    runs = {}
+    for phase, name, batch, remat in ((47, "ViT-B-16", B16_BATCH, False),
+                                      (48, "RN101", RN101_BATCH, False),
+                                      (48, "RN50x64", RN50X64_BATCH, True)):
+        cfg = MODEL_REGISTRY[name]
+        # a ResNet's vision tower runs no attention kernel
+        blocks = cfg.text_layers + (cfg.vision_layers[0] if cfg.vision_kind == "vit" else 0)
+        step = _exp6_launches(blocks, remat=remat)
+        runs[name] = phase_exp6(
+            smi, name, (phase, phase), batch, batch, REGISTRY_STEPS, batch,
+            warm_step=step["warm"], main_step=step["main"], per_eval_batch=dict(mha_fwd=blocks),
+            overrides=dict(remat=True) if remat else None)
+        run = runs[name]
+        log(f"phase {phase} {name}", step_ms=json.dumps({k: round(v["step_ms"], 3)
+                                                        for k, v in run["rates"].items()}),
+            pairs_per_s=json.dumps({k: round(v["pairs_per_s"], 1)
+                                    for k, v in run["rates"].items()}),
+            max_memory_allocated_gib=f"{run['peak'] / 2**30:.3f}",
+            eval_seconds=json.dumps([round(x, 3) for x in run["eval_seconds"]]),
+            card=json.dumps(smi))
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_cli_bigg(smi: str):
+    """Phase 49: ViT-bigG-14 under exp 6 through the CLI
+    (``sparsify_clip_tpu_torch.cli``'s entry point, as ``python3 -m
+    sparsify_clip_tpu_torch.cli --config``) from a YAML written to a
+    temporary directory: synthetic data, ``remat: true``, ``adam_mu_dtype:
+    bfloat16``, batch ``BIGG_BATCH``, one warm and one main epoch of
+    ``BIGG_STEPS`` steps, one eval batch a pass, no epoch-end save.  Each
+    step's launches and ms, the peak memory of its forward and backward
+    apart from its optimizer's; then, in this process at the final
+    weights, a main step on the last batch held against the same step on
+    the plain versions under phase 9's tolerances.  The CLI's final weights
+    file (10.2 GB) is not written: phase 43 writes and reads ViT-g-14's."""
+    import tempfile
+
+    from sparsify_clip_tpu_torch import checkpoints
+    from sparsify_clip_tpu_torch.optim import AdamWBf16Mu
+    from sparsify_clip_tpu_torch.train import TrainStep
+
+    tmp = tempfile.TemporaryDirectory()
+    path = _write_exp6_yaml(tmp.name, model="ViT-bigG-14", run_name="exp6-bigG",
+                            batch_size=BIGG_BATCH, num_train_samples=BIGG_STEPS * BIGG_BATCH,
+                            num_test_samples=BIGG_BATCH, remat=True, adam_mu_dtype="bfloat16",
+                            **NO_EPOCH_SAVES)
+    peaks, kept = {"backward": [], "optimizer": []}, {}
+    grads_fn, step_fn, save = TrainStep.loss_and_grads, AdamWBf16Mu.step, checkpoints.save_weights
+
+    def measured_grads(self, state, batch):  # the forward and backward's peak from here
+        torch.cuda.reset_peak_memory_stats()
+        return grads_fn(self, state, batch)
+
+    def measured_step(self, closure=None):
+        peaks["backward"].append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        out = step_fn(self, closure)
+        peaks["optimizer"].append(torch.cuda.max_memory_allocated())
+        return out
+
+    def unwritten(model, out):
+        kept["save"] = out
+        return out
+
+    def after_step(state, batch, metrics):
+        kept["batch"] = batch
+
+    torch.cuda.empty_cache()
+    counter = _PerStepCounts(timed=True, after_step=after_step)
+    TrainStep.loss_and_grads, AdamWBf16Mu.step = measured_grads, measured_step
+    checkpoints.save_weights = unwritten
+    t = time.perf_counter()
+    try:
+        reset_counts()
+        _run_cli(["--config", path])
+        launches = read_counts()
+    finally:
+        counter.close()
+        TrainStep.loss_and_grads, AdamWBf16Mu.step = grads_fn, step_fn
+        checkpoints.save_weights = save
+    seconds = time.perf_counter() - t
+    spe = BIGG_STEPS
+    records, steps, evals, rates = _cli_records(tmp.name, "exp6-bigG", EXP6_EPOCHS * spe,
+                                                EXP6_EPOCHS + 2, "ViT-bigG-14")
+    start = records[0]
+    whole = {"vision": "whole-width", "text": "whole-width"}
+    if start.get("attention_routes") != {"train": whole, "eval": whole} or not (
+            start["config"]["remat"] and start["config"]["adam_mu_dtype"] == "bfloat16"):
+        raise AssertionError(f"phase 49: the first record reads {start}")
+    blocks = 48 + 32
+    step = _exp6_launches(blocks, remat=True)
+    zero = dict.fromkeys(KERNELS, 0)
+    _expect_launches([tuple(c) for c in counter.steps],
+                     [(k, dict(zero, **step["warm" if k < spe else "main"]))
+                      for k in range(EXP6_EPOCHS * spe)], "the ViT-bigG-14 CLI's steps")
+    _expect_launches(counter.evals, [dict(zero, mha_fwd=blocks)] * (EXP6_EPOCHS + 2),
+                     "the ViT-bigG-14 CLI's evals")
+    if kept.get("save") != os.path.join(tmp.name, "models", "exp6-bigG.npz"):
+        raise AssertionError(f"phase 49: the CLI's final save went to {kept.get('save')}")
+
+    # a main step at the final weights on the last batch, kernels then plain
+    state, batch = counter.state, kept.pop("batch")
+    names = [n for n, _ in state.model.named_parameters()]
+    done = state.step
+    state.step = spe
+    try:
+        kernel = _kernel_grads(counter.train_step, state, batch, dict(zero, **step["main"]),
+                               "phase 49 kernel step")
+        held = _hold_against_plain(counter.train_step, state, batch, kernel, names,
+                                   "phase 49 plain", loss_phase="main", step=spe,
+                                   batch=BIGG_BATCH)
+    finally:
+        state.step = done
+    del kernel
+    state.optimizer.zero_grad(set_to_none=True)
+    step_ms = counter.step_ms
+    log("phase 49 cli", ok=True, model="ViT-bigG-14", params=sum(p.numel() for p in
+                                                                 state.model.parameters()),
+        batch=BIGG_BATCH, remat=True, adam_mu_dtype="bfloat16",
+        losses=json.dumps([r["train_loss"] for r in steps]), eval_last=json.dumps(evals[-1]),
+        launches_step=json.dumps(step), launches=json.dumps(launches),
+        step_ms_all=json.dumps([round(x, 3) for x in step_ms]),
+        cli_step_ms=json.dumps([round(r["step_time_ms"], 3) for r in rates]),
+        eval_pass_s=json.dumps([round(x, 3) for x in counter.eval_seconds]),
+        peak_backward_gib=json.dumps([round(x / 2**30, 3) for x in peaks["backward"]]),
+        peak_optimizer_gib=json.dumps([round(x / 2**30, 3) for x in peaks["optimizer"]]),
+        plain_gaps=json.dumps(held["gaps"]), min_grad_cosine=held["min_grad_cosine"],
+        cli_s=f"{seconds:.3f}", card=json.dumps(smi))
+    log("phase 49 rate", step_ms=f"{np.mean(step_ms[1:]):.3f}",
+        pairs_per_s=f"{BIGG_BATCH / (np.mean(step_ms[1:]) / 1e3):.1f}",
+        peak_backward_gib=f"{max(peaks['backward']) / 2**30:.3f}",
+        peak_optimizer_gib=f"{max(peaks['optimizer']) / 2**30:.3f}",
+        eval_pass_s=f"{np.mean(counter.eval_seconds):.3f}", card=json.dumps(smi))
+    counter.state = counter.train_step = None
+    del state, batch
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=step_ms, peaks=peaks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -5468,6 +5727,13 @@ def main() -> int:
     stop_large_launches(large)
     serve_bigg = phase_serve_bigg(smi)
 
+    # the rest of the model registry: every tower no phase above builds,
+    # served; ViT-B-16, RN101 and RN50x64 under exp 6; ViT-bigG-14 trained
+    # through the CLI
+    sweep = phase_registry_sweep(smi)
+    registry = phase_registry_train(smi)
+    cli_bigg = phase_cli_bigg(smi)
+
     # each row's times are at the case named beside it: the RN50 main
     # path's shape where the kernel runs on it (the text tower's causal
     # attention, the loss rows at (256, 1024)), else ViT-B-32's vision shape
@@ -5533,15 +5799,22 @@ def main() -> int:
         line = 67 if kernel == "mha_fwd" else 95
         sources[key] = (source, f"sparsify_clip_tpu/ops/pallas_attention.py:{line}",
                         large_kernels, key)
-        large[key] = (kernel, lambda path, p=LARGE_PATHS[case.split("-")[0]]: path == p)
-    # rows 5-7 at ViT-g-14's (64, 1024) and at each ViT-H-14 stage's (32, 1024)
-    for kernel, line in (("infonce_fwd", 64), ("infonce_bwd_dimg", 185),
-                         ("infonce_bwd_dtxt", 222)):
-        for shape, tower in (("64x1024", "g14"), ("32x1024", "h14")):
+        large[key] = (kernel, lambda path, p=LARGE_PATHS[case.split("-")[0]]: path in p)
+    # rows 5-7 at ViT-g-14's (64, 1024), at each ViT-H-14 stage's (32, 1024)
+    # and at ViT-bigG-14's (64, 1280), rows 8-9 at ViT-bigG-14's (its exp 6)
+    for kernel, line, shapes in (
+            ("infonce_fwd", 64, ("64x1024", "32x1024", "64x1280")),
+            ("infonce_bwd_dimg", 185, ("64x1024", "32x1024", "64x1280")),
+            ("infonce_bwd_dtxt", 222, ("64x1024", "32x1024", "64x1280")),
+            ("lunif_fwd", 41, ("64x1280",)), ("lunif_bwd", 91, ("64x1280",))):
+        loss = kernel.split("_")[0]
+        for shape in shapes:
+            tower = {"64x1024": "g14", "32x1024": "h14", "64x1280": "bigG"}[shape]
             key = f"{kernel}/{shape}"
-            sources[key] = ("ops/csrc/infonce.cu",
-                            f"sparsify_clip_tpu/ops/pallas_infonce.py:{line}", train_kernels, key)
-            large[key] = (kernel, lambda path, p=LARGE_PATHS[tower]: path == p)
+            sources[key] = (f"ops/csrc/{loss}.cu",
+                            f"sparsify_clip_tpu/ops/pallas_{loss}.py:{line}",
+                            train_kernels if loss == "infonce" else lunif_kernels, key)
+            large[key] = (kernel, lambda path, p=LARGE_PATHS[tower]: path in p)
     # the fused LN+qkv runs in bf16 on the train paths and in fp32 (the twin)
     # on the eval paths: each case counts its own paths' launches
     # the L = 257 cases count the ViT-L-14 CLI's launches of their kernel
@@ -5607,6 +5880,12 @@ def main() -> int:
             "cli_vitg14": vitg14["launches"][counter],
             "train_gloo_vith14_pp2": vith14["launches"][counter],
             "serve_bigG": serve_bigg["launches"][counter],
+            "serve_registry": sweep["launches"][counter],
+            **{f"{kind}_{tag}": sum(c[counter] for c in registry[name][part])
+               for name, tag in (("ViT-B-16", "b16"), ("RN101", "rn101"),
+                                 ("RN50x64", "rn50x64"))
+               for kind, part in (("train_exp6", "train"), ("eval", "eval"))},
+            "cli_bigG": cli_bigg["launches"][counter],
         }
         by_path = {path: count for path, count in by_path.items() if on_path(path)}
         entries.append({

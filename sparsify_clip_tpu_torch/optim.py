@@ -18,6 +18,12 @@ ops:
 * ``update = (μ / (1 - β1^t)) / (sqrt(ν / (1 - β2^t)) + eps)``, then the
   decoupled weight decay ``update + wd·p`` and ``p - lr·update``.
 
+The update runs over slices of the parameter list of at most
+``SLICE_VALUES`` values each.  Its fp32 temporaries (μ, the widened β1·μ,
+g², ν̂) then take a slice's worth each rather than the whole model's (for
+ViT-bigG-14's 2.54 B parameters about 25 GB less at the step's peak);
+every operation is elementwise, so the bits do not depend on the slicing.
+
 The state keys are ``torch.optim.AdamW``'s (``step``, ``exp_avg``,
 ``exp_avg_sq``), and :meth:`load_state_dict` keeps ``exp_avg`` in its
 dtype, so a ``state_dict`` round-trips through ``torch.save`` bit for
@@ -27,6 +33,22 @@ bit (the base class would cast it to the parameter's fp32).
 from __future__ import annotations
 
 import torch
+
+SLICE_VALUES = 1 << 28  # 1 GiB of fp32 a temporary
+
+
+def _slices(params, limit: int):
+    """``params`` in order, cut into runs of at most ``limit`` values (a
+    larger tensor alone)."""
+    run, size = [], 0
+    for p in params:
+        if run and size + p.numel() > limit:
+            yield run
+            run, size = [], 0
+        run.append(p)
+        size += p.numel()
+    if run:
+        yield run
 
 
 class AdamWBf16Mu(torch.optim.Optimizer):
@@ -45,7 +67,6 @@ class AdamWBf16Mu(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
-            b1, b2 = group["betas"]
             for p in params:
                 state = self.state[p]
                 if not state:
@@ -53,33 +74,38 @@ class AdamWBf16Mu(torch.optim.Optimizer):
                     state["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
                     state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
                 state["step"] += 1
-            states = [self.state[p] for p in params]
-            grads = [p.grad.float() for p in params]
-            mus = [s["exp_avg"] for s in states]
-            nus = [s["exp_avg_sq"] for s in states]
-            count = int(states[0]["step"])
-
-            # μ in fp32 from g and β1·μ taken in bf16, as optax does
-            mu = torch._foreach_mul(grads, 1.0 - b1)
-            decayed = torch._foreach_mul(mus, float(torch.tensor(b1, dtype=torch.bfloat16)))
-            torch._foreach_add_(mu, [d.float() for d in decayed])
-            del decayed
-            torch._foreach_mul_(nus, b2)
-            squares = torch._foreach_mul(grads, grads)
-            torch._foreach_mul_(squares, 1.0 - b2)
-            torch._foreach_add_(nus, squares)
-            del squares
-            torch._foreach_copy_(mus, mu)  # stored rounded; the update uses the fp32 μ
-
-            torch._foreach_div_(mu, 1.0 - b1 ** count)            # μ̂
-            denom = torch._foreach_div(nus, 1.0 - b2 ** count)    # ν̂
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, group["eps"])
-            torch._foreach_div_(mu, denom)
-            del denom
-            torch._foreach_add_(mu, params, alpha=group["weight_decay"])
-            torch._foreach_add_(params, mu, alpha=-group["lr"])
+            count = int(self.state[params[0]]["step"])
+            for run in _slices(params, SLICE_VALUES):
+                self._update(run, group, count)
         return None
+
+    def _update(self, params, group, count: int) -> None:
+        b1, b2 = group["betas"]
+        states = [self.state[p] for p in params]
+        grads = [p.grad.float() for p in params]
+        mus = [s["exp_avg"] for s in states]
+        nus = [s["exp_avg_sq"] for s in states]
+
+        # μ in fp32 from g and β1·μ taken in bf16, as optax does
+        mu = torch._foreach_mul(grads, 1.0 - b1)
+        decayed = torch._foreach_mul(mus, float(torch.tensor(b1, dtype=torch.bfloat16)))
+        torch._foreach_add_(mu, [d.float() for d in decayed])
+        del decayed
+        torch._foreach_mul_(nus, b2)
+        squares = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(squares, 1.0 - b2)
+        torch._foreach_add_(nus, squares)
+        del squares
+        torch._foreach_copy_(mus, mu)  # stored rounded; the update uses the fp32 μ
+
+        torch._foreach_div_(mu, 1.0 - b1 ** count)            # μ̂
+        denom = torch._foreach_div(nus, 1.0 - b2 ** count)    # ν̂
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, group["eps"])
+        torch._foreach_div_(mu, denom)
+        del denom
+        torch._foreach_add_(mu, params, alpha=group["weight_decay"])
+        torch._foreach_add_(params, mu, alpha=-group["lr"])
 
     def load_state_dict(self, state_dict) -> None:
         super().load_state_dict(state_dict)

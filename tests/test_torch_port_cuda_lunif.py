@@ -51,10 +51,10 @@ def _check_dx(got, want):
 # N: the forward's 16-row tiles' edges (15, 17), the backward's 32-row
 # tiles' edges (31, 33), ViT-L-14-336's batch (64) and the ragged or large
 # ones (1000: 63 x 63 forward tiles); D: ViT-B-32's 512,
-# ViT-L-14-336's 768 and RN50's 1024 embeddings
+# ViT-L-14-336's 768, RN50's 1024 and ViT-bigG-14's 1280 embeddings
 @pytest.mark.parametrize("n", [2, 15, 16, 17, 31, 33, 64, 200, 256, 1000])
 @pytest.mark.parametrize("d,scale", [(16, None), (512, None), (512, 0.05), (768, None),
-                                     (1024, None)])
+                                     (1024, None), (1280, None)])
 def test_lunif_kernels_match_plain_versions(device, n, d, scale):
     x = _rows(n, d, device, n + d, scale)
     s, loss = lunif_fwd(x)

@@ -67,6 +67,9 @@ def _attention_inputs(b, l, heads, head_dim, causal, dtype, device, seed=0):
         (2, 257, 16, 64, True, torch.bfloat16),
         (2, 257, 4, 88, False, torch.float32),      # ViT-g-14's head_dim
         (2, 257, 4, 88, False, torch.bfloat16),
+        (2, 257, 4, 104, False, torch.bfloat16),    # ViT-bigG-14's head_dim
+        (2, 257, 4, 104, False, torch.float32),
+        (4, 77, 20, 64, True, torch.bfloat16),      # ViT-bigG-14's 20-head text tower
         (3, 257, 2, 128, True, torch.float32),      # largest head_dim
         (3, 257, 2, 128, False, torch.bfloat16),
         (2, 577, 4, 64, True, torch.bfloat16),      # ViT-L-14-336 length
@@ -183,9 +186,9 @@ def _embeddings(n, d, device, seed):
 # N: the forward's 16-row tiles' edges (15, 17), the backward's 32-row
 # tiles' edges (31, 33), ViT-L-14-336's batch (64) and the ragged or large
 # ones (1000: 63 x 63 forward tiles); D: ViT-B-32's 512,
-# ViT-L-14-336's 768, RN50's 1024
+# ViT-L-14-336's 768, RN50's 1024, ViT-bigG-14's 1280
 @pytest.mark.parametrize("n", [1, 2, 15, 16, 17, 31, 33, 64, 256, 1000])
-@pytest.mark.parametrize("d", [16, 512, 768, 1024])
+@pytest.mark.parametrize("d", [16, 512, 768, 1024, 1280])
 def test_infonce_kernels_match_plain_versions(device, n, d):
     img, txt = _embeddings(n, d, device, 0), _embeddings(n, d, device, 1)
     temp = torch.tensor(0.07, device=device)
